@@ -1,0 +1,5 @@
+from repro_torch.train.steps import (make_train_state, make_train_step,
+                                     merge_params, split_params)
+
+__all__ = ["make_train_state", "make_train_step", "merge_params",
+           "split_params"]
