@@ -7,17 +7,28 @@ Phases (any failure exits non-zero and prints no result):
 
 1. environment: torch version, the card's name and power limit, TF32 off;
 2. build: nvcc builds every kernel of the port from `src/repro_torch/kernels/csrc`;
-3. kernels against their plain versions at the main path's shapes
-   (M = 4096 tokens, full llama3-8b widths), with their times, bounds and
-   the library call's time;
-4. the main path: the compact sparse-update train step on full-width
+3. kernels against their plain versions at the main paths' shapes
+   (M = 4096 tokens, full llama3-8b widths; every activation shape of the
+   full-width MobileNetV2 at batch 32), with their times, bounds and the
+   library call's time;
+4. the LM path: the compact sparse-update train step on full-width
    llama3-8b (32 layers, bf16), batch 4 x seq 1024, AdamW, 6 steps across
    the fixed / dynamic / fixed phases, through `repro_torch.launch.train`;
    the kernels' launch counts are zeroed just before and read just after;
-5. one more main-path step under torch.profiler: device time by op and the
+5. one more LM step under torch.profiler: device time by op and the
    device's idle share;
 6. compact against dense-scatter on the card: SGD, 2 fixed-phase steps,
-   trainable params bitwise equal.
+   trainable params bitwise equal;
+7. the CNN path: MobileNetV2 + GroupNorm at full width (224 x 224, width
+   1.0), batch 32, the `dynamic` method for 12 steps (fixed 4 / dynamic 4 /
+   fixed 4) through `repro_torch.launch.cnn_transfer`, counts zeroed just
+   before and read just after: block activation pruning launched exactly
+   as derived every step, frozen params and (in the first fixed phase) the
+   unselected blocks bitwise unchanged; then 2 steps of `full`, and
+   peak(dynamic) < peak(full);
+8. one more CNN step under torch.profiler;
+9. the reference's Table II at the smoke config (150 pretraining steps,
+   120 transfer steps, five methods) and the learnability check.
 
 The last lines are one JSON object with every kernel's numbers, and then
 `{"ok": true, "device": {...}}`.
@@ -25,6 +36,7 @@ The last lines are one JSON object with every kernel's numbers, and then
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -46,20 +58,36 @@ MAIN_ARGV = ["--arch", "llama3-8b", "--steps", "6", "--batch", "4",
              "--channel-block", "128", "--optimizer", "adamw",
              "--phase-j", "2", "--phase-k", "2", "--log-every", "1",
              "--seed", "0"]
-# name -> (route, source, the TPU kernel it replaces). block_sparse_dw also
-# replaces block_sparse_dw_pipelined_kernel (masked_dw.py:131) with its
-# pipelined instance, which the wrapper picks wherever the shape is aligned.
+# name -> (route, source, the TPU kernel it replaces, the path that launches
+# it). block_sparse_dw also replaces block_sparse_dw_pipelined_kernel
+# (masked_dw.py:131) with its pipelined instance, which the wrapper picks
+# wherever the shape is aligned. block_act_prune_bwd is the same kernel's
+# backward entry point (the reference differentiates its jnp version).
 SOURCES = {
     "block_sparse_dw": ("cuda",
                         "src/repro_torch/kernels/csrc/block_sparse_dw.cu",
-                        "src/repro/kernels/masked_dw.py:65"),
+                        "src/repro/kernels/masked_dw.py:65", "lm"),
     "fused_block_opt": ("cuda",
                         "src/repro_torch/kernels/csrc/fused_block_opt.cu",
-                        "src/repro/kernels/fused_block_opt.py:88"),
+                        "src/repro/kernels/fused_block_opt.py:88", "lm"),
+    "block_act_prune": ("cuda",
+                        "src/repro_torch/kernels/csrc/block_act_prune.cu",
+                        "src/repro/kernels/block_act_prune.py:26", "cnn"),
+    "block_act_prune_bwd": ("cuda",
+                            "src/repro_torch/kernels/csrc/block_act_prune.cu",
+                            "src/repro/kernels/block_act_prune.py:26", "cnn"),
 }
 # the port's kernels as the profiler names them
 PORT_KERNELS = ("dw_grid_kernel", "dw_pipelined_kernel",
-                "fused_block_opt_kernel")
+                "fused_block_opt_kernel", "prune_kernel")
+CNN_BATCH = 32
+CNN_STEPS, CNN_J, CNN_K = 12, 4, 4
+CNN_ARGV = ["--config", "full", "--batch", str(CNN_BATCH), "--steps",
+            str(CNN_STEPS), "--pretrain-steps", "0", "--methods", "dynamic",
+            "--phase-j", str(CNN_J), "--phase-k", str(CNN_K), "--seed", "0"]
+CNN_FULL_ARGV = ["--config", "full", "--batch", str(CNN_BATCH), "--steps",
+                 "2", "--pretrain-steps", "0", "--methods", "full",
+                 "--seed", "0"]
 
 
 class SmokeError(RuntimeError):
@@ -83,6 +111,36 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _dev_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 2, flush=None) -> float:
+    """The card's time per call: the device time of every kernel `fn`
+    launches, from torch.profiler over `reps` calls. Where the host takes
+    longer to submit a call than the card takes to run it (a small
+    element-wise kernel), CUDA events around back-to-back calls time the
+    host; this times the card. flush: a tensor larger than the 50 MB L2,
+    zeroed before every call (its fill kernel is not counted), so that the
+    call reads its inputs from device memory, as the byte bound assumes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_dev_us(e) for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not (flush is not None and "FillFunctor" in e.key))
+    return us / reps / 1e3
 
 
 def bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -325,6 +383,115 @@ def check_opt(leaves: dict, gen, sums: dict):
                 del w, g, mu, nu, want, before, mask
 
 
+def _same_bits(a, b) -> bool:
+    """Bitwise equality (the sign of zero included)."""
+    view = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(view[a.dtype]), b.view(view[b.dtype]))
+
+
+def _prune_case(x, dy, thr, blk):
+    """Both entry points against their plain versions, bitwise."""
+    from repro_torch.kernels import ops, ref
+    y = ops.block_act_prune_fwd(x, thr, blk)
+    dx = ops.block_act_prune_bwd(dy, y, thr, blk)
+    torch.cuda.synchronize()
+    want_y = ref.block_act_prune_ref(x, thr, blk)
+    want_dx = ref.block_act_prune_bwd_ref(dy, want_y, thr, blk)
+    return (_same_bits(y, want_y) and _same_bits(dx, want_dx),
+            float((y.float() - want_y.float()).abs().max()),
+            float((y == 0).float().mean()))
+
+
+def check_prune(gen, fwd: dict, bwd: dict):
+    """Block activation pruning, forward and backward, at every distinct
+    activation shape of the full-width MobileNetV2 forward at batch 32
+    ([32*H*W, C]), fp32 (the path's type) and bf16: bitwise equal to the
+    plain versions. The fp32 times go into the sums, weighted by how often
+    the shape occurs: all 35 sites forward, the 5 sites one dynamic step
+    differentiates backward. Bytes: x read, y written (forward); dy and y
+    read, dx written (backward). Times are the card's (`device_ms`), with
+    the L2 flushed before every call: at the small shapes the wrapper's
+    ~20 us of host work exceeds the kernel, so CUDA events (printed beside
+    them) time the host, and an L2-warm input (also printed) beats the
+    device-memory bound."""
+    from collections import Counter
+    from repro_torch.configs.mobilenetv2_cifar import CONFIG
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import cnn_transfer as CT
+    from repro_torch.models import mobilenet_v2 as MN
+    thr, blk = CT.PRUNE_THRESHOLD, CT.PRUNE_BLOCK
+    sites = MN.prune_sites(CONFIG, CONFIG.img_size)
+    n_bwd = CT.prune_launches(CONFIG, "dynamic")[1]
+    n_fwd = Counter(shape for _, shape in sites)
+    n_back = Counter(shape for _, shape in sites[len(sites) - n_bwd:])
+    flush = torch.empty(64 << 20, device="cuda")     # 256 MB, 5x the L2
+    for (h, w, c), mult in n_fwd.items():
+        r = CNN_BATCH * h * w
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(r, c, generator=gen, device="cuda") * 0.3) \
+                .to(dtype)
+            dy = torch.randn(r, c, generator=gen, device="cuda").to(dtype)
+            ok, err, pruned = _prune_case(x, dy, thr, blk)
+            check(ok, f"block_act_prune [{r}, {c}] {_dname(dtype)}: not "
+                      f"bitwise equal to the plain version")
+            line = (f"[kernel] block_act_prune R={r} C={c} "
+                    f"{_dname(dtype)} sites={mult} backward_sites="
+                    f"{n_back[(h, w, c)]} pruned_share={pruned:.3f} "
+                    f"bitwise=True")
+            if dtype == torch.float32:
+                y = ops.block_act_prune_fwd(x, thr, blk)
+                calls = {
+                    "fwd": lambda: ops.block_act_prune_fwd(x, thr, blk),
+                    "fwd_plain": lambda: ref.block_act_prune_ref(x, thr, blk),
+                    "bwd": lambda: ops.block_act_prune_bwd(dy, y, thr, blk),
+                    "bwd_plain": lambda: ref.block_act_prune_bwd_ref(
+                        dy, y, thr, blk)}
+                t = {k: device_ms(fn, flush=flush)
+                     for k, fn in calls.items()}
+                warm = {k: device_ms(fn) for k, fn in calls.items()}
+                events = {k: cuda_ms(fn) for k, fn in calls.items()}
+                n = r * c
+                for sums, k, m, nbytes in ((fwd, "fwd", mult, 2 * n * 4),
+                                           (bwd, "bwd", n_back[(h, w, c)],
+                                            3 * n * 4)):
+                    sums["ms"] += m * t[k]
+                    sums["plain_ms"] += m * t[k + "_plain"]
+                    sums["bytes"] += m * nbytes
+                    sums["flops"] += m * 2.0 * n
+                    sums["max_abs_err"] = max(sums["max_abs_err"], err)
+                line += " device " + " ".join(f"{k}_ms={v:.4f}"
+                                              for k, v in t.items())
+                line += " l2_warm " + " ".join(f"{k}_ms={v:.4f}"
+                                               for k, v in warm.items())
+                line += " events " + " ".join(f"{k}_ms={v:.4f}"
+                                              for k, v in events.items())
+                line += (f" fwd_bound_ms={2 * n * 4 / PEAK_BYTES * 1e3:.4f}"
+                         f" bwd_bound_ms={3 * n * 4 / PEAK_BYTES * 1e3:.4f}")
+                del y
+            print(line, flush=True)
+            del x, dy
+
+
+def check_prune_paths(gen):
+    """The kernel's other instances, bitwise: the 8-wide bf16 vector path
+    (block 8), a block wider than a vector (16), blocks that leave a tail
+    after the last whole vector, and a base pointer off 16-byte alignment
+    (the scalar loop)."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for blk, c, offset in ((4, 64, 0), (8, 64, 0), (16, 64, 0),
+                               (2, 6, 0), (2, 64, 1), (1, 7, 3)):
+            n = 999 * c
+            base = torch.randn(n + offset, generator=gen, device="cuda")
+            x = (base * 0.3).to(dtype)[offset:].view(999, c)
+            dy = base.to(dtype)[offset:].view(999, c)
+            ok, _, _ = _prune_case(x, dy, 0.15, blk)
+            check(ok, f"block_act_prune block={blk} C={c} offset={offset} "
+                      f"{_dname(dtype)}: not bitwise equal")
+    print("[kernel] block_act_prune other instances (block 1, 2, 4, 8, 16; "
+          "tails; misaligned): bitwise equal", flush=True)
+
+
 def phase_kernels(results: dict):
     gen = torch.Generator(device="cuda").manual_seed(0)
     leaves = _main_path_leaves()
@@ -333,6 +500,11 @@ def phase_kernels(results: dict):
     check_dw(leaves, gen, results["block_sparse_dw"])
     check_dw_long(leaves, gen)
     check_opt(leaves, gen, results["fused_block_opt"])
+    results["block_act_prune"] = _new_sums()
+    results["block_act_prune_bwd"] = _new_sums()
+    check_prune(gen, results["block_act_prune"],
+                results["block_act_prune_bwd"])
+    check_prune_paths(gen)
     torch.cuda.empty_cache()
 
 
@@ -392,20 +564,50 @@ def phase_main_path(results: dict):
                         f"want 7")
         check(bool(torch.isfinite(torch.tensor(row["loss"]))),
               f"step {row['step']}: loss {row['loss']} is not finite")
-    for name in SOURCES:
-        check(totals[name] > 0, f"{name} was never launched on the main path")
-    results["launches"] = totals
+    for name, (_, _, _, path) in SOURCES.items():
+        if path == "lm":
+            check(totals[name] > 0, f"{name} was never launched on the LM "
+                                    f"path")
+            results["launches"][name] = totals[name]
     print(f"[main] launches over 6 steps: {totals}; block_sparse_dw by "
           f"instance: {dict(ops.DW_INSTANCES)}", flush=True)
     return tc, out
 
 
-def phase_profile(tc, out):
-    """One more main-path step (fixed phase) under torch.profiler: device
-    time by op, the share of the step's wall time the device sits idle,
-    and the port's kernels' share."""
+def profile_step(tag: str, run):
+    """`run()` once under torch.profiler, then synced: device time by
+    kernel, the share of the wall time the device sits idle, and the port's
+    kernels' share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    # kernel rows only: a CPU op's row repeats its kernels' device time
+    rows = sorted(((_dev_us(e), e.key, e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and _dev_us(e) > 0),
+                  reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    check(busy_ms > 0, "the profiler saw no device time")
+    ours = sum(r[0] for r in rows if any(
+        k in r[1] for k in PORT_KERNELS)) / 1e3
+    print(f"[profile] {tag}: wall_ms={wall_ms:.1f} "
+          f"device_busy_ms={busy_ms:.1f} "
+          f"idle_share={max(0.0, 1 - busy_ms / wall_ms):.3f} "
+          f"port_kernels_ms={ours:.2f}", flush=True)
+    for us, key, count in rows[:15]:
+        print(f"[profile] {us / 1e3:9.2f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
+              f"x{count:<5d} {key[:90]}", flush=True)
+
+
+def phase_profile(tc, out):
+    """One more LM step (fixed phase) under torch.profiler."""
     from repro_torch.data import lm_batches
     from repro_torch.train import make_train_step
 
@@ -413,32 +615,8 @@ def phase_profile(tc, out):
     batch = next(lm_batches(tc.shape.global_batch, tc.shape.seq_len,
                             tc.model.vocab_size, seed=tc.seed, start_step=6))
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step_fn(out["state"], batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    # kernel rows only: a CPU op's row repeats its kernels' device time
-    rows = sorted(((dev_us(e), e.key, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                  reverse=True)
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    check(busy_ms > 0, "the profiler saw no device time")
-    ours = sum(r[0] for r in rows if any(
-        k in r[1] for k in PORT_KERNELS)) / 1e3
-    print(f"[profile] one fixed-phase step: wall_ms={wall_ms:.1f} "
-          f"device_busy_ms={busy_ms:.1f} "
-          f"idle_share={max(0.0, 1 - busy_ms / wall_ms):.3f} "
-          f"port_kernels_ms={ours:.2f}", flush=True)
-    for us, key, count in rows[:15]:
-        print(f"[profile] {us / 1e3:9.2f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
-              f"x{count:<5d} {key[:90]}", flush=True)
+    profile_step("one fixed-phase step",
+                 lambda: step_fn(out["state"], batch))
 
 
 def phase_compact_vs_dense():
@@ -483,15 +661,220 @@ def phase_compact_vs_dense():
           f"trainable leaves bitwise equal", flush=True)
 
 
-def kernels_line(results: dict) -> dict:
-    """The kernels' JSON line. Times are sums over the 7 leaf shapes of one
-    trainable layer at the main path's shapes; launches are the main path's
-    run (6 steps)."""
+def _blocks_of(w, idx, spec):
+    """w [..., out] viewed as [-1, n_blocks, block], and the bool mask of
+    the blocks in idx ([1, n_sel])."""
+    mask = torch.zeros(spec.n_blocks, dtype=torch.bool, device=w.device)
+    mask[idx[0].long()] = True
+    return w.reshape(-1, spec.n_blocks, spec.block), mask
+
+
+def _leaf(tree, name):
+    node = tree
+    for part in name.split("/"):
+        node = node[part]
+    return node
+
+
+def _run_cnn(argv, method, per_step_check):
+    """cnn_transfer.main(argv) with the launch counts zeroed just before and
+    read just after; checks every step's launches against prune_launches
+    and its loss for finiteness. Returns (out, per-step rows, totals)."""
+    from repro_torch.configs.mobilenetv2_cifar import CONFIG
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cnn_transfer as CT
+    want = dict(zip(("block_act_prune", "block_act_prune_bwd"),
+                    CT.prune_launches(CONFIG, method)))
     rows = []
-    for name, (route, source, replaces) in SOURCES.items():
+    last = {"counts": {k: 0 for k in ops.LAUNCHES}}
+
+    def on_step(step, state, metrics):
+        counts = ops.launch_counts()
+        delta = {k: counts[k] - last["counts"][k] for k in counts}
+        last["counts"] = counts
+        for name, n in want.items():
+            check(delta[name] == n, f"{method} step {step}: {delta[name]} "
+                                    f"{name} launches, want {n}")
+        check(delta["block_sparse_dw"] == delta["fused_block_opt"] == 0,
+              f"{method} step {step}: an LM kernel was launched")
+        check(bool(torch.isfinite(torch.tensor(metrics["loss"]))),
+              f"{method} step {step}: loss {metrics['loss']} is not finite")
+        per_step_check(step, state)
+        rows.append(dict(metrics, step=step))
+        print(f"[cnn] {method} step {step} loss={metrics['loss']:.6f} "
+              f"step_ms={metrics['step_ms']:.2f} "
+              f"data_ms={metrics['data_ms']:.2f} launches={delta}",
+              flush=True)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = CT.main(argv, on_step=on_step)
+    totals = ops.launch_counts()
+    steps = len(rows)
+    for name, n in want.items():   # eval runs without pruning: no more
+        check(totals[name] == steps * n, f"{method}: {totals[name]} {name} "
+                                         f"launches in the run, want "
+                                         f"{steps} x {n}")
+    return out, rows, totals
+
+
+def phase_cnn(results: dict):
+    """The CNN path at full width: 12 dynamic-method steps, then 2 full
+    fine-tuning steps for the memory comparison."""
+    from repro_torch.configs.mobilenetv2_cifar import CONFIG
+    from repro_torch.core.sparse_update import tree_leaves
+    from repro_torch.launch import cnn_transfer as CT
+    from repro_torch.models import mobilenet_v2 as MN
+
+    cfg = CONFIG
+    # the run's init, made again from the same seed: the yardstick for
+    # "unchanged"
+    init = MN.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    trainable = set(CT.split_for(cfg, init, "dynamic")[1])
+    print(f"[cnn] MobileNetV2 + GN full width ({cfg.img_size}x{cfg.img_size},"
+          f" width {cfg.width_mult}, {len(MN.conv_layer_names(cfg))} convs, "
+          f"{sum(t.numel() for t in tree_leaves(init))} params), batch "
+          f"{CNN_BATCH}, trainable {sorted(trainable)}, prune launches per "
+          f"step {CT.prune_launches(cfg, 'dynamic')}", flush=True)
+    prev = {}
+
+    def dynamic_check(step, state):
+        idx, spec = state["idx"], state["spec"]
+        if step <= CNN_J:
+            # first fixed phase, momentum from zero: the unselected blocks of
+            # the selected 1x1 convs are bitwise their init, the rest moved
+            for name, sp in spec.items():
+                w0 = _leaf(init, name)
+                if w0.shape[2] == 1:      # depthwise: not masked by channel
+                    continue
+                wb, mask = _blocks_of(_leaf(state["trainable"], name),
+                                      idx[name], sp)
+                w0b, _ = _blocks_of(w0, idx[name], sp)
+                check(torch.equal(wb[:, ~mask], w0b[:, ~mask]),
+                      f"step {step}: an unselected block of {name} changed")
+                check(not torch.equal(wb[:, mask], w0b[:, mask]),
+                      f"step {step}: the selected blocks of {name} did not "
+                      f"move")
+        elif step <= CNN_J + CNN_K:
+            check(any(not torch.equal(idx[n], prev[n]) for n in idx),
+                  f"step {step}: the dynamic phase kept the last selection")
+        else:
+            check(all(torch.equal(idx[n], prev[n]) for n in idx),
+                  f"step {step}: the late fixed phase changed the selection")
+        prev.update(idx)
+
+    out, rows, totals = _run_cnn(CNN_ARGV, "dynamic", dynamic_check)
+    check(len(rows) == CNN_STEPS, f"ran {len(rows)} steps, want {CNN_STEPS}")
+    row = out["rows"][0]
+    unchanged = [k for k in init if k not in trainable and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(init[k]),
+                                          tree_leaves(row["params"][k])))]
+    check(len(unchanged) == len(init) - len(trainable),
+          "a frozen param changed")
+    for name in ("block_act_prune", "block_act_prune_bwd"):
+        results["launches"][name] = totals[name]
+    steady = [r["step_ms"] for r in rows[1:]]
+    med = statistics.median(steady)
+    peak_dyn = row["peak_bytes"]
+    print(f"[cnn] dynamic: {CNN_STEPS} steps, frozen params bitwise "
+          f"unchanged ({len(unchanged)} blocks), unselected blocks unchanged "
+          f"through the first fixed phase; launches {totals}", flush=True)
+    print(f"[cnn] dynamic step_ms steps 2-{CNN_STEPS}: "
+          f"{[round(t, 3) for t in steady]} median={med:.3f} "
+          f"images_per_s={CNN_BATCH / med * 1e3:.1f} step1_ms="
+          f"{rows[0]['step_ms']:.3f} data_ms_median="
+          f"{statistics.median(r['data_ms'] for r in rows):.3f} "
+          f"acc={row['acc']:.4f} peak_bytes={peak_dyn}", flush=True)
+    del out, row
+
+    out, rows, totals = _run_cnn(CNN_FULL_ARGV, "full", lambda *_: None)
+    peak_full = out["rows"][0]["peak_bytes"]
+    print(f"[cnn] full: step_ms={[round(r['step_ms'], 3) for r in rows]} "
+          f"peak_bytes={peak_full} launches {totals}", flush=True)
+    check(peak_dyn < peak_full, f"peak(dynamic) {peak_dyn} is not below "
+                                f"peak(full) {peak_full}")
+    print(f"[cnn] peak(dynamic) / peak(full) = {peak_dyn / peak_full:.4f}",
+          flush=True)
+    return init
+
+
+def phase_cnn_profile(init):
+    """One dynamic-phase step of the CNN path under torch.profiler, its
+    batch already on the card."""
+    from repro_torch.configs.mobilenetv2_cifar import CONFIG
+    from repro_torch.data import TransferTask
+    from repro_torch.launch import cnn_transfer as CT
+    from repro_torch.optim import init_opt_state
+
+    cfg, step = CONFIG, CNN_J
+    frozen, p = CT.split_for(cfg, init, "dynamic")
+    idx, spec = CT._selection(cfg, init, CT.UPDATE_RATIO, CT.LAST_K_CONVS,
+                              seed=0, step=step, magnitude=False)
+    oc = CT.transfer_optimizer("dynamic", CNN_STEPS)
+    st = init_opt_state(oc, p)
+    t0 = time.perf_counter()
+    host = TransferTask(img=cfg.img_size, seed=0).batch(CNN_BATCH, step,
+                                                        "target")
+    data_ms = (time.perf_counter() - t0) * 1e3
+    b = CT._to_device(host, "cuda")
+    prune = CT.make_act_pruner(CT.PRUNE_THRESHOLD, CT.PRUNE_BLOCK)
+
+    def run():
+        CT.train_step(cfg, oc, frozen, p, st, b, step, sel=(idx, spec),
+                      act_prune=prune)
+    run()
+    profile_step(f"one CNN dynamic step (the host made its batch of "
+                 f"{CNN_BATCH} images in {data_ms:.1f} ms beforehand)", run)
+
+
+def phase_table2():
+    """The reference's Table II at the smoke config, on the card: the rows
+    are reported, not asserted; the learnability check is asserted."""
+    from repro_torch.configs.mobilenetv2_cifar import smoke_config
+    from repro_torch.data import TransferTask
+    from repro_torch.kernels import ops
+    from repro_torch.launch import cnn_transfer as CT
+    from repro_torch.models import mobilenet_v2 as MN
+
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    out = CT.main(["--config", "smoke", "--seed", "0"])
+    totals = ops.launch_counts()
+    cfg = out["cfg"]
+    want = [sum(CT.prune_launches(cfg, m)[i] for m in CT.METHODS) * CT.STEPS
+            for i in (0, 1)]
+    got = [totals["block_act_prune"], totals["block_act_prune_bwd"]]
+    check(got == want, f"table2: prune launches {got}, want {want}")
+    for row in out["rows"]:
+        print(f"[table2] {row['method']} acc={row['acc']:.4f} "
+              f"extra_mem={row['extra_mem']}B seconds={row['seconds']:.2f}",
+              flush=True)
+    print(f"[table2] paper (CIFAR-10): none=36.83 last=59.34 full=90.33 "
+          f"fixed=84.30 dynamic=85.77; run took "
+          f"{time.perf_counter() - t0:.1f} s, prune launches {got}",
+          flush=True)
+    cfg = smoke_config()
+    params = MN.init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    acc0, acc = CT.learnability(cfg, TransferTask(img=cfg.img_size, seed=0),
+                                params, "cuda")
+    print(f"[table2] learnability (30 full fine-tuning steps from the seed-0 "
+          f"port init): acc0={acc0:.4f} acc={acc:.4f}", flush=True)
+    check(acc >= acc0 + 0.05, f"learnability: {acc0} -> {acc}, want +0.05")
+
+
+def kernels_line(results: dict) -> dict:
+    """The kernels' JSON line. Times: block_sparse_dw summed over the 7 leaf
+    shapes of one trainable LM layer, fused_block_opt over the 7 leaves of
+    the K trainable layers; block_act_prune over the 35 activations of one
+    full-width CNN forward at batch 32, block_act_prune_bwd over the 5 that
+    one dynamic-method step differentiates. Launches: the LM path's run
+    (6 steps) and the CNN path's run (12 steps of `dynamic`)."""
+    dtypes = {"block_sparse_dw": "bfloat16"}
+    rows = []
+    for name, (route, source, replaces, _) in SOURCES.items():
         s = results[name]
-        b_ms, b_by = bound_ms(s["flops"], s["bytes"], "bfloat16" if
-                              name == "block_sparse_dw" else "float32")
+        b_ms, b_by = bound_ms(s["flops"], s["bytes"],
+                              dtypes.get(name, "float32"))
         rows.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": results["launches"][name],
@@ -515,19 +898,29 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
 
     t0 = time.perf_counter()
-    results: dict = {}
+    results: dict = {"launches": {}}
     phase_environment()
     phase_build()
     phase_kernels(results)
     print(f"[chip_smoke] kernels checked at {time.perf_counter() - t0:.0f} s",
           flush=True)
     tc, out = phase_main_path(results)
-    print(f"[chip_smoke] main path done at {time.perf_counter() - t0:.0f} s",
+    print(f"[chip_smoke] LM path done at {time.perf_counter() - t0:.0f} s",
           flush=True)
     phase_profile(tc, out)
     del out
     torch.cuda.empty_cache()
     phase_compact_vs_dense()
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] LM phases done at {time.perf_counter() - t0:.0f} s",
+          flush=True)
+    init = phase_cnn(results)
+    print(f"[chip_smoke] CNN path done at {time.perf_counter() - t0:.0f} s",
+          flush=True)
+    phase_cnn_profile(init)
+    del init
+    torch.cuda.empty_cache()
+    phase_table2()
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t0:.0f} s",
           flush=True)
     print(json.dumps(kernels_line(results)), flush=True)

@@ -1,3 +1,4 @@
-from repro_torch.data.synthetic import lm_batches
+from repro_torch.data.synthetic import (TransferTask, lm_batches,
+                                       transfer_image_batches)
 
-__all__ = ["lm_batches"]
+__all__ = ["TransferTask", "lm_batches", "transfer_image_batches"]

@@ -30,6 +30,7 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 SOURCES = {
     "block_sparse_dw": [],
     "fused_block_opt": ["-fmad=false"],
+    "block_act_prune": [],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -62,13 +63,20 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     p, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_float)
     if name == "block_sparse_dw":
-        fn = lib.block_sparse_dw_launch
-        fn.argtypes = [p, p, p, p, i64, i64, i64, i32, i32, i32, i32, i32, p]
+        fns = [(lib.block_sparse_dw_launch,
+                [p, p, p, p, i64, i64, i64, i32, i32, i32, i32, i32, p])]
+    elif name == "fused_block_opt":
+        fns = [(lib.fused_block_opt_launch,
+                [p, p, p, p, p, p, i64, i64, i64, i32, i32, i32, i32, i32,
+                 i32, f32, f32, f32, f32, f32, f32, f32, p])]
     else:
-        fn = lib.fused_block_opt_launch
-        fn.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, i32, i32, i32,
-                       i32, i32, f32, f32, f32, f32, f32, f32, f32, p]
-    fn.restype = ctypes.c_int
+        fns = [(lib.block_act_prune_fwd_launch,
+                [p, p, i64, i32, f32, i32, p]),
+               (lib.block_act_prune_bwd_launch,
+                [p, p, p, i64, i32, f32, i32, p])]
+    for fn, argtypes in fns:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
 
 
 def build_all() -> dict[str, Path]:

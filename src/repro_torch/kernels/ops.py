@@ -10,11 +10,13 @@ its kernel does not take. Then it dispatches on the device of its tensors:
   nothing.
 
 Every logical op is one launch: the dW kernel covers all shards and
-selected blocks of one matmul, and the optimizer kernel the whole stacked
-leaf (all trainable layers, all shards, lead dims flattened into rows).
+selected blocks of one matmul, the optimizer kernel the whole stacked leaf
+(all trainable layers, all shards, lead dims flattened into rows), and the
+activation pruning kernel a whole activation, forward or backward.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -22,7 +24,8 @@ import torch
 from repro_torch.kernels import ref
 
 # launch counts, by kernel; only a launch on the card counts
-LAUNCHES = {"block_sparse_dw": 0, "fused_block_opt": 0}
+LAUNCHES = {"block_sparse_dw": 0, "fused_block_opt": 0,
+            "block_act_prune": 0, "block_act_prune_bwd": 0}
 # block_sparse_dw launches by instance (grid / pipelined), for reports
 DW_INSTANCES = {"grid": 0, "pipelined": 0}
 
@@ -223,3 +226,89 @@ def fused_block_optimizer(oc, p, g_sel, idx, spec, mu, nu, hyper):
                     momentum=oc.momentum, beta1=oc.beta1, beta2=oc.beta2,
                     eps=oc.eps, weight_decay=oc.weight_decay)
     return p, mu, nu
+
+
+# ---------------------------------------------------------------------------
+# block activation pruning
+# ---------------------------------------------------------------------------
+
+def _check_prune(name: str, tensors, block: int):
+    x = tensors[0]
+    _require(x.dim() >= 1 and block > 0 and x.shape[-1] % block == 0,
+             f"{name}: the last dim of {tuple(x.shape)} is not a multiple of "
+             f"block={block}")
+    _require(x.dtype in _DTYPE_CODE,
+             f"{name}: need float32 or bfloat16, got {x.dtype}")
+    _require(all(t.shape == x.shape and t.dtype == x.dtype
+                 and t.device == x.device for t in tensors),
+             f"{name}: the tensors disagree on shape, dtype or device")
+    _require(all(t.is_contiguous() for t in tensors),
+             f"{name}: the tensors must be contiguous (channels last, "
+             f"blocks along the innermost dim)")
+
+
+@functools.lru_cache(maxsize=None)
+def _type_threshold(threshold: float, dtype) -> float:
+    """The threshold rounded to the tensor's type, as comparing a tensor
+    with a Python float does in PyTorch and in JAX."""
+    return float(torch.tensor(threshold, dtype=dtype))
+
+
+def block_act_prune_fwd(x, threshold: float, block: int):
+    """y = x * keep(x): x [..., C] contiguous, C % block == 0."""
+    _check_prune("block_act_prune", (x,), block)
+    if not x.is_cuda:
+        return ref.block_act_prune_ref(x, threshold, block)
+    from repro_torch.kernels.build import load
+    y = torch.empty_like(x)
+    rc = load("block_act_prune").block_act_prune_fwd_launch(
+        x.data_ptr(), y.data_ptr(), x.numel(), block,
+        _type_threshold(threshold, x.dtype), _DTYPE_CODE[x.dtype],
+        _stream(x))
+    _raise_on(rc, "block_act_prune")
+    LAUNCHES["block_act_prune"] += 1
+    return y
+
+
+def block_act_prune_bwd(dy, y, threshold: float, block: int):
+    """dx = dy * keep(y), y the forward's output."""
+    _check_prune("block_act_prune_bwd", (dy, y), block)
+    if not dy.is_cuda:
+        return ref.block_act_prune_bwd_ref(dy, y, threshold, block)
+    from repro_torch.kernels.build import load
+    dx = torch.empty_like(dy)
+    rc = load("block_act_prune").block_act_prune_bwd_launch(
+        dy.data_ptr(), y.data_ptr(), dx.data_ptr(), dy.numel(), block,
+        _type_threshold(threshold, dy.dtype), _DTYPE_CODE[dy.dtype],
+        _stream(dy))
+    _raise_on(rc, "block_act_prune_bwd")
+    LAUNCHES["block_act_prune_bwd"] += 1
+    return dx
+
+
+class _BlockActPrune(torch.autograd.Function):
+    """Both directions through the kernel. Only the output is saved: the
+    backward's mask comes from it, and the next convolution keeps it
+    anyway."""
+
+    @staticmethod
+    def forward(ctx, x, threshold: float, block: int):
+        y = block_act_prune_fwd(x, threshold, block)
+        ctx.save_for_backward(y)
+        ctx.threshold, ctx.block = threshold, block
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        (y,) = ctx.saved_tensors
+        # the incoming gradient's layout is autograd's (a mean's backward
+        # hands over an expanded view): the kernel takes it dense
+        return (block_act_prune_bwd(dy.contiguous(), y, ctx.threshold,
+                                    ctx.block), None, None)
+
+
+def block_act_prune(x, threshold: float = 0.15, block: int = 2):
+    """ZeBRA block activation pruning, differentiable: x [..., C] ->
+    x with every `block`-wide channel run whose max |x| is below the
+    threshold zeroed. One kernel launch forward, one backward."""
+    return _BlockActPrune.apply(x, threshold, block)

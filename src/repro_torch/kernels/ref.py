@@ -100,3 +100,25 @@ def fused_block_opt_ref(w, g, idx, lr, t, mu=None, nu=None, *, kind: str,
             else None,
             scatter_blocks3(nu, nu_new, idx, block) if nu_new is not None
             else None)
+
+
+def _keep(a, threshold: float, block: int):
+    """[..., C] -> [..., C // block, 1] of 0 / 1 in a's dtype: 1 where the
+    block's max |a| (NaN propagating) is at least the threshold."""
+    ab = a.reshape(a.shape[:-1] + (a.shape[-1] // block, block))
+    return (ab.abs().amax(dim=-1, keepdim=True) >= threshold).to(a.dtype)
+
+
+def block_act_prune_ref(x, threshold: float = 0.15, block: int = 2):
+    """x: [..., C] -> x with every `block`-wide channel run whose max |x| is
+    below the threshold zeroed, as `x * keep` (the reference's oracle)."""
+    xb = x.reshape(x.shape[:-1] + (x.shape[-1] // block, block))
+    return (xb * _keep(x, threshold, block)).reshape(x.shape)
+
+
+def block_act_prune_bwd_ref(dy, y, threshold: float = 0.15,
+                            block: int = 2):
+    """The gradient of `block_act_prune_ref` at its input, from its output
+    y: dy * keep(y), which is dy * keep(x) (see the kernel source)."""
+    dyb = dy.reshape(dy.shape[:-1] + (dy.shape[-1] // block, block))
+    return (dyb * _keep(y, threshold, block)).reshape(dy.shape)

@@ -1,5 +1,5 @@
-"""Core layers: norms, RoPE, GQA attention (dense causal / sliding window),
-MLP variants.
+"""Core layers: norms (incl. the CNN's GroupNorm), RoPE, GQA attention
+(dense causal / sliding window), MLP variants.
 
 Params are plain dicts of tensors with the reference package's key names.
 Matmuls that take part in the sparse update go through
@@ -47,6 +47,22 @@ def apply_norm(p, x, eps: float = 1e-6):
     else:  # rmsnorm
         ms = (xf * xf).mean(-1, keepdim=True)
         y = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+def init_group_norm(c: int, dtype, device="cuda"):
+    return {"scale": torch.ones((c,), dtype=dtype, device=device),
+            "bias": torch.zeros((c,), dtype=dtype, device=device)}
+
+
+def apply_group_norm(p, x, groups: int, eps: float = 1e-5):
+    """x: [B, H, W, C] (NHWC); statistics in fp32 over (H, W, C / groups)."""
+    b, h, w, c = x.shape
+    xf = x.float().reshape(b, h, w, groups, c // groups)
+    mu = xf.mean(dim=(1, 2, 4), keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=(1, 2, 4), keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(b, h, w, c)
+    y = y * p["scale"].float() + p["bias"].float()
     return y.to(x.dtype)
 
 

@@ -183,7 +183,11 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
     w, g, oidx, mu, nu = _opt_inputs(2, 2, 1, 4, 2, "adamw")
     ops.fused_block_opt(_t(w), _t(g), _t(oidx), torch.tensor([0.1, 1.0]),
                         _t(mu), _t(nu), kind="adamw")
-    assert ops.launch_counts() == {"block_sparse_dw": 0, "fused_block_opt": 0}
+    y = ops.block_act_prune_fwd(x, 0.15, 2)
+    ops.block_act_prune_bwd(x, y, 0.15, 2)
+    assert ops.launch_counts() == {"block_sparse_dw": 0, "fused_block_opt": 0,
+                                   "block_act_prune": 0,
+                                   "block_act_prune_bwd": 0}
 
 
 def _dw_args():
