@@ -28,13 +28,32 @@ Phases (any failure exits non-zero and prints no result):
    peak(dynamic) < peak(full);
 8. one more CNN step under torch.profiler;
 9. the reference's Table II at the smoke config (150 pretraining steps,
-   120 transfer steps, five methods) and the learnability check.
+   120 transfer steps, five methods) and the learnability check;
+10. the MoE path: the compact train step on full-width deepseek-moe-16b
+   (all 28 layers, bf16, 64 routed experts top-6 plus 2 shared), batch
+   4 x seq 1024, AdamW, 6 steps across the fixed / dynamic / fixed phases,
+   through `repro_torch.launch.train`, counts zeroed just before and read
+   just after: exactly K x 7 block_sparse_dw, K x 3 batched_dw and 10
+   fused_block_opt launches a step; the expert leaves' unselected blocks
+   bitwise their init through the first fixed phase; the share of routed
+   choices the capacity dropped;
+11. one more MoE step under torch.profiler, then the frozen params (the
+   dense first layer and the 25 frozen MoE layers) bitwise against a fresh
+   init from the same seed;
+12. MoE compact against dense-scatter on the card: SGD, 2 fixed-phase
+   steps at full width cut to 4 layers, trainable params bitwise equal.
+
+Phase 3 also holds the expert-batched dW (`batched_dw`) against its plain
+version at the three expert leaf shapes of the MoE path (64 experts,
+capacity 481).
 
 The last lines are one JSON object with every kernel's numbers, and then
 `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -58,15 +77,28 @@ MAIN_ARGV = ["--arch", "llama3-8b", "--steps", "6", "--batch", "4",
              "--channel-block", "128", "--optimizer", "adamw",
              "--phase-j", "2", "--phase-k", "2", "--log-every", "1",
              "--seed", "0"]
+MOE_ARGV = ["--arch", "deepseek-moe-16b"] + MAIN_ARGV[2:]
+MOE_J = 2                  # the first fixed phase of the MoE run
+# launches a step of the MoE path: 4 attention and 3 shared-expert dW per
+# trainable layer, 3 expert dW per layer, one optimizer launch per
+# selectable stacked leaf (the router takes the plain optimizer)
+MOE_PER_STEP = {"block_sparse_dw": K_LAYERS * 7, "batched_dw": K_LAYERS * 3,
+                "fused_block_opt": 10}
+C_LONG = 8192              # the batched dW at a long capacity
 # name -> (route, source, the TPU kernel it replaces, the path that launches
 # it). block_sparse_dw also replaces block_sparse_dw_pipelined_kernel
 # (masked_dw.py:131) with its pipelined instance, which the wrapper picks
-# wherever the shape is aligned. block_act_prune_bwd is the same kernel's
-# backward entry point (the reference differentiates its jnp version).
+# wherever the shape is aligned; batched_dw, the same source's expert entry
+# point, likewise replaces batched_dw_pipelined_kernel (batched_dw.py:130).
+# block_act_prune_bwd is the same kernel's backward entry point (the
+# reference differentiates its jnp version).
 SOURCES = {
     "block_sparse_dw": ("cuda",
                         "src/repro_torch/kernels/csrc/block_sparse_dw.cu",
                         "src/repro/kernels/masked_dw.py:65", "lm"),
+    "batched_dw": ("cuda",
+                   "src/repro_torch/kernels/csrc/block_sparse_dw.cu",
+                   "src/repro/kernels/batched_dw.py:60", "moe"),
     "fused_block_opt": ("cuda",
                         "src/repro_torch/kernels/csrc/fused_block_opt.cu",
                         "src/repro/kernels/fused_block_opt.py:88", "lm"),
@@ -78,7 +110,8 @@ SOURCES = {
                             "src/repro/kernels/block_act_prune.py:26", "cnn"),
 }
 # the port's kernels as the profiler names them
-PORT_KERNELS = ("dw_grid_kernel", "dw_pipelined_kernel",
+PORT_KERNELS = ("batched_dw_grid_kernel", "batched_dw_pipelined_kernel",
+                "dw_grid_kernel", "dw_pipelined_kernel",
                 "fused_block_opt_kernel", "prune_kernel")
 CNN_BATCH = 32
 CNN_STEPS, CNN_J, CNN_K = 12, 4, 4
@@ -492,6 +525,151 @@ def check_prune_paths(gen):
           "tails; misaligned): bitwise equal", flush=True)
 
 
+def _moe_leaves():
+    """(experts, capacity, {leaf: (fan_in, out, SelSpec)}) of the routed
+    experts of one trainable deepseek-moe-16b layer, as the MoE path's plan
+    and its batch of M_TOKENS tokens give them."""
+    from repro_torch.configs import SparseUpdateConfig, get_config
+    from repro_torch.core.selection import build_plan
+    from repro_torch.models import moe
+    from repro_torch.models.registry import abstract_params
+    cfg = get_config("deepseek-moe-16b")
+    plan = build_plan(cfg, SparseUpdateConfig(update_ratio=0.2,
+                                              num_update_layers=K_LAYERS,
+                                              channel_block=128))
+    shapes = abstract_params(cfg)["segments"]["blocks"]["moe"]
+    leaves = {name: tuple(shapes[name].shape[2:])
+              + (plan.spec["blocks"]["moe"][name],)
+              for name in ("w_gate", "w_up", "w_down")}
+    mc = cfg.moe
+    return (mc.num_experts,
+            moe._capacity(M_TOKENS, mc.top_k, mc.capacity_factor,
+                          mc.num_experts), leaves)
+
+
+def _batched_case(e, c, fan_in, out, spec, dtype, gen, offset: int = 0):
+    """x [e, c, fan_in], dy [e, c, out] and a selection; `offset` elements
+    into their buffers (1 puts the base pointers off 16-byte alignment)."""
+    def rand(*shape):
+        n = int(torch.tensor(shape).prod())
+        buf = torch.randn(n + offset, generator=gen, device="cuda").to(dtype)
+        return buf[offset:].view(shape)
+    return (rand(e, c, fan_in), rand(e, c, out),
+            _rand_idx((spec.n_shards,), spec, gen))
+
+
+def _check_batched(tag, x, dy, idx, spec, instances, reps=10):
+    """Each instance against the plain version (fp32 sums over C in another
+    order: 1e-4 of the largest output); returns {instance: (ms, err)}."""
+    from repro_torch.kernels import ops, ref
+    want = ref.batched_dw_ref(x, dy, idx, spec.block)
+    tol = 1e-4 * float(want.abs().max())
+    res = {}
+    for pipe in instances:
+        got = ops.block_sparse_dw_batched(x, dy, idx, spec, pipelined=pipe)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        inst = "pipelined" if pipe else "grid"
+        check(got.shape == want.shape and err <= tol,
+              f"batched_dw {inst} {tag}: max_abs_err {err} > {tol}")
+        res[inst] = (cuda_ms(lambda: ops.block_sparse_dw_batched(
+            x, dy, idx, spec, pipelined=pipe), reps=reps), err, tol)
+    return res
+
+
+def check_batched_dw(gen, sums: dict):
+    """The expert-batched dW at the three expert leaf shapes of the MoE path
+    (E = 64, capacity 481, bf16, both instances), one fp32 case, one with
+    its base pointers off alignment (the wrapper takes the grid instance
+    and refuses the pipelined one), one at a long capacity, and the
+    dense-scatter form's dW, exactly zero outside the selected blocks. The
+    main path's instance, in bf16, goes into the sums."""
+    from repro_torch.core.sparse_update import gather_param_blocks, smm
+    from repro_torch.kernels import ops, ref
+    e, c, leaves = _moe_leaves()
+    cases = [(leaf, torch.bfloat16) for leaf in leaves] + \
+        [("w_gate", torch.float32)]
+    for leaf, dtype in cases:
+        fan_in, out, spec = leaves[leaf]
+        x, dy, idx = _batched_case(e, c, fan_in, out, spec, dtype, gen)
+        main_pipe = ops.use_pipelined(x, dy, spec.block)
+        dy_sel = ref.gather_dy_blocks(dy.reshape(e * c, out), idx,
+                                      spec.block).reshape(e, c, -1)
+        dy_sel = dy_sel.contiguous()
+        lib = cuda_ms(lambda: torch.bmm(x.transpose(1, 2), dy_sel))
+        plain = cuda_ms(lambda: ref.batched_dw_ref(x, dy, idx, spec.block))
+        cols = spec.n_shards * spec.n_sel * spec.block
+        flops = 2.0 * e * c * fan_in * cols
+        # x once, the selected dy columns once, idx, the fp32 output
+        nbytes = e * c * (fan_in + cols) * x.element_size() \
+            + idx.numel() * 4 + e * fan_in * cols * 4
+        b_ms, b_by = bound_ms(flops, nbytes, _dname(dtype))
+        res = _check_batched(f"{leaf} {_dname(dtype)}", x, dy, idx, spec,
+                             (False, True))
+        for inst, (ms, err, tol) in res.items():
+            main = (inst == "pipelined") == main_pipe
+            print(f"[kernel] batched_dw {inst} {leaf} {_dname(dtype)} E={e} "
+                  f"C={c} K={fan_in} N={out} n_sel={spec.n_sel} "
+                  f"block={spec.block} main_path={main} kernel_ms={ms:.4f} "
+                  f"plain_ms={plain:.4f} library_ms={lib:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err:.3e} "
+                  f"tol={tol:.3e}", flush=True)
+            if dtype == torch.bfloat16 and main:
+                for key, val in (("ms", ms), ("plain_ms", plain),
+                                 ("library_ms", lib), ("flops", flops),
+                                 ("bytes", nbytes)):
+                    sums[key] += val
+                sums["max_abs_err"] = max(sums["max_abs_err"], err)
+        del x, dy, dy_sel
+
+    fan_in, out, spec = leaves["w_gate"]
+    x, dy, idx = _batched_case(e, c, fan_in, out, spec, torch.bfloat16, gen,
+                               offset=1)
+    check(not ops.use_pipelined(x, dy, spec.block),
+          "batched_dw: a misaligned base pointer must take the grid instance")
+    try:
+        ops.block_sparse_dw_batched(x, dy, idx, spec, pipelined=True)
+    except ValueError:
+        pass
+    else:
+        raise SmokeError("batched_dw: the pipelined instance took a "
+                         "misaligned pointer")
+    (ms, err, tol), = _check_batched("w_gate misaligned", x, dy, idx, spec,
+                                     (None,)).values()
+    print(f"[kernel] batched_dw grid (picked: base pointers off alignment) "
+          f"w_gate bfloat16 E={e} C={c} kernel_ms={ms:.4f} "
+          f"max_abs_err={err:.3e} tol={tol:.3e}", flush=True)
+    del x, dy
+
+    x, dy, idx = _batched_case(8, C_LONG, fan_in, out, spec, torch.bfloat16,
+                               gen)
+    for inst, (ms, err, tol) in _check_batched(
+            f"w_gate C={C_LONG}", x, dy, idx, spec, (True, False),
+            reps=3).items():
+        print(f"[kernel] batched_dw {inst} w_gate bfloat16 E=8 C={C_LONG} "
+              f"K={fan_in} N={out} kernel_ms={ms:.4f} max_abs_err={err:.3e} "
+              f"tol={tol:.3e}", flush=True)
+    del x, dy
+
+    # the dense-scatter form: its weight gradient is the compact dW in the
+    # selected blocks and exactly zero everywhere else
+    x, dy, idx = _batched_case(e, c, fan_in, out, spec, torch.bfloat16, gen)
+    w = (torch.randn(e, fan_in, out, generator=gen, device="cuda") * 0.02) \
+        .to(torch.bfloat16).requires_grad_(True)
+    smm(x, w, ({"w": idx}, {"w": spec}), "w").backward(dy)
+    mask = _selected_mask(w.detach()[None], idx[None], spec)[0]
+    compact = ops.block_sparse_dw_batched(x, dy, idx, spec).to(torch.bfloat16)
+    check(bool((w.grad[~mask] == 0).all()),
+          "batched dense-scatter: a deselected block of dW is not zero")
+    check(torch.equal(gather_param_blocks(w.grad[None], idx[None], spec)[0],
+                      compact),
+          "batched dense-scatter: the selected blocks are not the compact dW")
+    print(f"[kernel] batched_dw dense-scatter form w_gate E={e} C={c}: "
+          f"deselected blocks exactly zero, selected blocks the compact dW",
+          flush=True)
+    del x, dy, w, mask, compact
+
+
 def phase_kernels(results: dict):
     gen = torch.Generator(device="cuda").manual_seed(0)
     leaves = _main_path_leaves()
@@ -499,6 +677,8 @@ def phase_kernels(results: dict):
     results["fused_block_opt"] = _new_sums()
     check_dw(leaves, gen, results["block_sparse_dw"])
     check_dw_long(leaves, gen)
+    results["batched_dw"] = _new_sums()
+    check_batched_dw(gen, results["batched_dw"])
     check_opt(leaves, gen, results["fused_block_opt"])
     results["block_act_prune"] = _new_sums()
     results["block_act_prune_bwd"] = _new_sums()
@@ -560,6 +740,8 @@ def phase_main_path(results: dict):
                    row["launches"]["fused_block_opt"])
         check(dw == K_LAYERS * 7,
               f"step {row['step']}: {dw} dW launches, want {K_LAYERS}x7")
+        check(row["launches"]["batched_dw"] == 0,
+              f"step {row['step']}: the expert dW ran on the LM path")
         check(opt == 7, f"step {row['step']}: {opt} optimizer launches, "
                         f"want 7")
         check(bool(torch.isfinite(torch.tensor(row["loss"]))),
@@ -595,19 +777,31 @@ def profile_step(tag: str, run):
                   reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     check(busy_ms > 0, "the profiler saw no device time")
-    ours = sum(r[0] for r in rows if any(
-        k in r[1] for k in PORT_KERNELS)) / 1e3
+    # each row to the first port kernel name it holds (the batched dW's
+    # names hold the dense dW's, so they come first in PORT_KERNELS)
+    by_kernel = {}
+    for us, key, _ in rows:
+        name = next((k for k in PORT_KERNELS if k in key), None)
+        if name is not None:
+            by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3
+    ours = sum(by_kernel.values())
     print(f"[profile] {tag}: wall_ms={wall_ms:.1f} "
           f"device_busy_ms={busy_ms:.1f} "
           f"idle_share={max(0.0, 1 - busy_ms / wall_ms):.3f} "
-          f"port_kernels_ms={ours:.2f}", flush=True)
+          f"port_kernels_ms={ours:.2f} port_kernels_share="
+          f"{ours / busy_ms:.4f} by_kernel_ms="
+          f"{ {k: round(v, 3) for k, v in by_kernel.items()} } "
+          f"by_kernel_share="
+          f"{ {k: round(v / busy_ms, 4) for k, v in by_kernel.items()} }",
+          flush=True)
     for us, key, count in rows[:15]:
         print(f"[profile] {us / 1e3:9.2f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
               f"x{count:<5d} {key[:90]}", flush=True)
 
 
-def phase_profile(tc, out):
-    """One more LM step (fixed phase) under torch.profiler."""
+def phase_profile(tc, out, tag: str = "one fixed-phase step"):
+    """One more step of a run's state (the late fixed phase) under
+    torch.profiler."""
     from repro_torch.data import lm_batches
     from repro_torch.train import make_train_step
 
@@ -615,19 +809,19 @@ def phase_profile(tc, out):
     batch = next(lm_batches(tc.shape.global_batch, tc.shape.seq_len,
                             tc.model.vocab_size, seed=tc.seed, start_step=6))
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-    profile_step("one fixed-phase step",
-                 lambda: step_fn(out["state"], batch))
+    profile_step(tag, lambda: step_fn(out["state"], batch))
 
 
-def phase_compact_vs_dense():
+def phase_compact_vs_dense(cfg, tag: str = "compact-vs-dense"):
+    """`cfg` from seed 1, K trainable layers: 2 fixed-phase SGD steps of
+    the compact path and of the dense-scatter path from one start; losses
+    and every trainable leaf bitwise equal."""
     from repro_torch.configs import (OptimizerConfig, ShapeConfig,
-                                     SparseUpdateConfig, TrainConfig,
-                                     get_config)
+                                     SparseUpdateConfig, TrainConfig)
     from repro_torch.core.sparse_update import tree_leaves, tree_map
     from repro_torch.data import lm_batches
     from repro_torch.train import make_train_state, make_train_step
 
-    cfg = get_config("llama3-8b")
     tc = TrainConfig(model=cfg, shape=ShapeConfig("smoke", 1024, 4, "train"),
                      sparse=SparseUpdateConfig(update_ratio=0.2,
                                                num_update_layers=K_LAYERS,
@@ -648,17 +842,18 @@ def phase_compact_vs_dense():
         batch = {k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
         state_c, m_c = step_c(state_c, batch)
         state_d, m_d = step_d(state_d, batch)
-        print(f"[compact-vs-dense] step {i + 1} loss compact="
+        print(f"[{tag}] step {i + 1} loss compact="
               f"{float(m_c['loss']):.6f} dense_scatter="
               f"{float(m_d['loss']):.6f}", flush=True)
         check(float(m_c["loss"]) == float(m_d["loss"]),
-              f"step {i + 1}: losses differ")
+              f"{tag} step {i + 1}: losses differ")
     a = tree_leaves(state_c["params_trainable"])
     b = tree_leaves(state_d["params_trainable"])
     unequal = sum(not torch.equal(x, y) for x, y in zip(a, b))
-    check(unequal == 0, f"{unequal} of {len(a)} trainable leaves differ")
-    print(f"[compact-vs-dense] sgd, 2 fixed-phase steps: all {len(a)} "
-          f"trainable leaves bitwise equal", flush=True)
+    check(unequal == 0, f"{tag}: {unequal} of {len(a)} trainable leaves "
+                        f"differ")
+    print(f"[{tag}] {cfg.name} {cfg.num_layers} layers, sgd, 2 fixed-phase "
+          f"steps: all {len(a)} trainable leaves bitwise equal", flush=True)
 
 
 def _blocks_of(w, idx, spec):
@@ -695,7 +890,8 @@ def _run_cnn(argv, method, per_step_check):
         for name, n in want.items():
             check(delta[name] == n, f"{method} step {step}: {delta[name]} "
                                     f"{name} launches, want {n}")
-        check(delta["block_sparse_dw"] == delta["fused_block_opt"] == 0,
+        check(delta["block_sparse_dw"] == delta["fused_block_opt"]
+              == delta["batched_dw"] == 0,
               f"{method} step {step}: an LM kernel was launched")
         check(bool(torch.isfinite(torch.tensor(metrics["loss"]))),
               f"{method} step {step}: loss {metrics['loss']} is not finite")
@@ -862,14 +1058,151 @@ def phase_table2():
     check(acc >= acc0 + 0.05, f"learnability: {acc0} -> {acc}, want +0.05")
 
 
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def phase_moe_path(results: dict):
+    """The MoE path: 6 compact AdamW steps of full-width deepseek-moe-16b
+    through the launcher, counts zeroed just before and read just after."""
+    from repro_torch.core.selection import build_plan, selected_fraction
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    args = train.build_argparser().parse_args(MOE_ARGV)
+    tc = train.train_config(args)
+    cfg = tc.model
+    plan = build_plan(cfg, tc.sparse,
+                      tc.shape.global_batch * tc.shape.seq_len)
+    print(f"[moe] deepseek-moe-16b full width, {cfg.num_layers} layers (no "
+          f"depth cut), {cfg.moe.num_experts} routed experts top-"
+          f"{cfg.moe.top_k} + {cfg.moe.num_shared_experts} shared, "
+          f"{cfg.dtype}, batch {args.batch} x seq {args.seq}, "
+          f"{args.optimizer}, trainable {plan.seg_trainable}, selected share "
+          f"of params per step {selected_fraction(plan, cfg):.6f}",
+          flush=True)
+    per_step = []
+    last = {"counts": {k: 0 for k in ops.LAUNCHES}}
+    snap = {}
+
+    def on_step(step, state, metrics):
+        counts = ops.launch_counts()
+        delta = {k: counts[k] - last["counts"][k] for k in counts}
+        last["counts"] = counts
+        if step == MOE_J:
+            # the expert leaves at the end of the first fixed phase, with
+            # its selection: held against the init after the run
+            moe = state["params_trainable"]["segments"]["blocks"]["moe"]
+            idx = state["sel_idx"]["blocks"]["moe"]
+            snap.update({n: (moe[n].clone(), idx[n].clone())
+                         for n in EXPERT_LEAVES})
+        row = {"step": step, "loss": float(metrics["loss"]),
+               "load_balance": float(metrics["load_balance"]),
+               "router_z": float(metrics["router_z"]),
+               "step_ms": metrics["step_ms"],
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "launches": delta}
+        per_step.append(row)
+        print(f"[moe] step {step} loss={row['loss']:.6f} "
+              f"load_balance={row['load_balance']:.4f} "
+              f"router_z={row['router_z']:.4f} step_ms={row['step_ms']:.1f} "
+              f"max_memory_allocated={row['max_memory_allocated']} "
+              f"launches={delta}", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = train.main(MOE_ARGV, on_step=on_step)
+    totals = ops.launch_counts()
+
+    check(len(per_step) == 6, f"ran {len(per_step)} MoE steps, want 6")
+    for row in per_step:
+        for name, n in MOE_PER_STEP.items():
+            check(row["launches"][name] == n,
+                  f"MoE step {row['step']}: {row['launches'][name]} {name} "
+                  f"launches, want {n}")
+        check(bool(torch.isfinite(torch.tensor(row["loss"]))),
+              f"MoE step {row['step']}: loss {row['loss']} is not finite")
+    for name, n in MOE_PER_STEP.items():
+        check(totals[name] == 6 * n, f"MoE run: {totals[name]} {name} "
+                                     f"launches, want 6 x {n}")
+    results["launches"]["batched_dw"] = totals["batched_dw"]
+
+    # the share of routed choices the capacity dropped, over every MoE
+    # layer of one forward of the trained model on the next batch
+    from repro_torch.data import lm_batches
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    state = out["state"]
+    batch = next(lm_batches(args.batch, args.seq, cfg.vocab_size,
+                            seed=args.seed, start_step=6))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    with torch.no_grad(), MOE.record_routing() as routed:
+        T.forward(cfg, (state["params_frozen"], state["params_trainable"]),
+                  batch)
+    dropped = [float(d) / n for d, n in routed]
+    steady = [r["step_ms"] for r in per_step[1:]]
+    print(f"[moe] launches over 6 steps: {totals}; batched_dw by instance: "
+          f"{dict(ops.BATCHED_DW_INSTANCES)}", flush=True)
+    print(f"[moe] step_ms steps 2-6: {[round(t, 1) for t in steady]} "
+          f"median={statistics.median(steady):.1f} tokens_per_s="
+          f"{M_TOKENS / statistics.median(steady) * 1e3:.0f} step1_ms="
+          f"{per_step[0]['step_ms']:.1f} peak_bytes="
+          f"{torch.cuda.max_memory_allocated()} selected_fraction="
+          f"{selected_fraction(plan, cfg):.6f} dropped_share="
+          f"{sum(dropped) / len(dropped):.4f} (per MoE layer min "
+          f"{min(dropped):.4f} max {max(dropped):.4f}, {len(dropped)} "
+          f"layers)", flush=True)
+    return tc, out, snap
+
+
+def phase_moe_frozen(tc, out, snap):
+    """After the run: the frozen params (embedding, head, final norm, the
+    dense first layer, the 25 frozen MoE layers) bitwise equal to a fresh
+    init from the run's seed, and every expert leaf's unselected blocks at
+    the end of the first fixed phase bitwise their init, its selected
+    blocks moved. The optimizer state goes first: the run's params and a
+    fresh init fit the card together (2 x 32.8 GB)."""
+    from repro_torch.core.sparse_update import tree_leaves
+    from repro_torch.models import transformer as T
+    from repro_torch.train import split_params
+
+    state, plan = out["state"], out["plan"]
+    state["opt"] = None
+    torch.cuda.empty_cache()
+    init = T.init_params(tc.model, tc.seed, "cuda")
+    frozen0, trainable0 = split_params(init, plan)
+    a, b = tree_leaves(frozen0), tree_leaves(state["params_frozen"])
+    check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
+          "MoE: a frozen param changed")
+    check("first" in state["params_frozen"]["segments"]
+          and "first" not in state["params_trainable"]["segments"],
+          "MoE: the dense first layer is not frozen")
+    moe0 = trainable0["segments"]["blocks"]["moe"]
+    for name, (w, idx) in snap.items():
+        spec = plan.spec["blocks"]["moe"][name]
+        mask = _selected_mask(moe0[name], idx, spec)
+        check(torch.equal(w[~mask], moe0[name][~mask]),
+              f"MoE: an unselected block of {name} changed in the first "
+              f"fixed phase")
+        check(not torch.equal(w[mask], moe0[name][mask]),
+              f"MoE: the selected blocks of {name} did not move")
+    print(f"[moe] frozen params bitwise equal to a fresh init ({len(a)} "
+          f"leaves: embedding, head, final norm, the dense first layer, "
+          f"{tc.model.num_layers - 1 - K_LAYERS} frozen MoE layers); every "
+          f"expert leaf's unselected blocks bitwise their init through the "
+          f"first fixed phase ({MOE_J} steps)", flush=True)
+
+
 def kernels_line(results: dict) -> dict:
     """The kernels' JSON line. Times: block_sparse_dw summed over the 7 leaf
     shapes of one trainable LM layer, fused_block_opt over the 7 leaves of
     the K trainable layers; block_act_prune over the 35 activations of one
     full-width CNN forward at batch 32, block_act_prune_bwd over the 5 that
-    one dynamic-method step differentiates. Launches: the LM path's run
-    (6 steps) and the CNN path's run (12 steps of `dynamic`)."""
-    dtypes = {"block_sparse_dw": "bfloat16"}
+    one dynamic-method step differentiates; batched_dw over the 3 expert
+    leaf shapes of one trainable MoE layer. Launches: the LM path's run
+    (6 steps), the MoE path's run (6 steps; batched_dw) and the CNN path's
+    run (12 steps of `dynamic`)."""
+    dtypes = {"block_sparse_dw": "bfloat16", "batched_dw": "bfloat16"}
     rows = []
     for name, (route, source, replaces, _) in SOURCES.items():
         s = results[name]
@@ -880,8 +1213,7 @@ def kernels_line(results: dict) -> dict:
             "replaces": replaces, "launches": results["launches"][name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": s["library_ms"] if name == "block_sparse_dw"
-            else None,
+            "library_ms": s["library_ms"] if name in dtypes else None,
         })
     return {"kernels": rows}
 
@@ -896,6 +1228,7 @@ def main() -> int:
               flush=True)
         return 1
     sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
 
     t0 = time.perf_counter()
     results: dict = {"launches": {}}
@@ -910,9 +1243,25 @@ def main() -> int:
     phase_profile(tc, out)
     del out
     torch.cuda.empty_cache()
-    phase_compact_vs_dense()
+    phase_compact_vs_dense(get_config("llama3-8b"))
+    gc.collect()
     torch.cuda.empty_cache()
-    print(f"[chip_smoke] LM phases done at {time.perf_counter() - t0:.0f} s",
+    print(f"[chip_smoke] LM phases done at {time.perf_counter() - t0:.0f} s;"
+          f" {torch.cuda.memory_allocated()} bytes still allocated",
+          flush=True)
+    tc, out, snap = phase_moe_path(results)
+    print(f"[chip_smoke] MoE path done at {time.perf_counter() - t0:.0f} s",
+          flush=True)
+    phase_profile(tc, out, "one fixed-phase MoE step")
+    phase_moe_frozen(tc, out, snap)
+    del out, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_compact_vs_dense(dataclasses.replace(
+        get_config("deepseek-moe-16b"), num_layers=4),
+        "moe-compact-vs-dense")
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] MoE phases done at {time.perf_counter() - t0:.0f} s",
           flush=True)
     init = phase_cnn(results)
     print(f"[chip_smoke] CNN path done at {time.perf_counter() - t0:.0f} s",

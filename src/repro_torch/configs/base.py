@@ -88,6 +88,7 @@ class ShapeConfig:
 # architectures the port runs so far
 _MODULES = {
     "llama3-8b": "llama3_8b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
 }
 
 

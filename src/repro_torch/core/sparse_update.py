@@ -33,11 +33,14 @@ The equivalence guarantees between the two are the reference's: SGD
 fixed selection; under dynamic reselection the compact path freezes the
 state of deselected blocks.
 
-The batched (expert) forms, `compress_grads` and the compact all-reduce
-come with the MoE and multi-GPU slices.
+Stacked expert weights [E, K, N] (the MoE layer's routed experts, one
+selection shared by every expert) take the batched forms, `_SMMBatched` and
+`_SMMBatchedCompact`, whose dW is one `batched_dw` launch for all experts.
+`compress_grads` and the compact all-reduce come with the multi-GPU slice.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -58,12 +61,17 @@ class SelSpec(NamedTuple):
 # sparse matmul
 # ---------------------------------------------------------------------------
 
-def _scatter_blocks(dw_sel, idx, spec: SelSpec, k: int, dtype):
-    """dw_sel: [K, n_shards, n_sel, block] -> full [K, N] with zeros
-    elsewhere."""
-    zeros = torch.zeros((1, k, spec.n_shards * spec.n_blocks * spec.block),
-                        dtype=dtype, device=dw_sel.device)
-    return kref.scatter_blocks3(zeros, dw_sel[None], idx[None], spec.block)[0]
+def _scatter_blocks(dw_sel, idx, spec: SelSpec, dtype):
+    """dw_sel: [*lead, n_shards, n_sel, block] -> full [*lead, N] with zeros
+    outside the selected blocks."""
+    lead = dw_sel.shape[:-3]
+    n = spec.n_shards * spec.n_blocks * spec.block
+    zeros = torch.zeros((1, math.prod(lead), n), dtype=dtype,
+                        device=dw_sel.device)
+    full = kref.scatter_blocks3(
+        zeros, dw_sel.reshape((1, -1) + tuple(dw_sel.shape[-3:])),
+        idx[None], spec.block)
+    return full.reshape(lead + (n,))
 
 
 def compact_dw(x2, dy2, idx, spec: SelSpec):
@@ -109,7 +117,7 @@ class _SMM(torch.autograd.Function):
     def backward(ctx, dy):
         x, w, idx = ctx.saved_tensors
         dx, dw_sel = _dx_and_dw_sel(x, w, idx, ctx.spec, dy)
-        dw = _scatter_blocks(dw_sel, idx, ctx.spec, w.shape[0], w.dtype)
+        dw = _scatter_blocks(dw_sel, idx, ctx.spec, w.dtype)
         return dx, dw, None, None
 
 
@@ -148,13 +156,66 @@ def smm(x, w, sel, name: str):
     if idx_dict is None or name not in idx_dict:
         return torch.matmul(x, w)
     idx, spec = idx_dict[name], spec_dict[name]
-    if w.dim() != 2:
-        raise NotImplementedError("batched (expert) smm comes with the MoE "
-                                  "slice")
     wsel_dict = sel[2] if len(sel) > 2 else None
     if wsel_dict is not None and name in wsel_dict:
-        return _SMMCompact.apply(x, w.detach(), wsel_dict[name], idx, spec)
-    return _SMM.apply(x, w, idx, spec)
+        fn = _SMMCompact if w.dim() == 2 else _SMMBatchedCompact
+        return fn.apply(x, w.detach(), wsel_dict[name], idx, spec)
+    if w.dim() == 2:
+        return _SMM.apply(x, w, idx, spec)
+    return _SMMBatched.apply(x, w, idx, spec)
+
+
+# batched (expert) forms: x [E, C, K], w [E, K, N], one selection for all E.
+# The products outside the dW kernel are plain batched matmuls, as the
+# reference leaves its einsums to XLA.
+
+def compact_dw_batched(x3, dy3, idx, spec: SelSpec):
+    """Expert-batched compute skip: per-expert dW for selected blocks only.
+
+    x3: [E, C, K], dy3: [E, C, N] (contiguous) -> [E, K, n_shards, n_sel,
+    block] fp32. One `batched_dw` launch for all experts on the card; its
+    plain version on the CPU."""
+    return kops.block_sparse_dw_batched(x3, dy3, idx, spec)
+
+
+def _dx_and_dw_sel_batched(x, w, idx, spec: SelSpec, dy):
+    dx = torch.bmm(dy, w.transpose(1, 2)).to(x.dtype)
+    dw_sel = compact_dw_batched(x.contiguous(), dy.contiguous(), idx, spec)
+    return dx, dw_sel
+
+
+class _SMMBatched(torch.autograd.Function):
+    """Per-expert `x @ w` whose weight gradient is the compact dW scattered
+    into a zero [E, K, N] buffer (the dense-scatter path)."""
+
+    @staticmethod
+    def forward(ctx, x, w, idx, spec):
+        ctx.save_for_backward(x, w, idx)
+        ctx.spec = spec
+        return torch.bmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, idx = ctx.saved_tensors
+        dx, dw_sel = _dx_and_dw_sel_batched(x, w, idx, ctx.spec, dy)
+        return dx, _scatter_blocks(dw_sel, idx, ctx.spec, w.dtype), None, None
+
+
+class _SMMBatchedCompact(torch.autograd.Function):
+    """Same forward; the gradient goes to `w_sel` [E, K, n_shards, n_sel,
+    block] and `w` (which must arrive detached) gets none."""
+
+    @staticmethod
+    def forward(ctx, x, w, w_sel, idx, spec):
+        ctx.save_for_backward(x, w, idx)
+        ctx.spec = spec
+        return torch.bmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, idx = ctx.saved_tensors
+        dx, dw_sel = _dx_and_dw_sel_batched(x, w, idx, ctx.spec, dy)
+        return dx, None, dw_sel.to(w.dtype), None, None
 
 
 # ---------------------------------------------------------------------------

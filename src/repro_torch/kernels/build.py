@@ -64,7 +64,10 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                         ctypes.c_float)
     if name == "block_sparse_dw":
         fns = [(lib.block_sparse_dw_launch,
-                [p, p, p, p, i64, i64, i64, i32, i32, i32, i32, i32, p])]
+                [p, p, p, p, i64, i64, i64, i32, i32, i32, i32, i32, p]),
+               (lib.batched_dw_launch,
+                [p, p, p, p, i64, i64, i64, i64, i32, i32, i32, i32, i32,
+                 p])]
     elif name == "fused_block_opt":
         fns = [(lib.fused_block_opt_launch,
                 [p, p, p, p, p, p, i64, i64, i64, i32, i32, i32, i32, i32,

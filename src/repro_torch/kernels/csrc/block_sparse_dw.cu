@@ -1,35 +1,52 @@
-// Compact weight gradient of the channel-block sparse update, for Hopper.
+// Compact weight gradient of the channel-block sparse update, for Hopper,
+// for one weight or for a stack of E experts that share one selection.
 //
-//   x:   [M, K]              activations (fan-in K), fp32 or bf16
-//   dy:  [M, N]              upstream gradient, same type,
-//                            N = n_shards * n_blocks * block
-//   idx: [n_shards, n_sel]   int32 selected block indices, local to each shard
-//   out: [K, n_shards, n_sel, block] fp32
+//   x:   [E, M, K]              activations (fan-in K), fp32 or bf16
+//   dy:  [E, M, N]              upstream gradient, same type,
+//                               N = n_shards * n_blocks * block
+//   idx: [n_shards, n_sel]      int32 selected block indices, local to each
+//                               shard, shared by every expert
+//   out: [E, K, n_shards, n_sel, block] fp32
 //
-//   out[:, s, j, :] = x^T @ dy[:, (s*n_blocks + idx[s,j])*block : +block]
+//   out[e, :, s, j, :] = x[e]^T @ dy[e][:, (s*n_blocks + idx[s,j])*block : +block]
 //
-// Replaces the TPU kernels `block_sparse_dw_kernel` and
-// `block_sparse_dw_pipelined_kernel` of the reference package
-// (src/repro/kernels/masked_dw.py). Unselected dy blocks are never read.
+// Replaces four TPU kernels of the reference package: `block_sparse_dw_kernel`
+// and `block_sparse_dw_pipelined_kernel` (src/repro/kernels/masked_dw.py; a
+// dense layer's weight, E = 1, entry point `block_sparse_dw_launch`) and
+// `batched_dw_kernel` and `batched_dw_pipelined_kernel`
+// (src/repro/kernels/batched_dw.py; the MoE expert leaves [E, K, N], entry
+// point `batched_dw_launch`). Unselected dy blocks are never read.
 //
-// Bound on an H100: 2*M*K*n_sel*n_shards*block operations against
-// (M*K + M*n_sel*n_shards*block) input elements plus the fp32 output. At
-// the main path's shapes (M = 4096 tokens, block 128) that is some 250
-// to 2000 operations a byte, above the card's ~295 for bf16, so the bound
-// is the tensor cores' rate. This first version runs on the fp32 CUDA
-// cores (exact products of bf16 inputs, fp32 sums, like the reference's
-// preferred_element_type=f32) and so sits well below that bound; a wgmma
-// version is later work.
+// Bound on an H100: 2*E*M*K*n_sel*n_shards*block operations against
+// E*(M*K + M*n_sel*n_shards*block) input elements plus the fp32 output.
+// A dense layer at the LM path's shapes (M = 4096 tokens, block 128) does
+// some 250 to 2000 operations a byte, above the card's ~295 for bf16, so
+// the tensor cores' rate bounds it. An expert leaf at deepseek-moe-16b's
+// shapes (E = 64, M = capacity 481, block 128, n_sel 2-3 of 11-16) does
+// fewer, ~120 a byte, the fp32 output being the largest term (134 MB for
+// w_gate), so the memory rate bounds it. This version runs on the fp32
+// CUDA cores (exact products of bf16 inputs, fp32 sums, like the
+// reference's preferred_element_type=f32) and so sits well below either
+// bound; a wgmma version is later work.
 //
 // Design. One block of 256 threads per (shard*selected block, column
-// tile of BN, K tile of TK). The block reads idx[s, j] from device memory
+// tile of BN, K tile of TK, expert). The expert is blockIdx.z: each tensor
+// has a per-expert stride (M*K for x, M*N for dy, K*n_shards*n_sel*block for
+// out) and a block first moves its three base pointers to its expert, so
+// one launch covers every expert and shard with the single-weight tiling.
+// One source rather than a copy of the tiling per entry point: the dense
+// and the expert dW share every fix and every later speed-up, and a single
+// weight is expert 0 of one. The block reads idx[s, j] from device memory
 // itself, so a new selection (every step of the dynamic phase) needs no
 // host sync and no rebuild. It loops over M, staging a [TM, TK] tile of x
 // and a [TM, BN] tile of the selected dy columns in shared memory, and each
 // thread keeps a 4x4 fp32 accumulator in registers. Nothing carries between
 // blocks, so the output needs no reduction pass and no atomics: the result
-// is deterministic. Ragged K, M and block edges are masked; offsets are
-// 64-bit.
+// is deterministic. Ragged K, M and block edges are masked (an expert's
+// capacity M = 481 is no multiple of TM: the tail rows read as zeros and
+// nothing is read past the expert's last row); offsets are 64-bit. Each
+// output row of a tile is written by 16 neighbouring threads at
+// neighbouring addresses.
 //
 // Two instances of the same tiling:
 //  - grid: synchronous loads, converting to fp32 into shared memory; takes
@@ -37,8 +54,7 @@
 //  - pipelined: a double-buffered cp.async M loop, raw tiles in shared
 //    memory, the next tile in flight while the current one is consumed.
 //    It needs rows, block and pointers 16-byte aligned (checked by the
-//    wrapper). The dispatcher picks it where the grid is too small to hide
-//    load latency across blocks.
+//    wrapper; K and N 16-byte aligned make every expert's base aligned too).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see repro_torch/kernels/build.py).
@@ -57,6 +73,7 @@ constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 struct Geometry {
   int64_t M, K, N;
   int n_shards, n_sel, block, n_blocks, col_tiles;
+  int64_t x_stride, dy_stride, out_stride;   // per expert, in elements
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -109,13 +126,18 @@ __device__ __forceinline__ void store_tile(float (&acc)[4][4], float* out,
   }
 }
 
+// The block's tile of one expert's output (expert 0 for a single weight).
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-dw_grid_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-               const int* __restrict__ idx, float* __restrict__ out,
-               Geometry g) {
+__device__ __forceinline__ void grid_tile(const T* __restrict__ x,
+                                          const T* __restrict__ dy,
+                                          const int* __restrict__ idx,
+                                          float* __restrict__ out,
+                                          const Geometry& g, int64_t expert) {
   __shared__ float xs[TM][TK];
   __shared__ float ds[TM][BN];
+  x += expert * g.x_stride;
+  dy += expert * g.dy_stride;
+  out += expert * g.out_stride;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const Tile t = tile_of(idx, g);
@@ -202,12 +224,17 @@ __device__ __forceinline__ void issue_stage(T* xs, T* ds,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-dw_pipelined_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                    const int* __restrict__ idx, float* __restrict__ out,
-                    Geometry g) {
+__device__ __forceinline__ void pipelined_tile(const T* __restrict__ x,
+                                               const T* __restrict__ dy,
+                                               const int* __restrict__ idx,
+                                               float* __restrict__ out,
+                                               const Geometry& g,
+                                               int64_t expert) {
   __shared__ __align__(16) T xs[2][TM][TK];
   __shared__ __align__(16) T ds[2][TM][BN];
+  x += expert * g.x_stride;
+  dy += expert * g.dy_stride;
+  out += expert * g.out_stride;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
   const Tile t = tile_of(idx, g);
@@ -250,29 +277,50 @@ dw_pipelined_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   store_tile(acc, out, t, g, tx, ty);
 }
 
+// Four kernels, two tilings times two entry points: the batched ones take
+// their expert from blockIdx.z, and have names of their own so that a
+// profile tells the expert dW from a dense layer's.
+#define DW_KERNEL(name, tile, expert)                                        \
+  template <typename T>                                                      \
+  __global__ void __launch_bounds__(THREADS)                                 \
+      name(const T* __restrict__ x, const T* __restrict__ dy,               \
+           const int* __restrict__ idx, float* __restrict__ out,            \
+           Geometry g) {                                                     \
+    tile<T>(x, dy, idx, out, g, expert);                                    \
+  }
+DW_KERNEL(dw_grid_kernel, grid_tile, 0)
+DW_KERNEL(dw_pipelined_kernel, pipelined_tile, 0)
+DW_KERNEL(batched_dw_grid_kernel, grid_tile, (int64_t)blockIdx.z)
+DW_KERNEL(batched_dw_pipelined_kernel, pipelined_tile, (int64_t)blockIdx.z)
+#undef DW_KERNEL
+
 template <typename T>
 cudaError_t launch(const void* x, const void* dy, const int* idx, float* out,
-                   const Geometry& g, int pipelined, cudaStream_t stream) {
+                   const Geometry& g, int experts, bool batched,
+                   int pipelined, cudaStream_t stream) {
   const dim3 grid((unsigned)(g.n_shards * g.n_sel * g.col_tiles),
-                  (unsigned)((g.K + TK - 1) / TK));
-  if (pipelined) {
-    dw_pipelined_kernel<T><<<grid, THREADS, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(dy), idx, out, g);
+                  (unsigned)((g.K + TK - 1) / TK), (unsigned)experts);
+  const T* xt = static_cast<const T*>(x);
+  const T* dyt = static_cast<const T*>(dy);
+  if (!batched && pipelined) {
+    dw_pipelined_kernel<T><<<grid, THREADS, 0, stream>>>(xt, dyt, idx, out,
+                                                         g);
+  } else if (!batched) {
+    dw_grid_kernel<T><<<grid, THREADS, 0, stream>>>(xt, dyt, idx, out, g);
+  } else if (pipelined) {
+    batched_dw_pipelined_kernel<T><<<grid, THREADS, 0, stream>>>(
+        xt, dyt, idx, out, g);
   } else {
-    dw_grid_kernel<T><<<grid, THREADS, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(dy), idx, out, g);
+    batched_dw_grid_kernel<T><<<grid, THREADS, 0, stream>>>(xt, dyt, idx,
+                                                            out, g);
   }
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// dtype: 0 = fp32, 1 = bf16. Returns the launch's cudaGetLastError().
-extern "C" int block_sparse_dw_launch(const void* x, const void* dy,
-                                      const void* idx, void* out, int64_t m,
-                                      int64_t k, int64_t n, int n_shards,
-                                      int n_sel, int block, int dtype,
-                                      int pipelined, void* stream) {
+int run(const void* x, const void* dy, const void* idx, void* out,
+        bool batched, int64_t e, int64_t m, int64_t k, int64_t n,
+        int n_shards, int n_sel, int block, int dtype, int pipelined,
+        void* stream) {
   Geometry g;
   g.M = m;
   g.K = k;
@@ -282,11 +330,43 @@ extern "C" int block_sparse_dw_launch(const void* x, const void* dy,
   g.block = block;
   g.n_blocks = (int)(n / ((int64_t)n_shards * block));
   g.col_tiles = (block + BN - 1) / BN;
+  g.x_stride = m * k;
+  g.dy_stride = m * n;
+  g.out_stride = k * n_shards * n_sel * block;
   const int* ip = static_cast<const int*>(idx);
   float* op = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(x, dy, ip, op, g, pipelined, st);
+  const int experts = (int)e;
+  if (dtype == 0)
+    return (int)launch<float>(x, dy, ip, op, g, experts, batched, pipelined,
+                              st);
   if (dtype == 1)
-    return (int)launch<__nv_bfloat16>(x, dy, ip, op, g, pipelined, st);
+    return (int)launch<__nv_bfloat16>(x, dy, ip, op, g, experts, batched,
+                                      pipelined, st);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// dtype: 0 = fp32, 1 = bf16. Each returns the launch's cudaGetLastError().
+
+// One weight: x [M, K], dy [M, N], out [K, n_shards, n_sel, block].
+extern "C" int block_sparse_dw_launch(const void* x, const void* dy,
+                                      const void* idx, void* out, int64_t m,
+                                      int64_t k, int64_t n, int n_shards,
+                                      int n_sel, int block, int dtype,
+                                      int pipelined, void* stream) {
+  return run(x, dy, idx, out, false, 1, m, k, n, n_shards, n_sel, block,
+             dtype, pipelined, stream);
+}
+
+// E experts, one launch: x [E, C, K], dy [E, C, N],
+// out [E, K, n_shards, n_sel, block]; E <= 65535 (the grid's z).
+extern "C" int batched_dw_launch(const void* x, const void* dy,
+                                 const void* idx, void* out, int64_t e,
+                                 int64_t c, int64_t k, int64_t n,
+                                 int n_shards, int n_sel, int block,
+                                 int dtype, int pipelined, void* stream) {
+  return run(x, dy, idx, out, true, e, c, k, n, n_shards, n_sel, block,
+             dtype, pipelined, stream);
 }

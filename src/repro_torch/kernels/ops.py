@@ -10,7 +10,8 @@ its kernel does not take. Then it dispatches on the device of its tensors:
   nothing.
 
 Every logical op is one launch: the dW kernel covers all shards and
-selected blocks of one matmul, the optimizer kernel the whole stacked leaf
+selected blocks of one matmul (and, batched, all experts of an expert
+leaf), the optimizer kernel the whole stacked leaf
 (all trainable layers, all shards, lead dims flattened into rows), and the
 activation pruning kernel a whole activation, forward or backward.
 """
@@ -24,17 +25,19 @@ import torch
 from repro_torch.kernels import ref
 
 # launch counts, by kernel; only a launch on the card counts
-LAUNCHES = {"block_sparse_dw": 0, "fused_block_opt": 0,
+LAUNCHES = {"block_sparse_dw": 0, "batched_dw": 0, "fused_block_opt": 0,
             "block_act_prune": 0, "block_act_prune_bwd": 0}
-# block_sparse_dw launches by instance (grid / pipelined), for reports
+# block_sparse_dw and batched_dw launches by instance (grid / pipelined),
+# for reports
 DW_INSTANCES = {"grid": 0, "pipelined": 0}
+BATCHED_DW_INSTANCES = {"grid": 0, "pipelined": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _OPT_KIND = {"sgd": 0, "momentum": 1, "adamw": 2}
 
 
 def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, DW_INSTANCES):
+    for counts in (LAUNCHES, DW_INSTANCES, BATCHED_DW_INSTANCES):
         for name in counts:
             counts[name] = 0
 
@@ -62,47 +65,56 @@ def _raise_on(rc: int, name: str) -> None:
 # compact dW
 # ---------------------------------------------------------------------------
 
-def _check_dw(x2, dy2, idx, block: int):
-    _require(x2.dim() == 2 and dy2.dim() == 2,
-             f"block_sparse_dw: x and dy must be 2-D, got {tuple(x2.shape)} "
-             f"and {tuple(dy2.shape)}")
-    _require(x2.dtype in _DTYPE_CODE and dy2.dtype == x2.dtype,
-             f"block_sparse_dw: x and dy must both be float32 or bfloat16, "
-             f"got {x2.dtype} and {dy2.dtype}")
+def _check_dw(name: str, x, dy, idx, block: int, ndim: int):
+    """x [*lead, M, K] and dy [*lead, M, N] with `ndim` dims each."""
+    _require(x.dim() == ndim and dy.dim() == ndim,
+             f"{name}: x and dy must be {ndim}-D, got {tuple(x.shape)} and "
+             f"{tuple(dy.shape)}")
+    _require(x.dtype in _DTYPE_CODE and dy.dtype == x.dtype,
+             f"{name}: x and dy must both be float32 or bfloat16, got "
+             f"{x.dtype} and {dy.dtype}")
     _require(idx.dtype == torch.int32 and idx.dim() == 2,
-             f"block_sparse_dw: idx must be int32 [n_shards, n_sel], got "
+             f"{name}: idx must be int32 [n_shards, n_sel], got "
              f"{idx.dtype} {tuple(idx.shape)}")
-    m, _ = x2.shape
     n_shards = idx.shape[0]
-    _require(dy2.shape[0] == m and m > 0,
-             f"block_sparse_dw: x and dy disagree on M: {m} vs {dy2.shape[0]}")
-    _require(block > 0 and dy2.shape[1] % (n_shards * block) == 0,
-             f"block_sparse_dw: N={dy2.shape[1]} is not n_shards*n_blocks*"
-             f"block with n_shards={n_shards}, block={block}")
-    _require(x2.is_contiguous() and dy2.is_contiguous()
-             and idx.is_contiguous(),
-             "block_sparse_dw: x, dy and idx must be contiguous")
-    _require(x2.device == dy2.device == idx.device,
-             "block_sparse_dw: x, dy and idx must be on one device")
+    _require(dy.shape[:-1] == x.shape[:-1] and x.shape[-2] > 0,
+             f"{name}: x and dy disagree on their rows: {tuple(x.shape)} vs "
+             f"{tuple(dy.shape)}")
+    _require(block > 0 and dy.shape[-1] % (n_shards * block) == 0,
+             f"{name}: N={dy.shape[-1]} is not n_shards*n_blocks*block with "
+             f"n_shards={n_shards}, block={block}")
+    _require(x.is_contiguous() and dy.is_contiguous() and idx.is_contiguous(),
+             f"{name}: x, dy and idx must be contiguous")
+    _require(x.device == dy.device == idx.device,
+             f"{name}: x, dy and idx must be on one device")
 
 
-def pipelined_fits(x2, dy2, block: int) -> bool:
+def pipelined_fits(x, dy, block: int) -> bool:
     """The pipelined instance copies 16-byte chunks: rows, block and base
-    pointers must be 16-byte aligned."""
-    vec = 16 // x2.element_size()
-    return (x2.shape[1] % vec == 0 and dy2.shape[1] % vec == 0
-            and block % vec == 0 and x2.data_ptr() % 16 == 0
-            and dy2.data_ptr() % 16 == 0)
+    pointers must be 16-byte aligned (then so is every expert's base of a
+    batched call, its stride being a whole number of rows)."""
+    vec = 16 // x.element_size()
+    return (x.shape[-1] % vec == 0 and dy.shape[-1] % vec == 0
+            and block % vec == 0 and x.data_ptr() % 16 == 0
+            and dy.data_ptr() % 16 == 0)
 
 
-def use_pipelined(x2, dy2, block: int,
+def use_pipelined(x, dy, block: int,
                   pipelined: Optional[bool] = None) -> bool:
     """The pipelined instance wherever its alignment holds: on an H100 it
     was the faster of the two at every shape of the llama3-8b main path
     (chip_smoke.py's kernel phase); the grid instance takes the rest."""
     if pipelined is not None:
         return pipelined
-    return pipelined_fits(x2, dy2, block)
+    return pipelined_fits(x, dy, block)
+
+
+def _pick_instance(name, x, dy, block, pipelined) -> bool:
+    pipe = use_pipelined(x, dy, block, pipelined)
+    _require(not pipe or pipelined_fits(x, dy, block),
+             f"{name}: the pipelined instance needs K, N, block and the base "
+             f"pointers 16-byte aligned")
+    return pipe
 
 
 def block_sparse_dw(x2, dy2, idx, spec, pipelined: Optional[bool] = None):
@@ -114,14 +126,11 @@ def block_sparse_dw(x2, dy2, idx, spec, pipelined: Optional[bool] = None):
     instance (True) or the grid one (False); None picks by alignment.
     """
     block = spec.block
-    _check_dw(x2, dy2, idx, block)
+    _check_dw("block_sparse_dw", x2, dy2, idx, block, 2)
     if not x2.is_cuda:
         return ref.block_sparse_dw_ref(x2, dy2, idx, block)
     from repro_torch.kernels.build import load
-    pipe = use_pipelined(x2, dy2, block, pipelined)
-    _require(not pipe or pipelined_fits(x2, dy2, block),
-             "block_sparse_dw: the pipelined instance needs K, N, block and "
-             "the base pointers 16-byte aligned")
+    pipe = _pick_instance("block_sparse_dw", x2, dy2, block, pipelined)
     m, k = x2.shape
     n = dy2.shape[1]
     n_shards, n_sel = idx.shape
@@ -134,6 +143,37 @@ def block_sparse_dw(x2, dy2, idx, spec, pipelined: Optional[bool] = None):
     _raise_on(rc, "block_sparse_dw")
     LAUNCHES["block_sparse_dw"] += 1
     DW_INSTANCES["pipelined" if pipe else "grid"] += 1
+    return out
+
+
+def block_sparse_dw_batched(x3, dy3, idx, spec,
+                            pipelined: Optional[bool] = None):
+    """Expert-batched compact dW (see core.sparse_update.compact_dw_batched),
+    one launch for all experts and shards; the selection is shared by the
+    experts.
+
+    x3: [E, C, K], dy3: [E, C, N], idx: [n_shards, n_sel] int32 ->
+    [E, K, n_shards, n_sel, block] fp32. pipelined as in block_sparse_dw.
+    """
+    block = spec.block
+    _check_dw("batched_dw", x3, dy3, idx, block, 3)
+    if not x3.is_cuda:
+        return ref.batched_dw_ref(x3, dy3, idx, block)
+    from repro_torch.kernels.build import load
+    e, c, k = x3.shape
+    _require(e <= 65535, f"batched_dw: {e} experts exceed the grid's 65535")
+    pipe = _pick_instance("batched_dw", x3, dy3, block, pipelined)
+    n = dy3.shape[2]
+    n_shards, n_sel = idx.shape
+    out = torch.empty((e, k, n_shards, n_sel, block), dtype=torch.float32,
+                      device=x3.device)
+    rc = load("block_sparse_dw").batched_dw_launch(
+        x3.data_ptr(), dy3.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        e, c, k, n, n_shards, n_sel, block, _DTYPE_CODE[x3.dtype],
+        int(pipe), _stream(x3))
+    _raise_on(rc, "batched_dw")
+    LAUNCHES["batched_dw"] += 1
+    BATCHED_DW_INSTANCES["pipelined" if pipe else "grid"] += 1
     return out
 
 

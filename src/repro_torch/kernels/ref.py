@@ -28,6 +28,17 @@ def block_sparse_dw_ref(x, dy, idx, block: int):
     return torch.einsum("mk,msjb->ksjb", x.float(), dy_sel.float())
 
 
+def batched_dw_ref(x, dy, idx, block: int):
+    """Per-expert compact dW: x [E,C,K], dy [E,C,N], idx [n_shards,n_sel]
+    (one selection shared by every expert) -> [E, K, n_shards, n_sel,
+    block] fp32: the selected dy blocks gathered, then a per-expert product
+    with fp32 sums over C."""
+    e, c, n = dy.shape
+    dy_sel = gather_dy_blocks(dy.reshape(e * c, n), idx, block)
+    return torch.einsum("eck,ecsjb->eksjb", x.float(),
+                        dy_sel.reshape((e, c) + dy_sel.shape[1:]).float())
+
+
 def gather_blocks3(a, idx, block: int):
     """a: [K, R, N], idx: [K, n_shards, n_sel] -> [K, R, n_shards, n_sel,
     block], the selected column blocks of every row."""

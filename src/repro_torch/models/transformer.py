@@ -1,9 +1,12 @@
-"""Decoder-only LM, dense family (llama3 and its kin); the other families of
-the reference package come with their slices.
+"""Decoder-only LM: the dense family (llama3 and its kin) and the MoE family
+(deepseek-moe: a dense first layer, then MoE layers); the other families
+of the reference package come with their slices.
 
 Layout: layers are grouped into SEGMENTS of stacked params [steps, ...],
 keyed as in the reference, so a parameter tree bridged from there means the
-same model here. A segment runs as a Python loop over its stacked layers.
+same model here. A segment runs as a Python loop over its stacked layers,
+carrying the MoE layers' auxiliary losses [load_balance, router_z] beside
+the hidden state.
 
 Training params arrive as a (frozen, trainable) pair of same-structure trees
 (split along the stacked-layer axis by the sparse-update plan). The frozen
@@ -26,9 +29,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_update import tree_leaves, tree_map
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.common import dense_init, embed_init
 
 CE_CHUNK = 1024
+# weights of the MoE load-balance and router z-losses in the loss (the
+# reference's defaults)
+AUX_WEIGHT = 0.01
+Z_WEIGHT = 1e-3
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -41,6 +49,7 @@ def dtype_of(cfg) -> torch.dtype:
 class SegmentDef(NamedTuple):
     name: str
     steps: int          # stacked layers
+    kind: str           # dense | moe
 
 
 # ---------------------------------------------------------------------------
@@ -48,15 +57,22 @@ class SegmentDef(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def segment_layout(cfg: ModelConfig) -> list[SegmentDef]:
-    """One segment of stacked dense blocks. The reference's other layouts
-    (MoE, local:global, hybrid and RWKV super-blocks) come with their
-    slices."""
-    if (cfg.family not in ("dense", "audio", "vlm") or cfg.moe is not None
-            or cfg.attn_pattern != "full" or cfg.embed_inputs):
+    """Stacked dense blocks; for MoE, a dense `first` layer (layout
+    all_but_first) and the MoE `blocks`. The reference's other layouts
+    (local:global, hybrid and RWKV super-blocks) come with their slices."""
+    moe = cfg.family == "moe" and cfg.moe is not None
+    if ((cfg.family not in ("dense", "audio", "vlm") and not moe)
+            or cfg.attn_pattern != "full" or cfg.embed_inputs
+            or (moe and cfg.moe.layout not in ("all", "all_but_first"))):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense family so far (family "
-            f"{cfg.family}, attn_pattern {cfg.attn_pattern})")
-    return [SegmentDef("blocks", cfg.num_layers)]
+            f"{cfg.name}: the port runs the dense and MoE families so far "
+            f"(family {cfg.family}, attn_pattern {cfg.attn_pattern})")
+    if moe and cfg.moe.layout == "all_but_first":
+        return [SegmentDef("first", 1, "dense"),
+                SegmentDef("blocks", cfg.num_layers - 1, "moe")]
+    if moe:
+        return [SegmentDef("blocks", cfg.num_layers, "moe")]
+    return [SegmentDef("blocks", cfg.num_layers, "dense")]
 
 
 # ---------------------------------------------------------------------------
@@ -70,6 +86,20 @@ def _init_dense_block(gen, cfg, dtype, device, d_ff=None):
         "mlp_ln": L.init_norm(cfg.d_model, cfg.norm_kind, dtype, device),
         "mlp": L.init_mlp(gen, cfg, dtype, d_ff=d_ff, device=device),
     }
+
+
+def _init_moe_block(gen, cfg, dtype, device):
+    return {
+        "attn_ln": L.init_norm(cfg.d_model, cfg.norm_kind, dtype, device),
+        "attn": L.init_attention(gen, cfg, dtype, device),
+        "mlp_ln": L.init_norm(cfg.d_model, cfg.norm_kind, dtype, device),
+        "moe": MOE.init_moe(gen, cfg, dtype, device),
+    }
+
+
+def _dense_ff_first(cfg) -> int:
+    # deepseek-style dense first layer: ~ (n_routed_active+shared) * d_ff
+    return 8 * cfg.d_ff
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
@@ -100,7 +130,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         g = generator(zlib.crc32(seg.name.encode()))
         stack = None
         for i in range(seg.steps):
-            block = _init_dense_block(g, cfg, dtype, device)
+            if seg.kind == "moe":
+                block = _init_moe_block(g, cfg, dtype, device)
+            else:
+                block = _init_dense_block(
+                    g, cfg, dtype, device,
+                    d_ff=_dense_ff_first(cfg) if seg.name == "first"
+                    else None)
             if stack is None:
                 stack = tree_map(lambda a: torch.empty(
                     (seg.steps,) + tuple(a.shape), dtype=a.dtype,
@@ -129,11 +165,25 @@ def _sub_sel(sel, name):
 
 
 def _apply_dense_block(cfg, p, x, positions, sel):
+    """-> (x, None): a dense layer has no auxiliary losses."""
     h = L.apply_norm(p["attn_ln"], x)
     x = x + L.attention(p["attn"], cfg, h, positions,
                         sel=_sub_sel(sel, "attn"))
     h = L.apply_norm(p["mlp_ln"], x)
-    return x + L.apply_mlp(p["mlp"], cfg, h, sel=_sub_sel(sel, "mlp"))
+    return x + L.apply_mlp(p["mlp"], cfg, h, sel=_sub_sel(sel, "mlp")), None
+
+
+def _apply_moe_block(cfg, p, x, positions, sel):
+    """-> (x, [load_balance, router_z])."""
+    h = L.apply_norm(p["attn_ln"], x)
+    x = x + L.attention(p["attn"], cfg, h, positions,
+                        sel=_sub_sel(sel, "attn"))
+    h = L.apply_norm(p["mlp_ln"], x)
+    y, aux = MOE.apply_moe(p["moe"], cfg, h, sel=_sub_sel(sel, "moe"))
+    return x + y, torch.stack([aux["load_balance"], aux["router_z"]])
+
+
+_APPLY = {"dense": _apply_dense_block, "moe": _apply_moe_block}
 
 
 def _unstack(tree, steps: int) -> list:
@@ -144,13 +194,16 @@ def _unstack(tree, steps: int) -> list:
     return [tree_map(lambda u: u[i], unbound) for i in range(steps)]
 
 
-def _run_segment(cfg, stack, x, positions, sel_idx, sel_spec,
+def _run_segment(cfg, kind: str, stack, x, positions, sel_idx, sel_spec,
                  remat: bool = True, sel_wsel=None):
     """Run a segment's layers in order. sel_idx: stacked [steps, ...] idx
     tree or None; sel_wsel: stacked compact selected-block tree (compact
-    path) or None."""
+    path) or None. Returns (x, aux): aux the sum of the layers' [2]
+    auxiliary losses, None where no layer has any."""
+    aux = None
     if stack is None:
-        return x
+        return x, aux
+    apply = _APPLY[kind]
     steps = tree_leaves(stack)[0].shape[0]
     layers = _unstack(stack, steps)
     idxs = _unstack(sel_idx, steps)
@@ -163,11 +216,13 @@ def _run_segment(cfg, stack, x, positions, sel_idx, sel_spec,
         else:
             sel = (idx_l, sel_spec, wsel_l)
         if remat and torch.is_grad_enabled():
-            x = checkpoint(_apply_dense_block, cfg, p_l, x, positions, sel,
-                           use_reentrant=False)
+            x, a = checkpoint(apply, cfg, p_l, x, positions, sel,
+                              use_reentrant=False)
         else:
-            x = _apply_dense_block(cfg, p_l, x, positions, sel)
-    return x
+            x, a = apply(cfg, p_l, x, positions, sel)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +248,9 @@ def _pick(a, b, *path):
 
 def forward(cfg, params_pair, batch, sel=None, remat: bool = True):
     """params_pair = (frozen_tree, trainable_tree); either may be None.
-    batch: {"tokens" [B,S], optional "positions"}. Returns hidden [B,S,d]."""
+    batch: {"tokens" [B,S], optional "positions"}. Returns (hidden [B,S,d],
+    aux [2] fp32: load_balance and router_z summed over the MoE layers,
+    zeros for the dense family)."""
     frozen, trainable = params_pair
     emb = _pick(frozen, trainable, "embed", "tok")
     x = F.embedding(batch["tokens"].long(), emb)
@@ -202,6 +259,7 @@ def forward(cfg, params_pair, batch, sel=None, remat: bool = True):
     if positions is None:
         positions = torch.arange(s, device=x.device).expand(b, s)
 
+    aux = torch.zeros((2,), dtype=torch.float32, device=x.device)
     for seg in segment_layout(cfg):
         f_stack = _pick(frozen, None, "segments", seg.name)
         t_stack = _pick(trainable, None, "segments", seg.name)
@@ -214,11 +272,14 @@ def forward(cfg, params_pair, batch, sel=None, remat: bool = True):
         # flow through it (a trainable embedding)
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and x.requires_grad):
-            x = _run_segment(cfg, f_stack, x, positions, None,
-                             None, remat)
-        x = _run_segment(cfg, t_stack, x, positions, sel_idx,
-                         sel_spec, remat, sel_wsel=sel_wsel)
-    return L.apply_norm(_pick(frozen, trainable, "final_norm"), x)
+            x, a1 = _run_segment(cfg, seg.kind, f_stack, x, positions, None,
+                                 None, remat)
+        x, a2 = _run_segment(cfg, seg.kind, t_stack, x, positions, sel_idx,
+                             sel_spec, remat, sel_wsel=sel_wsel)
+        for a in (a1, a2):
+            if a is not None:
+                aux = aux + a
+    return L.apply_norm(_pick(frozen, trainable, "final_norm"), x), aux
 
 
 def lm_head_weight(cfg, params_pair):
@@ -255,11 +316,12 @@ def chunked_cross_entropy(hidden, w_head, labels, chunk: int = CE_CHUNK):
 
 
 def loss_fn(cfg, params_pair, batch, sel=None, remat: bool = True):
-    """Mean next-token CE. Returns (loss, metrics). The dense family has no
-    auxiliary losses; the metric keys match the reference's."""
-    hidden = forward(cfg, params_pair, batch, sel=sel, remat=remat)
+    """Mean next-token CE plus the MoE auxiliary losses (zero for the dense
+    family, which then leaves the CE bitwise as it is). Returns (loss,
+    metrics) with the reference's metric keys."""
+    hidden, aux = forward(cfg, params_pair, batch, sel=sel, remat=remat)
     w_head = lm_head_weight(cfg, params_pair)
     total, count = chunked_cross_entropy(hidden, w_head, batch["labels"])
     ce = total / count
-    zero = torch.zeros((), dtype=torch.float32, device=ce.device)
-    return ce, {"ce": ce, "load_balance": zero, "router_z": zero}
+    loss = ce + AUX_WEIGHT * aux[0] + Z_WEIGHT * aux[1]
+    return loss, {"ce": ce, "load_balance": aux[0], "router_z": aux[1]}

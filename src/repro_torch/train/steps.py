@@ -126,10 +126,11 @@ def make_train_step(tc: TrainConfig, plan: SelectionPlan,
     compact_grads (default: tc.compact_grads) routes every segment weight
     with a SelSpec through the compact-gradient path: the backward emits the
     [K, n_shards, n_sel, block] dW directly (`block_sparse_dw`, one launch
-    per weight and trainable layer) and `fused_block_opt` updates the
-    selected weight and optimizer-state blocks in place (one launch per
-    leaf). Non-selectable leaves (norms) take the dense rule. Otherwise the
-    step is the dense-scatter one (with a selection) or the dense one."""
+    per weight and trainable layer; `batched_dw`, one per expert leaf and
+    trainable layer) and `fused_block_opt` updates the selected weight and
+    optimizer-state blocks in place (one launch per leaf). Non-selectable
+    leaves (norms, the MoE router) take the dense rule. Otherwise the step
+    is the dense-scatter one (with a selection) or the dense one."""
     cfg = tc.model
     remat = tc.remat != "none"
     if compact_grads is None:

@@ -36,7 +36,9 @@ def test_no_jax_or_reference_import_in_the_source():
 
 def test_importing_every_port_module_loads_neither_jax_nor_repro():
     mods = _port_modules()
-    assert "repro_torch.kernels.ops" in mods and len(mods) > 15
+    assert {"repro_torch.kernels.ops", "repro_torch.models.moe",
+            "repro_torch.configs.deepseek_moe_16b"} <= set(mods)
+    assert len(mods) > 15
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -185,7 +185,14 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
                         _t(mu), _t(nu), kind="adamw")
     y = ops.block_act_prune_fwd(x, 0.15, 2)
     ops.block_act_prune_bwd(x, y, 0.15, 2)
-    assert ops.launch_counts() == {"block_sparse_dw": 0, "fused_block_opt": 0,
+    for pipelined in (None, True, False):
+        got = ops.block_sparse_dw_batched(x.reshape(2, 8, 8),
+                                          dy.reshape(2, 8, 48), idx, spec,
+                                          pipelined=pipelined)
+        torch.testing.assert_close(got, ref.batched_dw_ref(
+            x.reshape(2, 8, 8), dy.reshape(2, 8, 48), idx, 8))
+    assert ops.launch_counts() == {"block_sparse_dw": 0, "batched_dw": 0,
+                                   "fused_block_opt": 0,
                                    "block_act_prune": 0,
                                    "block_act_prune_bwd": 0}
 

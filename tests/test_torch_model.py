@@ -70,8 +70,9 @@ def test_forward_and_loss_match_reference(dtype, tol, trainable_layers):
     (jh, _), (jl, jm) = jax.jit(lambda p, bt: (
         JT.forward(jcfg, p, bt), JT.loss_fn(jcfg, p, bt)))(jpair,
                                                            _jbatch(batch))
-    th = PT.forward(pcfg, tpair, _tbatch(batch))
+    th, taux = PT.forward(pcfg, tpair, _tbatch(batch))
     assert th.dtype == getattr(torch, dtype)
+    assert torch.equal(taux, torch.zeros(2))    # the dense family: no aux
     jh32 = np.asarray(jh, np.float32)
     np.testing.assert_allclose(th.float().numpy(), jh32, rtol=tol,
                                atol=tol * float(np.abs(jh32).max()))
@@ -79,6 +80,8 @@ def test_forward_and_loss_match_reference(dtype, tol, trainable_layers):
     assert tl.dtype == torch.float32
     assert float(tl) == pytest.approx(float(jl), rel=tol)
     assert float(tm["ce"]) == pytest.approx(float(jm["ce"]), rel=tol)
+    assert torch.equal(tl, tm["ce"])            # + zero aux, bitwise
+    assert float(tm["load_balance"]) == float(tm["router_z"]) == 0.0
 
 
 @pytest.mark.parametrize("window", [0, 3])
