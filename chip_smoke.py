@@ -41,11 +41,29 @@ Phases (any failure exits non-zero and prints no result):
    dense first layer and the 25 frozen MoE layers) bitwise against a fresh
    init from the same seed;
 12. MoE compact against dense-scatter on the card: SGD, 2 fixed-phase
-   steps at full width cut to 4 layers, trainable params bitwise equal.
+   steps at full width cut to 4 layers, trainable params bitwise equal;
+13. the serving path: full-width llama3-8b (32 layers, bf16) through
+   `repro_torch.launch.serve`'s `build_engine`, 4 slots, pages of 16, 8
+   requests of 128 + 32 tokens, greedy, twice on one copy of the weights,
+   counts zeroed just before each run and read just after. Run A plain:
+   8/8 completed, no wave kernel launched. Run B with 2 users and online
+   waves (K = 2, r = 0.25, block 8, sgd 0.05, 16 tokens): 8/8 completed,
+   its first 4 requests bitwise run A's, exactly 7 block_scatter_update,
+   14 block_sparse_dw and 7 fused_block_opt launches a wave, the served
+   base bitwise unchanged, every user's delta nonzero; and, for one
+   request, the largest logit difference between the paged and the
+   contiguous path;
+14. one decode step of run B under torch.profiler, beside its byte bound;
+15. oracle parity at full widths cut to 4 layers, f32: the engine's greedy
+   tokens against the contiguous prefill + decode_step oracle, plain and,
+   after one wave, personalized (the delta dense-scattered into the
+   oracle's params), with every step's top-2 logit gap probed.
 
 Phase 3 also holds the expert-batched dW (`batched_dw`) against its plain
 version at the three expert leaf shapes of the MoE path (64 experts,
-capacity 481).
+capacity 481), and the block scatter-update bitwise against its plain
+version at the online wave's 7 leaf shapes of full-width llama3-8b and at
+an fp32, a lead-dim and an unaligned case.
 
 The last lines are one JSON object with every kernel's numbers, and then
 `{"ok": true, "device": {...}}`.
@@ -85,6 +103,7 @@ MOE_J = 2                  # the first fixed phase of the MoE run
 MOE_PER_STEP = {"block_sparse_dw": K_LAYERS * 7, "batched_dw": K_LAYERS * 3,
                 "fused_block_opt": 10}
 C_LONG = 8192              # the batched dW at a long capacity
+SERVE_RATIO = 0.25         # the serving launcher's per-user update ratio
 # name -> (route, source, the TPU kernel it replaces, the path that launches
 # it). block_sparse_dw also replaces block_sparse_dw_pipelined_kernel
 # (masked_dw.py:131) with its pipelined instance, which the wrapper picks
@@ -108,11 +127,17 @@ SOURCES = {
     "block_act_prune_bwd": ("cuda",
                             "src/repro_torch/kernels/csrc/block_act_prune.cu",
                             "src/repro/kernels/block_act_prune.py:26", "cnn"),
+    "block_scatter_update": (
+        "cuda", "src/repro_torch/kernels/csrc/block_scatter_update.cu",
+        "src/repro/kernels/scatter_blocks.py:42", "serve"),
 }
+# kernels with a one-call PyTorch yardstick (library_ms)
+LIBRARY = ("block_sparse_dw", "batched_dw", "block_scatter_update")
 # the port's kernels as the profiler names them
 PORT_KERNELS = ("batched_dw_grid_kernel", "batched_dw_pipelined_kernel",
                 "dw_grid_kernel", "dw_pipelined_kernel",
-                "fused_block_opt_kernel", "prune_kernel")
+                "fused_block_opt_kernel", "prune_kernel",
+                "scatter_vec_kernel", "scatter_scalar_kernel")
 CNN_BATCH = 32
 CNN_STEPS, CNN_J, CNN_K = 12, 4, 4
 CNN_ARGV = ["--config", "full", "--batch", str(CNN_BATCH), "--steps",
@@ -196,12 +221,19 @@ def _rand_idx(lead: tuple, spec, gen):
 
 
 def _selected_mask(leaf, idx, spec):
-    """Bool mask of the selected column blocks of a stacked leaf."""
-    from repro_torch.core.sparse_update import (gather_param_blocks,
-                                                scatter_param_blocks)
-    zeros = torch.zeros_like(leaf, dtype=torch.int8)
-    ones = torch.ones_like(gather_param_blocks(zeros, idx, spec))
-    return scatter_param_blocks(zeros, ones, idx, spec).bool()
+    """Bool mask of the selected column blocks of a stacked leaf [K, ...,
+    N]. Built with the plain scatter (`kref.scatter_blocks3`), never the
+    port's `scatter_param_blocks`, whose kernel takes no int8 and would
+    count launches inside the paths' launch windows."""
+    from repro_torch.kernels import ref as kref
+    k, n = leaf.shape[0], leaf.shape[-1]
+    zeros = torch.zeros((k, leaf[0].numel() // n, n), dtype=torch.int8,
+                        device=leaf.device)
+    ones = torch.ones(zeros.shape[:2] + (spec.n_shards, spec.n_sel,
+                                         spec.block),
+                      dtype=torch.int8, device=leaf.device)
+    return kref.scatter_blocks3(zeros, ones, idx, spec.block).reshape(
+        leaf.shape).bool()
 
 
 def _main_path_leaves() -> dict:
@@ -224,14 +256,18 @@ def _main_path_leaves() -> dict:
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_environment():
-    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
-          f"cuda {torch.version.cuda}", flush=True)
-    smi = subprocess.run(
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    print(smi, flush=True)
+
+
+def phase_environment():
+    print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+          f"cuda {torch.version.cuda}", flush=True)
+    print(card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"[env] device={torch.cuda.get_device_name(0)} "
@@ -670,6 +706,129 @@ def check_batched_dw(gen, sums: dict):
     del x, dy, w, mask, compact
 
 
+def cuda_ms_flushed(fn, flush, reps: int = 10, warmup: int = 2) -> float:
+    """CUDA events around each call alone, `flush` (larger than the 50 MB
+    L2) zeroed before it, so the call reads its inputs from device memory;
+    the mean over `reps` calls."""
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    for start, end in pairs:
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def _wave_leaves() -> dict:
+    """{leaf: (fan_in, out, SelSpec)} of the online wave on full-width
+    llama3-8b: the reference launcher's personalization defaults (K = 2,
+    r = 0.25, channel block 8)."""
+    from repro_torch.configs import SparseUpdateConfig, get_config
+    from repro_torch.core.selection import build_plan
+    from repro_torch.models.registry import abstract_params
+    cfg = get_config("llama3-8b")
+    plan = build_plan(cfg, SparseUpdateConfig(update_ratio=SERVE_RATIO,
+                                              num_update_layers=K_LAYERS,
+                                              channel_block=8))
+    shapes = abstract_params(cfg)["segments"]["blocks"]
+    return {name: tuple(shapes[group][name].shape[1:]) + (spec,)
+            for group in ("attn", "mlp")
+            for name, spec in plan.spec["blocks"][group].items()}
+
+
+def _scatter_case(tag, w, upd, idx, spec, flush, timed=False):
+    """The kernel against its plain version on one input: bitwise equal,
+    every unselected element's bits unchanged. Returns (ms, plain_ms,
+    library_ms, bytes) when `timed`."""
+    from repro_torch.kernels import ops, ref
+    k, n = w.shape[0], w.shape[-1]
+    r = w[0].numel() // n
+    w3, u5 = w.view(k, r, n), upd.view(k, r, spec.n_shards, spec.n_sel,
+                                       spec.block)
+    want = ref.block_scatter_update_ref(w3, u5, idx, spec.block)
+    got = w.clone()
+    ops.block_scatter_update(got, upd, idx, spec)
+    torch.cuda.synchronize()
+    ib = torch.int16 if w.dtype == torch.bfloat16 else torch.int32
+    check(torch.equal(got.view(k, r, n).view(ib), want.view(ib)),
+          f"block_scatter_update {tag}: not bitwise equal to the plain "
+          f"version")
+    mask = _selected_mask(w3, idx, spec)
+    check(torch.equal(got.view(k, r, n).view(ib)[~mask], w3.view(ib)[~mask]),
+          f"block_scatter_update {tag}: an unselected element changed")
+    line = (f"[kernel] block_scatter_update {tag} w={tuple(w.shape)} "
+            f"{_dname(w.dtype)} upd={_dname(upd.dtype)} n_sel={spec.n_sel} "
+            f"block={spec.block} bitwise=True unselected_unchanged=True")
+    if not timed:
+        print(line, flush=True)
+        return None
+    ms = cuda_ms_flushed(lambda: ops.block_scatter_update(got, upd, idx,
+                                                          spec), flush)
+    plain = cuda_ms_flushed(lambda: ref.block_scatter_update_ref(
+        w3, u5, idx, spec.block), flush)
+    # the library call: one Tensor.scatter_ on the blocked view, the upd
+    # already cast to w's type and its index already built
+    blocked = got.view(k, r, spec.n_shards * spec.n_blocks, spec.block)
+    u_cast = u5.to(w.dtype).reshape(k, r, -1, spec.block)
+    offs = (torch.arange(spec.n_shards, device=idx.device)
+            * spec.n_blocks)[None, :, None]
+    index = (idx.long() + offs).reshape(k, 1, -1, 1).expand(
+        k, r, spec.n_shards * spec.n_sel, spec.block).contiguous()
+    lib = cuda_ms_flushed(lambda: blocked.scatter_(2, index, u_cast), flush)
+    # upd read once, the selected elements of w written once, idx read
+    nbytes = upd.numel() * (upd.element_size() + w.element_size()) \
+        + idx.numel() * 4
+    b_ms, _ = bound_ms(0.0, nbytes, "float32")
+    print(f"{line} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+          f"library_ms={lib:.4f} bound_ms={b_ms:.4f} (bytes)", flush=True)
+    return ms, plain, lib, nbytes
+
+
+def check_scatter(gen, sums: dict):
+    """The block scatter-update at the 7 wave leaf shapes of full-width
+    llama3-8b (w [2, d_in, N] bf16, upd fp32, block 8, r = 0.25), timed into
+    the sums; then an fp32 case, a lead-dim case [K, E, d, N] and an
+    unaligned case (block 5) that takes the scalar loop."""
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    for leaf, (fan_in, out, spec) in _wave_leaves().items():
+        w = (torch.randn(K_LAYERS, fan_in, out, generator=gen, device="cuda")
+             * 0.02).to(torch.bfloat16)
+        upd = torch.randn(K_LAYERS, fan_in, spec.n_shards, spec.n_sel,
+                          spec.block, generator=gen, device="cuda") * 0.02
+        idx = _rand_idx((K_LAYERS, spec.n_shards), spec, gen)
+        ms, plain, lib, nbytes = _scatter_case(leaf, w, upd, idx, spec,
+                                               flush, timed=True)
+        for key, val in (("ms", ms), ("plain_ms", plain),
+                         ("library_ms", lib), ("bytes", nbytes)):
+            sums[key] += val
+        del w, upd, idx
+    from repro_torch.core.sparse_update import SelSpec
+    cases = [("fp32 wk", (K_LAYERS, 4096, 1024), (1, 32, 8, 128),
+              torch.float32),
+             ("lead dims [K,E,d,N]", (K_LAYERS, 8, 512, 1408),
+              (1, 44, 8, 176), torch.bfloat16),
+             ("unaligned block 5", (K_LAYERS, 333, 2 * 7 * 5),
+              (2, 3, 5, 7), torch.bfloat16)]
+    for tag, shape, (n_shards, n_sel, block, n_blocks), dtype in cases:
+        spec = SelSpec(block=block, n_shards=n_shards, n_sel=n_sel,
+                       n_blocks=n_blocks)
+        w = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        upd = torch.randn(shape[:-1] + (n_shards, n_sel, block),
+                          generator=gen, device="cuda")
+        idx = _rand_idx((K_LAYERS, n_shards), spec, gen)
+        _scatter_case(tag, w, upd, idx, spec, flush)
+    del flush
+
+
 def phase_kernels(results: dict):
     gen = torch.Generator(device="cuda").manual_seed(0)
     leaves = _main_path_leaves()
@@ -685,6 +844,8 @@ def phase_kernels(results: dict):
     check_prune(gen, results["block_act_prune"],
                 results["block_act_prune_bwd"])
     check_prune_paths(gen)
+    results["block_scatter_update"] = _new_sums()
+    check_scatter(gen, results["block_scatter_update"])
     torch.cuda.empty_cache()
 
 
@@ -1193,6 +1354,289 @@ def phase_moe_frozen(tc, out, snap):
           f"first fixed phase ({MOE_J} steps)", flush=True)
 
 
+# the serving path: full-width llama3-8b, 4 slots, pages of 16 tokens, 8
+# requests of 128 prompt + 32 new tokens (max_len 160, 40 pages), greedy;
+# run B adds 2 users with the reference launcher's personalization defaults
+SERVE_ARGV = ["--arch", "llama3-8b", "--requests", "8", "--batch", "4",
+              "--prompt-len", "128", "--gen-len", "32", "--page-size", "16",
+              "--prefix-mode", "off", "--seed", "0"]
+WAVE_LAUNCHES = {"block_scatter_update": 7, "block_sparse_dw": K_LAYERS * 7,
+                 "fused_block_opt": 7}
+COVERED = {"attn": ("wq", "wk", "wv", "wo"),
+           "mlp": ("w_gate", "w_up", "w_down")}
+
+
+def _serve_summary(tag, stats):
+    steps = [t * 1e3 for t in stats.decode_step_s]
+    waves = stats.train_waves
+    print(f"[{tag}] {stats.requests_completed}/{len(stats.results)} "
+          f"completed, {stats.requests_cancelled} cancelled, "
+          f"{stats.tokens_out} tokens, wall_s={stats.wall_s:.3f} "
+          f"prefill_tok_per_s={stats.prefill_tok_per_s:.1f} "
+          f"decode_tok_per_s={stats.decode_tok_per_s:.1f} "
+          f"decode_steps={len(steps)} decode_step_ms_median="
+          f"{statistics.median(steps):.3f} (min {min(steps):.3f}, max "
+          f"{max(steps):.3f}) prefill_chunks={stats.prefill_chunks} "
+          f"train_waves={waves} ms_per_wave="
+          f"{stats.train_wave_s * 1e3 / max(1, waves):.3f} "
+          f"delta_resident_bytes={stats.delta_resident_bytes} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+          f"pages_peak={stats.pages_peak}/{stats.pages_total}", flush=True)
+
+
+def _forced_oracle(cfg, params, toks, forced, max_len):
+    """Contiguous prefill + decode_step fed the given tokens: the logits at
+    every step, [len(forced), V] fp32."""
+    from repro_torch.models import decoding as D
+    logits, cache = D.prefill(cfg, params,
+                              {"tokens": torch.as_tensor(toks).cuda()[None]},
+                              pad_to=max_len)
+    out = [logits[0]]
+    for i, t in enumerate(range(len(toks), len(toks) + len(forced) - 1)):
+        logits, cache = D.decode_step(
+            cfg, params,
+            {"tokens": torch.tensor([[forced[i]]], device="cuda"),
+             "positions": torch.full((1, 1), t, device="cuda")}, cache)
+        out.append(logits[0])
+    return torch.stack(out)
+
+
+def _record_logits(engine):
+    """Keep every sampled step's logits rows (on the card)."""
+    seen, sample = [], engine._sample
+
+    def rec(logits):
+        seen.append(logits.detach().clone())
+        return sample(logits)
+    engine._sample = rec
+    return seen
+
+
+def phase_serve(results: dict):
+    """Paged serving of full-width llama3-8b through the serve launcher's
+    `build_engine`, twice on one copy of the weights. Run A: plain. Run B:
+    2 users, online waves; counts zeroed just before each run and read just
+    after."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    ap = serve.add_serve_args(__import__("argparse").ArgumentParser())
+    args_a = ap.parse_args(SERVE_ARGV + ["--users", "0"])
+    cfg, eng_a = serve.build_engine(args_a)
+    params = eng_a.params
+    n_param_bytes = sum(t.numel() * t.element_size()
+                        for t in _leaves(params))
+    print(f"[serve] llama3-8b full width, {cfg.num_layers} layers (no depth "
+          f"cut), {cfg.dtype}, params {n_param_bytes} bytes, 4 slots, page "
+          f"16, prefix_mode off, greedy, 8 requests x (128 prompt + 32 new)",
+          flush=True)
+
+    # one request, paged against contiguous at full width in bf16: report
+    # the largest logit difference (teacher-forced on the served tokens)
+    reqs = serve.build_requests(args_a, cfg)
+    seen = _record_logits(eng_a)
+    one = eng_a.run([reqs[0]])
+    paged = torch.cat([row[:1] for row in seen])
+    forced = one.results[0].tokens
+    contig = _forced_oracle(cfg, params, reqs[0].tokens, forced,
+                            args_a.prompt_len + args_a.gen_len)
+    print(f"[serve] paged vs contiguous, one request, bf16: max |logit "
+          f"diff| = {float((paged - contig).abs().max()):.6f} over "
+          f"{len(forced)} steps (logits max |x| "
+          f"{float(contig.abs().max()):.3f})", flush=True)
+    del seen, paged, contig
+    del eng_a._sample              # the engine's own sampling again
+
+    reqs = serve.build_requests(args_a, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    stats_a = eng_a.run(reqs)
+    counts_a = ops.launch_counts()
+    _serve_summary("serve A", stats_a)
+    check(stats_a.requests_completed == 8 and stats_a.requests_cancelled == 0,
+          f"run A: {stats_a.requests_completed} completed + "
+          f"{stats_a.requests_cancelled} cancelled of 8")
+    for name in WAVE_LAUNCHES:
+        check(counts_a[name] == 0, f"run A (no users) launched {name} "
+                                   f"{counts_a[name]} times")
+
+    # the covered leaves of the K trainable layers, held against the
+    # served base after the waves
+    blocks = params["segments"]["blocks"]
+    snap = {(g, n): blocks[g][n][-K_LAYERS:].clone()
+            for g, names in COVERED.items() for n in names}
+    args_b = ap.parse_args(SERVE_ARGV + ["--users", "2"])
+    _, eng_b = serve.build_engine(args_b, cfg, params=params)
+    del eng_a
+    gc.collect()
+    torch.cuda.empty_cache()
+    reqs = serve.build_requests(args_b, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    stats_b = eng_b.run(reqs)
+    counts_b = ops.launch_counts()
+    _serve_summary("serve B", stats_b)
+    print(f"[serve B] launches {counts_b}; wave losses "
+          f"{[(u, round(l, 4)) for u, l in stats_b.wave_losses]}",
+          flush=True)
+    check(stats_b.requests_completed + stats_b.requests_cancelled == 8
+          and stats_b.requests_completed == 8,
+          f"run B: {stats_b.requests_completed} completed + "
+          f"{stats_b.requests_cancelled} cancelled of 8")
+    check(stats_b.train_waves == 8, f"run B: {stats_b.train_waves} waves")
+    for name, per_wave in WAVE_LAUNCHES.items():
+        check(counts_b[name] == 8 * per_wave,
+              f"run B: {counts_b[name]} {name} launches, want 8 x "
+              f"{per_wave}")
+    for rid in range(4):
+        check(stats_b.results[rid].tokens == stats_a.results[rid].tokens,
+              f"run B request {rid} (admitted before any wave) differs "
+              f"from run A: zero delta rows are not a no-op")
+    for (g, n), old in snap.items():
+        check(torch.equal(blocks[g][n][-K_LAYERS:], old),
+              f"the waves wrote the served base leaf {g}/{n}")
+    for user in (0, 1):
+        vals = _leaves(eng_b._deltas.peek(user).vals)
+        check(all(bool(v.any()) for v in vals),
+              f"user {user}: a leaf of the delta is still zero")
+    check(all(torch.isfinite(torch.tensor(l)) for _, l in stats_b.wave_losses),
+          "a wave loss is not finite")
+    results["launches"]["block_scatter_update"] = \
+        counts_b["block_scatter_update"]
+    print("[serve] checks passed: 8/8 completed in both runs, run B's first "
+          "4 requests bitwise run A's, base leaves bitwise unchanged, every "
+          "user's delta nonzero, 8 waves of 7 / 14 / 7 launches, none in "
+          "run A", flush=True)
+    del snap
+    return cfg, eng_b
+
+
+def phase_serve_profile(cfg, eng):
+    """One decode step of run B's engine (4 active slots at position 150,
+    every page allocated, the delta rows of its last run) under
+    torch.profiler, beside its byte bound: the weights it reads (all but
+    the embedding table) plus the delta rows the gather-add reads plus the
+    pages."""
+    from repro_torch.models import decoding as D
+    b, ps = eng.num_slots, eng.page_size
+    pt = torch.arange(b * eng.max_pages, dtype=torch.int32,
+                      device="cuda").view(b, eng.max_pages)
+    batch = {"tokens": torch.ones((b, 1), dtype=torch.int32, device="cuda"),
+             "start": torch.full((b,), 150, dtype=torch.int32, device="cuda"),
+             "active": torch.ones((b,), dtype=torch.bool, device="cuda"),
+             "length": torch.ones((b,), dtype=torch.int32, device="cuda")}
+    step = lambda: D.paged_step(cfg, eng.params, batch, {}, eng._pools, pt,
+                                page_size=ps, deltas=eng._dbatch)
+    step()
+    ms = statistics.median(
+        [cuda_ms(step, reps=1, warmup=0) for _ in range(5)])
+    emb = eng.params["embed"]["tok"]
+    w_bytes = sum(t.numel() * t.element_size() for t in _leaves(eng.params)) \
+        - emb.numel() * emb.element_size()
+    d_bytes = sum(t.numel() * t.element_size() for t in _leaves(eng._dbatch))
+    p_bytes = sum(t.numel() * t.element_size() for t in _leaves(eng._pools))
+    bound = (w_bytes + d_bytes + p_bytes) / PEAK_BYTES * 1e3
+    print(f"[serve profile] decode step (4 slots, run B's deltas): "
+          f"{ms:.3f} ms (median of 5, synced); byte bound {bound:.3f} ms = "
+          f"(weights {w_bytes} + delta rows {d_bytes} + pools {p_bytes} "
+          f"bytes) / 3.35 TB/s; without the delta rows "
+          f"{(w_bytes + p_bytes) / PEAK_BYTES * 1e3:.3f} ms", flush=True)
+    profile_step("one decode step of run B", step)
+
+
+def phase_serve_oracle():
+    """Full llama3-8b widths cut to 4 layers, f32: the engine's greedy
+    tokens against the contiguous prefill + decode_step oracle, plain and,
+    after one wave, personalized (the oracle on params with the delta
+    dense-scattered in); every sampled step's top-2 gap probed."""
+    from repro_torch.configs import (OptimizerConfig, SparseUpdateConfig,
+                                     get_config)
+    from repro_torch.core.delta import apply_delta_tree
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import (PersonalizationConfig, Request,
+                                   ServeEngine)
+    from repro_torch.train.steps import merge_params
+    cfg = dataclasses.replace(get_config("llama3-8b"), num_layers=4,
+                              dtype="float32")
+    params = T.init_params(cfg, 0, "cuda")
+    plen, gen, max_len = 40, 8, 48
+    draw = torch.Generator().manual_seed(3)
+    prompts = [torch.randint(0, cfg.vocab_size, (plen,), generator=draw,
+                             dtype=torch.int32).numpy() for _ in range(3)]
+
+    def greedy_oracle(p, toks):
+        from repro_torch.models import decoding as D
+        logits, cache = D.prefill(cfg, p, {"tokens": torch.as_tensor(
+            toks).cuda()[None]}, pad_to=max_len)
+        out = [int(logits.argmax(-1)[0])]
+        for t in range(plen, plen + gen - 1):
+            logits, cache = D.decode_step(
+                cfg, p, {"tokens": torch.tensor([[out[-1]]], device="cuda"),
+                         "positions": torch.full((1, 1), t, device="cuda")},
+                cache)
+            out.append(int(logits.argmax(-1)[0]))
+        return out
+
+    def min_gap(seen):
+        top = torch.topk(torch.cat(seen).float(), 2, dim=-1).values
+        return float((top[:, 0] - top[:, 1]).min())
+
+    plain = ServeEngine(cfg, params, num_slots=2, max_len=max_len,
+                        page_size=16)
+    seen = _record_logits(plain)
+    stats = plain.run([Request(i, gen, tokens=t)
+                       for i, t in enumerate(prompts[:2])])
+    gap = min_gap(seen)
+    check(gap > 1e-4, f"oracle parity: a near-tie (top-2 gap {gap}) makes "
+                      f"the token comparison unsound")
+    for i in range(2):
+        check(stats.results[i].tokens == greedy_oracle(params, prompts[i]),
+              f"oracle parity: request {i} differs from the contiguous "
+              f"oracle")
+    del plain, seen
+    p13n = PersonalizationConfig(
+        sparse=SparseUpdateConfig(update_ratio=SERVE_RATIO,
+                                  num_update_layers=K_LAYERS,
+                                  channel_block=8),
+        optimizer=OptimizerConfig(kind="sgd", learning_rate=0.05),
+        train_tokens=16)
+    eng = ServeEngine(cfg, params, num_slots=1, max_len=max_len,
+                      page_size=16, personalization=p13n)
+    seen = _record_logits(eng)
+    r1 = eng.run([Request(0, gen, tokens=prompts[0], user=9)]).results[0]
+    entry = eng._deltas.peek(9)
+    trainable = dict(eng._trainable)
+    trainable["segments"] = apply_delta_tree(
+        eng._trainable["segments"],
+        _tree_to(entry.vals, "cuda"), _tree_to(entry.idx, "cuda"),
+        eng._plan.spec)
+    pers = merge_params(eng._frozen, trainable)
+    r2 = eng.run([Request(1, gen, tokens=prompts[2], user=9)]).results[1]
+    gap = min_gap(seen)
+    check(gap > 1e-4, f"personalized oracle parity: a near-tie (top-2 gap "
+                      f"{gap})")
+    check(r1.tokens == stats.results[0].tokens,
+          "zero-delta personalized serving differs from the base model")
+    check(r2.tokens == greedy_oracle(pers, prompts[2]),
+          "personalized serving differs from the dense-scatter oracle")
+    print(f"[serve oracle] llama3-8b widths cut to {cfg.num_layers} layers, "
+          f"f32: engine == contiguous oracle for 2 requests ({plen} prompt + "
+          f"{gen} new), zero-delta personalized == base, post-wave "
+          f"personalized == dense-scatter oracle; min top-2 gap {gap:.3e}",
+          flush=True)
+
+
+def _leaves(tree) -> list:
+    from repro_torch.core.sparse_update import tree_leaves
+    return tree_leaves(tree)
+
+
+def _tree_to(tree, device):
+    from repro_torch.core.sparse_update import tree_map
+    return tree_map(lambda a: a.to(device), tree)
+
+
 def kernels_line(results: dict) -> dict:
     """The kernels' JSON line. Times: block_sparse_dw summed over the 7 leaf
     shapes of one trainable LM layer, fused_block_opt over the 7 leaves of
@@ -1213,7 +1657,7 @@ def kernels_line(results: dict) -> dict:
             "replaces": replaces, "launches": results["launches"][name],
             "max_abs_err": s["max_abs_err"], "ms": s["ms"],
             "plain_ms": s["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": s["library_ms"] if name in dtypes else None,
+            "library_ms": s["library_ms"] if name in LIBRARY else None,
         })
     return {"kernels": rows}
 
@@ -1270,8 +1714,22 @@ def main() -> int:
     del init
     torch.cuda.empty_cache()
     phase_table2()
+    print(f"[chip_smoke] CNN phases done at {time.perf_counter() - t0:.0f} s",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, eng = phase_serve(results)
+    print(f"[chip_smoke] serving runs done at {time.perf_counter() - t0:.0f}"
+          f" s", flush=True)
+    phase_serve_profile(cfg, eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_oracle()
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t0:.0f} s",
           flush=True)
+    # again at the end, beside the numbers: a log cut to its tail keeps it
+    print(card_line(), flush=True)
     print(json.dumps(kernels_line(results)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,10 @@ The train-state keys carried are `step`, `params_trainable`,
 `params_frozen`, `opt` and `sel_idx`. The reference's `rng` is a JAX PRNG
 key, which the port cannot replay; the port's `rng` is an int seed, given
 on the way in.
+
+Serve state (page pools, page tables, delta batches) is nested dicts of
+arrays too, so `to_torch` / `to_numpy` carry it; a user's `DeltaState`
+goes with `delta_to_torch` / `delta_to_numpy`.
 """
 from __future__ import annotations
 
@@ -64,3 +68,17 @@ def state_to_numpy(state) -> dict:
     for key in STATE_KEYS[1:]:
         out[key] = to_numpy(state[key])
     return out
+
+
+def delta_to_torch(state, device="cpu"):
+    """A reference `DeltaState` (numpy or JAX leaves) -> the port's, with
+    tensors on `device`."""
+    from repro_torch.core.delta import DeltaState
+    return DeltaState(idx=to_torch(state.idx, device),
+                      vals=to_torch(state.vals, device))
+
+
+def delta_to_numpy(state) -> dict:
+    """The port's `DeltaState` -> {"idx", "vals"} trees of numpy arrays,
+    the layout of the reference's `DeltaState.to_tree()`."""
+    return to_numpy(state.to_tree())

@@ -232,13 +232,13 @@ def gather_param_blocks(w, idx, spec: SelSpec):
 
 
 def scatter_param_blocks(w, vals, idx, spec: SelSpec):
-    """Inverse of gather_param_blocks, out of place: `w` with its selected
-    blocks overwritten by `vals` (unselected blocks untouched)."""
-    k, n = w.shape[0], w.shape[-1]
-    out = kref.scatter_blocks3(
-        w.reshape(k, -1, n),
-        vals.reshape((k, -1) + tuple(vals.shape[-3:])), idx, spec.block)
-    return out.reshape(w.shape)
+    """Inverse of gather_param_blocks, out of place: a copy of `w` with its
+    selected blocks overwritten by `vals` (cast to w's dtype; unselected
+    blocks untouched, `w` itself never written). The overwrite is one
+    `block_scatter_update` launch on the card (the kernel writes in place,
+    so it writes into the copy), its plain version on the CPU."""
+    return kops.block_scatter_update(w.contiguous().clone(),
+                                     vals.contiguous(), idx, spec)
 
 
 def map_selectable(tree, spec_tree, fn):

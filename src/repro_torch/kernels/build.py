@@ -31,6 +31,7 @@ SOURCES = {
     "block_sparse_dw": [],
     "fused_block_opt": ["-fmad=false"],
     "block_act_prune": [],
+    "block_scatter_update": [],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -72,6 +73,9 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fns = [(lib.fused_block_opt_launch,
                 [p, p, p, p, p, p, i64, i64, i64, i32, i32, i32, i32, i32,
                  i32, f32, f32, f32, f32, f32, f32, f32, p])]
+    elif name == "block_scatter_update":
+        fns = [(lib.block_scatter_update_launch,
+                [p, p, p, i64, i64, i64, i32, i32, i32, i32, i32, p])]
     else:
         fns = [(lib.block_act_prune_fwd_launch,
                 [p, p, i64, i32, f32, i32, p]),

@@ -11,9 +11,9 @@ its kernel does not take. Then it dispatches on the device of its tensors:
 
 Every logical op is one launch: the dW kernel covers all shards and
 selected blocks of one matmul (and, batched, all experts of an expert
-leaf), the optimizer kernel the whole stacked leaf
-(all trainable layers, all shards, lead dims flattened into rows), and the
-activation pruning kernel a whole activation, forward or backward.
+leaf), the optimizer and the block scatter-update kernels the whole stacked
+leaf (all trainable layers, all shards, lead dims flattened into rows), and
+the activation pruning kernel a whole activation, forward or backward.
 """
 from __future__ import annotations
 
@@ -26,7 +26,8 @@ from repro_torch.kernels import ref
 
 # launch counts, by kernel; only a launch on the card counts
 LAUNCHES = {"block_sparse_dw": 0, "batched_dw": 0, "fused_block_opt": 0,
-            "block_act_prune": 0, "block_act_prune_bwd": 0}
+            "block_act_prune": 0, "block_act_prune_bwd": 0,
+            "block_scatter_update": 0}
 # block_sparse_dw and batched_dw launches by instance (grid / pipelined),
 # for reports
 DW_INSTANCES = {"grid": 0, "pipelined": 0}
@@ -266,6 +267,60 @@ def fused_block_optimizer(oc, p, g_sel, idx, spec, mu, nu, hyper):
                     momentum=oc.momentum, beta1=oc.beta1, beta2=oc.beta2,
                     eps=oc.eps, weight_decay=oc.weight_decay)
     return p, mu, nu
+
+
+# ---------------------------------------------------------------------------
+# block scatter-update
+# ---------------------------------------------------------------------------
+
+def _check_scatter(w, vals, idx, spec):
+    name = "block_scatter_update"
+    s, j, blk = spec.n_shards, spec.n_sel, spec.block
+    _require(w.dim() >= 2 and blk > 0 and w.shape[-1] % (s * blk) == 0
+             and tuple(vals.shape) == tuple(w.shape[:-1]) + (s, j, blk)
+             and tuple(idx.shape) == (w.shape[0], s, j),
+             f"{name}: need w [K,*lead,N], vals [K,*lead,S,n_sel,block], idx "
+             f"[K,S,n_sel] for {tuple(spec)}; got {tuple(w.shape)}, "
+             f"{tuple(vals.shape)}, {tuple(idx.shape)}")
+    _require(w.dtype in _DTYPE_CODE and vals.dtype in (torch.float32,
+                                                       w.dtype),
+             f"{name}: w must be float32 or bfloat16 and vals float32 or "
+             f"w's type, got {w.dtype} and {vals.dtype}")
+    _require(idx.dtype == torch.int32, f"{name}: idx must be int32")
+    _require(w.is_contiguous() and vals.is_contiguous()
+             and idx.is_contiguous(),
+             f"{name}: w, vals and idx must be contiguous")
+    _require(w.device == vals.device == idx.device,
+             f"{name}: w, vals and idx must be on one device")
+
+
+def block_scatter_update(w, vals, idx, spec):
+    """Overwrite the selected column blocks of a stacked leaf with `vals`,
+    in place, in one launch over (K, rows, shards, selected blocks):
+
+    w:    [K, *lead, N]                     (N = n_shards * n_blocks * block)
+    vals: [K, *lead, n_shards, n_sel, block]  float32 or w's type, cast to
+          w's type on the store
+    idx:  [K, n_shards, n_sel] int32
+
+    Lead dims (an expert axis) flatten into the kernel's rows. Unselected
+    blocks are never touched. Returns w."""
+    _check_scatter(w, vals, idx, spec)
+    k, n = w.shape[0], w.shape[-1]
+    r = w[0].numel() // n if k else 0
+    w3 = w.view(k, r, n)
+    v5 = vals.view(k, r, spec.n_shards, spec.n_sel, spec.block)
+    if not w.is_cuda:
+        w3.copy_(ref.block_scatter_update_ref(w3, v5, idx, spec.block))
+        return w
+    from repro_torch.kernels.build import load
+    rc = load("block_scatter_update").block_scatter_update_launch(
+        w3.data_ptr(), v5.data_ptr(), idx.data_ptr(), k, r, n,
+        spec.n_shards, spec.n_sel, spec.block, _DTYPE_CODE[w.dtype],
+        _DTYPE_CODE[vals.dtype], _stream(w))
+    _raise_on(rc, "block_scatter_update")
+    LAUNCHES["block_scatter_update"] += 1
+    return w
 
 
 # ---------------------------------------------------------------------------

@@ -61,6 +61,14 @@ def scatter_blocks3(a, vals, idx, block: int):
     return ab.scatter(3, index, vals.to(a.dtype)).reshape(k, r, n)
 
 
+def block_scatter_update_ref(w, upd, idx, block: int):
+    """The block scatter-update kernel's plain version: w [K,R,N], upd
+    [K,R,n_shards,n_sel,block], idx [K,n_shards,n_sel] -> w with the
+    selected blocks overwritten by upd cast to w's type (out of place; the
+    kernel writes in place)."""
+    return scatter_blocks3(w, upd, idx, block)
+
+
 def block_rule(kind: str, lr, t, p32, g32, mu, nu, *, momentum: float,
                beta1: float, beta2: float, eps: float, weight_decay: float):
     """The optimizer rule on fp32 blocks, in the reference's order of

@@ -20,7 +20,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import SparseUpdateConfig, TrainConfig
+from repro_torch.configs.base import (ShapeConfig, SparseUpdateConfig,
+                                      TrainConfig)
 from repro_torch.core.schedule import maybe_reselect
 from repro_torch.core.selection import (SelectionPlan, build_plan,
                                         magnitude_selection, random_selection)
@@ -187,3 +188,56 @@ def make_train_step(tc: TrainConfig, plan: SelectionPlan,
         return new_state, metrics
 
     return train_step
+
+
+def make_online_wave(cfg, sparse, optimizer, plan: SelectionPlan, *,
+                     wave_tokens: int):
+    """Builds the serve engine's online personalization train wave.
+
+    Returns `wave(trainable_base, frozen, delta_vals, sel_idx, batch) ->
+    (new_delta_vals, metrics)`, which advances one user's compact delta
+    (`repro_torch.core.delta`) by one compact train step without writing the
+    shared base params:
+
+      1. materialize `base + delta` for the trainable suffix into a copy of
+         its covered leaves (one `block_scatter_update` launch per leaf on
+         the card),
+      2. run the compact train step on it (one `block_sparse_dw` launch per
+         leaf and trainable layer, one `fused_block_opt` per leaf), with
+         the step index pinned to 0 so the three-phase schedule never
+         reselects (requires `sparse.phase_fixed_early >= 1`),
+      3. re-extract `gather(new) - gather(base)` as the updated delta.
+
+    The reported loss is taken BEFORE the update. Restricted to sgd with
+    momentum 0: a user's state is the delta and nothing else."""
+    from repro_torch.core.delta import apply_delta_tree, extract_delta_tree
+
+    assert optimizer.kind == "sgd" and optimizer.momentum == 0.0, (
+        "online waves keep no per-user optimizer state: use sgd, momentum 0")
+    assert sparse.phase_fixed_early >= 1, (
+        "wave pins step=0; phase_fixed_early=0 would reselect in-wave")
+    tc = TrainConfig(model=cfg,
+                     shape=ShapeConfig("wave", wave_tokens, 1, "train"),
+                     sparse=sparse, optimizer=optimizer, compact_grads=True)
+    step = make_train_step(tc, plan, use_selection=True, compact_grads=True)
+
+    def wave(trainable_base, frozen, delta_vals, sel_idx, batch):
+        base_segs = trainable_base.get("segments", {})
+        pers = dict(trainable_base)
+        pers["segments"] = apply_delta_tree(base_segs, delta_vals, sel_idx,
+                                            plan.spec)
+        state = {
+            "step": 0,
+            "params_trainable": pers,
+            "params_frozen": frozen,
+            "opt": init_opt_state(tc.optimizer, pers),
+            "sel_idx": sel_idx,
+            "rng": sparse.seed,
+        }
+        new_state, metrics = step(state, batch)
+        new_vals = extract_delta_tree(
+            base_segs, new_state["params_trainable"]["segments"], sel_idx,
+            plan.spec)
+        return new_vals, metrics
+
+    return wave

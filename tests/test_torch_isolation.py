@@ -37,7 +37,12 @@ def test_no_jax_or_reference_import_in_the_source():
 def test_importing_every_port_module_loads_neither_jax_nor_repro():
     mods = _port_modules()
     assert {"repro_torch.kernels.ops", "repro_torch.models.moe",
-            "repro_torch.configs.deepseek_moe_16b"} <= set(mods)
+            "repro_torch.configs.deepseek_moe_16b",
+            "repro_torch.models.decoding", "repro_torch.core.delta",
+            "repro_torch.serve", "repro_torch.serve.engine",
+            "repro_torch.serve.scheduler", "repro_torch.serve.paging",
+            "repro_torch.serve.deltas", "repro_torch.serve.sampling",
+            "repro_torch.launch.serve"} <= set(mods)
     assert len(mods) > 15
     code = (
         "import importlib, sys\n"

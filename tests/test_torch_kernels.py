@@ -191,10 +191,16 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
                                           pipelined=pipelined)
         torch.testing.assert_close(got, ref.batched_dw_ref(
             x.reshape(2, 8, 8), dy.reshape(2, 8, 48), idx, 8))
+    w3 = _t(w)
+    got = ops.block_scatter_update(w3, _t(g), _t(oidx),
+                                   SelSpec(block=8, n_shards=1, n_sel=2,
+                                           n_blocks=4))
+    assert got is w3
     assert ops.launch_counts() == {"block_sparse_dw": 0, "batched_dw": 0,
                                    "fused_block_opt": 0,
                                    "block_act_prune": 0,
-                                   "block_act_prune_bwd": 0}
+                                   "block_act_prune_bwd": 0,
+                                   "block_scatter_update": 0}
 
 
 def _dw_args():
