@@ -5,7 +5,8 @@
 
 Phases (any failure exits non-zero and prints no result):
 
-1. environment: torch version, the card's name and power limit, TF32 off;
+1. environment: torch version, the card's name and power limit, TF32 off,
+   deterministic cuDNN;
 2. build: nvcc builds every kernel of the port from `src/repro_torch/kernels/csrc`;
 3. kernels against their plain versions at the main paths' shapes
    (M = 4096 tokens, full llama3-8b widths; every activation shape of the
@@ -26,9 +27,11 @@ Phases (any failure exits non-zero and prints no result):
    as derived every step, frozen params and (in the first fixed phase) the
    unselected blocks bitwise unchanged; then 2 steps of `full`, and
    peak(dynamic) < peak(full);
-8. one more CNN step under torch.profiler;
+8. one more CNN step under torch.profiler, after timing it with cuDNN's
+   deterministic algorithms against its free choice;
 9. the reference's Table II at the smoke config (150 pretraining steps,
-   120 transfer steps, five methods) and the learnability check;
+   120 transfer steps, five methods), twice from one seed, every row
+   bitwise equal, and the learnability check;
 10. the MoE path: the compact train step on full-width deepseek-moe-16b
    (all 28 layers, bf16, 64 routed experts top-6 plus 2 shared), batch
    4 x seq 1024, AdamW, 6 steps across the fixed / dynamic / fixed phases,
@@ -42,6 +45,17 @@ Phases (any failure exits non-zero and prints no result):
    init from the same seed;
 12. MoE compact against dense-scatter on the card: SGD, 2 fixed-phase
    steps at full width cut to 4 layers, trainable params bitwise equal;
+12a. the rwkv path: the compact train step on full-width rwkv6-3b (32
+   layers, bf16, 40 heads of 64), batch 4 x seq 1024, AdamW, 6 steps
+   across the fixed / dynamic / fixed phases, through
+   `repro_torch.launch.train`, counts zeroed just before and read just
+   after: exactly 34 wkv6 (32 layers + 2 recomputed under checkpoint),
+   2 wkv6_bwd, K x 8 block_sparse_dw and 8 fused_block_opt launches a
+   step; the unselected blocks of time/wo unchanged every step;
+12b. one more rwkv step under torch.profiler, then the frozen params
+   bitwise against a fresh init from the same seed;
+12c. rwkv compact against dense-scatter: SGD, 2 fixed-phase steps at full
+   width cut to 4 layers, trainable params bitwise equal;
 13. the serving path: full-width llama3-8b (32 layers, bf16) through
    `repro_torch.launch.serve`'s `build_engine`, 4 slots, pages of 16, 8
    requests of 128 + 32 tokens, greedy, twice on one copy of the weights,
@@ -54,6 +68,8 @@ Phases (any failure exits non-zero and prints no result):
    request, the largest logit difference between the paged and the
    contiguous path;
 14. one decode step of run B under torch.profiler, beside its byte bound;
+   then the bf16 online wave against the f32 wave on the same bf16 inputs,
+   within a bound derived from bf16 rounding;
 15. oracle parity at full widths cut to 4 layers, f32: the engine's greedy
    tokens against the contiguous prefill + decode_step oracle, plain and,
    after one wave, personalized (the delta dense-scattered into the
@@ -61,9 +77,12 @@ Phases (any failure exits non-zero and prints no result):
 
 Phase 3 also holds the expert-batched dW (`batched_dw`) against its plain
 version at the three expert leaf shapes of the MoE path (64 experts,
-capacity 481), and the block scatter-update bitwise against its plain
+capacity 481), the block scatter-update bitwise against its plain
 version at the online wave's 7 leaf shapes of full-width llama3-8b and at
-an fp32, a lead-dim and an unaligned case.
+an fp32, a lead-dim and an unaligned case, and the WKV recurrence forward
+and backward against its plain version and torch.autograd of it at the
+rwkv path's shapes (batch 4 x 1024 steps x 40 heads x 64, fp32), with w
+down to 1e-12 and with T = 1001.
 
 The last lines are one JSON object with every kernel's numbers, and then
 `{"ok": true, "device": {...}}`.
@@ -96,6 +115,7 @@ MAIN_ARGV = ["--arch", "llama3-8b", "--steps", "6", "--batch", "4",
              "--phase-j", "2", "--phase-k", "2", "--log-every", "1",
              "--seed", "0"]
 MOE_ARGV = ["--arch", "deepseek-moe-16b"] + MAIN_ARGV[2:]
+RWKV_ARGV = ["--arch", "rwkv6-3b"] + MAIN_ARGV[2:]
 MOE_J = 2                  # the first fixed phase of the MoE run
 # launches a step of the MoE path: 4 attention and 3 shared-expert dW per
 # trainable layer, 3 expert dW per layer, one optimizer launch per
@@ -110,7 +130,8 @@ SERVE_RATIO = 0.25         # the serving launcher's per-user update ratio
 # wherever the shape is aligned; batched_dw, the same source's expert entry
 # point, likewise replaces batched_dw_pipelined_kernel (batched_dw.py:130).
 # block_act_prune_bwd is the same kernel's backward entry point (the
-# reference differentiates its jnp version).
+# reference differentiates its jnp version), and wkv6_bwd the WKV source's
+# (the TPU kernel has no backward; the reference differentiates its scan).
 SOURCES = {
     "block_sparse_dw": ("cuda",
                         "src/repro_torch/kernels/csrc/block_sparse_dw.cu",
@@ -130,6 +151,10 @@ SOURCES = {
     "block_scatter_update": (
         "cuda", "src/repro_torch/kernels/csrc/block_scatter_update.cu",
         "src/repro/kernels/scatter_blocks.py:42", "serve"),
+    "wkv6": ("cuda", "src/repro_torch/kernels/csrc/wkv6.cu",
+             "src/repro/kernels/wkv6_chunk.py:80", "rwkv"),
+    "wkv6_bwd": ("cuda", "src/repro_torch/kernels/csrc/wkv6.cu",
+                 "src/repro/kernels/wkv6_chunk.py:80", "rwkv"),
 }
 # kernels with a one-call PyTorch yardstick (library_ms)
 LIBRARY = ("block_sparse_dw", "batched_dw", "block_scatter_update")
@@ -137,7 +162,8 @@ LIBRARY = ("block_sparse_dw", "batched_dw", "block_scatter_update")
 PORT_KERNELS = ("batched_dw_grid_kernel", "batched_dw_pipelined_kernel",
                 "dw_grid_kernel", "dw_pipelined_kernel",
                 "fused_block_opt_kernel", "prune_kernel",
-                "scatter_vec_kernel", "scatter_scalar_kernel")
+                "scatter_vec_kernel", "scatter_scalar_kernel",
+                "wkv6_fwd_kernel", "wkv6_bwd_kernel")
 CNN_BATCH = 32
 CNN_STEPS, CNN_J, CNN_K = 12, 4, 4
 CNN_ARGV = ["--config", "full", "--batch", str(CNN_BATCH), "--steps",
@@ -270,10 +296,16 @@ def phase_environment():
     print(card_line(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the CNN phases' results are functions of their seeds: deterministic
+    # cuDNN algorithms only, none picked by timing
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     print(f"[env] device={torch.cuda.get_device_name(0)} "
           f"count={torch.cuda.device_count()} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"cudnn.deterministic={torch.backends.cudnn.deterministic} "
+          f"cudnn.benchmark={torch.backends.cudnn.benchmark}", flush=True)
 
 
 def phase_build():
@@ -829,6 +861,112 @@ def check_scatter(gen, sums: dict):
     del flush
 
 
+# the rwkv6-3b path's WKV shapes: batch 4 x seq 1024, 40 heads of 64
+WKV_SHAPE = (4, 1024, 40, 64)
+# operations per (b, t, h, d, e) that the function needs: forward, S (k v,
+# w S, the add) and y (r S); backward, S again, dS, and the four
+# contractions for dr, dk, dv, dw
+WKV_OPS = {"wkv6": 5, "wkv6_bwd": 14}
+
+
+def _wkv_inputs(shape, gen, log_decay: float):
+    """r, k, v ~ N(0, 1) (the projections of a layer-normed input), w =
+    exp(-exp(log_decay + 0.5 N)) (the model's decay: w0 = -6 at init gives
+    w ~ 0.9975, a memory of ~400 steps), u ~ 0.1 N per head."""
+    b, t, h, d = shape
+    r, k, v = (torch.randn(shape, generator=gen, device="cuda")
+               for _ in range(3))
+    w = torch.exp(-torch.exp(log_decay + 0.5 * torch.randn(
+        shape, generator=gen, device="cuda")))
+    u = 0.1 * torch.randn((h, d), generator=gen, device="cuda")
+    return r, k, v, w, u
+
+
+def _wkv_errors(tag, inputs, dy):
+    """The kernels against the plain versions on one input: y against
+    `ref.wkv6_ref`, the gradients against torch.autograd of it. fp32 on
+    both sides, summed in other orders (four partial sums per step, FMA
+    contraction) over D products a step and the state over up to T steps:
+    each result is held within 1e-4 of the largest |value| of its plain
+    tensor. Returns (max abs err forward, max abs err backward)."""
+    from repro_torch.kernels import ops, ref
+    y = ops.wkv6_fwd(*inputs)
+    xs = [a.clone().requires_grad_(True) for a in inputs]
+    want = ref.wkv6_ref(*xs)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y).all()), f"wkv6 {tag}: not finite")
+    scale = float(want.detach().abs().max())
+    err_f = float((y - want.detach()).abs().max())
+    check(err_f <= 1e-4 * max(scale, 1e-30),
+          f"wkv6 {tag}: max abs err {err_f} against max |y| {scale}")
+    want.backward(dy)
+    got = ops.wkv6_bwd(*inputs, dy)
+    torch.cuda.synchronize()
+    err_b, parts = 0.0, []
+    for name, g, x in zip("rkvwu", got, xs):
+        check(bool(torch.isfinite(g).all()), f"wkv6_bwd {tag}: d{name} not "
+                                             f"finite")
+        sc = float(x.grad.abs().max())
+        e = float((g - x.grad).abs().max())
+        check(e <= 1e-4 * max(sc, 1e-30),
+              f"wkv6_bwd {tag}: d{name} max abs err {e} against max "
+              f"|d{name}| {sc}")
+        err_b = max(err_b, e)
+        parts.append(f"d{name} {e:.3e}/{sc:.3e}")
+    print(f"[kernel] wkv6 {tag} {tuple(y.shape)}: forward max_abs_err="
+          f"{err_f:.3e} (max |y| {scale:.3e}); backward err/max "
+          f"{', '.join(parts)}", flush=True)
+    del xs, want, got
+    return err_f, err_b
+
+
+def check_wkv(gen, fwd: dict, bwd: dict):
+    """The WKV kernels at the rwkv path's shapes, forward and backward,
+    against the plain versions, timed with the L2 flushed into the sums;
+    then a strong-decay case (w down to 1e-12, where the reference's
+    log-space chunks overflow) and a case with T = 1000, not a multiple of
+    the kernels' step chunks."""
+    from repro_torch.kernels import ops, ref
+    inputs = _wkv_inputs(WKV_SHAPE, gen, -6.0)
+    dy = torch.randn(WKV_SHAPE, generator=gen, device="cuda")
+    err_f, err_b = _wkv_errors("rwkv6-3b shapes", inputs, dy)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    n = inputs[0].numel()
+    d = WKV_SHAPE[-1]
+    for name, sums, fn, plain, n_in, n_out, err in (
+            ("wkv6", fwd, lambda: ops.wkv6_fwd(*inputs),
+             lambda: ref.wkv6_ref(*inputs), 4, 1, err_f),
+            ("wkv6_bwd", bwd, lambda: ops.wkv6_bwd(*inputs, dy),
+             lambda: ref.wkv6_bwd_ref(*inputs, dy), 5, 4, err_b)):
+        ms = cuda_ms_flushed(fn, flush)
+        plain_ms = cuda_ms_flushed(plain, flush, reps=2, warmup=1)
+        # each input read once, each output written once; u (and du)
+        nbytes = (n_in + n_out) * n * 4 + inputs[4].numel() * 4 * (
+            1 if name == "wkv6" else 2)
+        flops = WKV_OPS[name] * n * d
+        b_ms, b_by = bound_ms(flops, nbytes, "float32")
+        sums.update(ms=ms, plain_ms=plain_ms, flops=flops, bytes=nbytes,
+                    max_abs_err=err)
+        print(f"[kernel] {name} {WKV_SHAPE} fp32: kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} library_ms=none bound_ms="
+              f"{b_ms:.4f} ({b_by}: {flops / 1e9:.2f} GFLOP, "
+              f"{nbytes / 1e6:.1f} MB)", flush=True)
+    del inputs, dy, flush
+    torch.cuda.empty_cache()
+    # strong decay: half the channels at w = 1e-12, the rest the model's
+    r, k, v, w, u = _wkv_inputs((2, 256, 8, 64), gen, -6.0)
+    w[..., ::2] = 1e-12
+    dy = torch.randn(r.shape, generator=gen, device="cuda")
+    _wkv_errors("strong decay (w = 1e-12 on half the channels)",
+                (r, k, v, w, u), dy)
+    # T not a multiple of 32 (the forward's chunk) nor of 8 (the
+    # backward's checkpoint interval)
+    r, k, v, w, u = _wkv_inputs((2, 1001, 8, 64), gen, -1.0)
+    dy = torch.randn(r.shape, generator=gen, device="cuda")
+    _wkv_errors("T=1001", (r, k, v, w, u), dy)
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(results: dict):
     gen = torch.Generator(device="cuda").manual_seed(0)
     leaves = _main_path_leaves()
@@ -846,6 +984,9 @@ def phase_kernels(results: dict):
     check_prune_paths(gen)
     results["block_scatter_update"] = _new_sums()
     check_scatter(gen, results["block_scatter_update"])
+    results["wkv6"] = _new_sums()
+    results["wkv6_bwd"] = _new_sums()
+    check_wkv(gen, results["wkv6"], results["wkv6_bwd"])
     torch.cuda.empty_cache()
 
 
@@ -1180,6 +1321,18 @@ def phase_cnn_profile(init):
         CT.train_step(cfg, oc, frozen, p, st, b, step, sel=(idx, spec),
                       act_prune=prune)
     run()
+    # the cost of deterministic cuDNN: the same step, free and deterministic
+    # algorithms in turns (free, det, det, free), 10 synced steps each
+    times = {False: [], True: []}
+    for det in (False, True, True, False):
+        torch.backends.cudnn.deterministic = det
+        run()
+        times[det] += [cuda_ms(run, reps=1, warmup=0) for _ in range(10)]
+    torch.backends.cudnn.deterministic = True
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"[cnn profile] dynamic step ms, median of 20: cudnn.deterministic"
+          f"=False {med[False]:.3f}, True {med[True]:.3f} (ratio "
+          f"{med[True] / med[False]:.3f})", flush=True)
     profile_step(f"one CNN dynamic step (the host made its batch of "
                  f"{CNN_BATCH} images in {data_ms:.1f} ms beforehand)", run)
 
@@ -1198,6 +1351,18 @@ def phase_table2():
     out = CT.main(["--config", "smoke", "--seed", "0"])
     totals = ops.launch_counts()
     cfg = out["cfg"]
+    # the table is a function of its seed: a second run equals it bitwise
+    again = CT.main(["--config", "smoke", "--seed", "0"])
+    from repro_torch.core.sparse_update import tree_leaves
+    for a, b in zip(out["rows"], again["rows"]):
+        same = (a["acc"] == b["acc"] and a.get("losses") == b.get("losses")
+                and all(torch.equal(x, y) for x, y in zip(
+                    tree_leaves(a["params"]), tree_leaves(b["params"]))))
+        check(same, f"table2: {a['method']} differs between two runs from "
+                    f"one seed")
+    print(f"[table2] two runs from seed 0: all {len(out['rows'])} rows "
+          f"bitwise equal (accuracies, losses, final params)", flush=True)
+    del again
     want = [sum(CT.prune_launches(cfg, m)[i] for m in CT.METHODS) * CT.STEPS
             for i in (0, 1)]
     got = [totals["block_act_prune"], totals["block_act_prune_bwd"]]
@@ -1352,6 +1517,119 @@ def phase_moe_frozen(tc, out, snap):
           f"{tc.model.num_layers - 1 - K_LAYERS} frozen MoE layers); every "
           f"expert leaf's unselected blocks bitwise their init through the "
           f"first fixed phase ({MOE_J} steps)", flush=True)
+
+
+def rwkv_per_step(cfg) -> dict:
+    """Launches a step of the rwkv path: the WKV forward once a layer (the
+    frozen ones under no_grad) and once more for each trainable layer,
+    which `torch.utils.checkpoint` recomputes in the backward; the WKV
+    backward once per trainable layer; the dW once per selectable leaf
+    (time wr wk wv wg wo, channel wk wv wr) and trainable layer; the fused
+    optimizer once per selectable stacked leaf (u, mu, w0, wA, wB and the
+    norms take the plain dense rule)."""
+    return {"wkv6": cfg.num_layers + K_LAYERS, "wkv6_bwd": K_LAYERS,
+            "block_sparse_dw": K_LAYERS * 8, "fused_block_opt": 8,
+            "batched_dw": 0}
+
+
+def phase_rwkv_path(results: dict):
+    """The rwkv path: 6 compact AdamW steps of full-width rwkv6-3b through
+    the launcher, counts zeroed just before and read just after."""
+    from repro_torch.core.selection import build_plan, selected_fraction
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    args = train.build_argparser().parse_args(RWKV_ARGV)
+    tc = train.train_config(args)
+    cfg = tc.model
+    plan = build_plan(cfg, tc.sparse,
+                      tc.shape.global_batch * tc.shape.seq_len)
+    spec = plan.spec["blocks"]["time"]["wo"]
+    want = rwkv_per_step(cfg)
+    print(f"[rwkv] rwkv6-3b full width, {cfg.num_layers} layers (no depth "
+          f"cut), d_model {cfg.d_model}, {cfg.d_model // cfg.rwkv.head_dim} "
+          f"heads of {cfg.rwkv.head_dim}, d_ff {cfg.d_ff}, {cfg.dtype}, batch "
+          f"{args.batch} x seq {args.seq}, {args.optimizer}, trainable "
+          f"{plan.seg_trainable}, selected share of params per step "
+          f"{selected_fraction(plan, cfg):.6f}; launches a step {want}",
+          flush=True)
+    per_step = []
+    last = {"counts": {k: 0 for k in ops.LAUNCHES}, "wo": None}
+
+    def on_step(step, state, metrics):
+        counts = ops.launch_counts()
+        delta = {k: counts[k] - last["counts"][k] for k in counts}
+        leaf = state["params_trainable"]["segments"]["blocks"]["time"]["wo"]
+        if last["wo"] is not None:
+            mask = _selected_mask(
+                leaf, state["sel_idx"]["blocks"]["time"]["wo"], spec)
+            check(torch.equal(leaf[~mask], last["wo"][~mask]),
+                  f"rwkv step {step}: an unselected block of time/wo "
+                  f"changed")
+            check(not torch.equal(leaf[mask], last["wo"][mask]),
+                  f"rwkv step {step}: the selected blocks of time/wo did "
+                  f"not move")
+        last["counts"], last["wo"] = counts, leaf.clone()
+        row = {"step": step, "loss": float(metrics["loss"]),
+               "step_ms": metrics["step_ms"],
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "launches": delta}
+        per_step.append(row)
+        print(f"[rwkv] step {step} loss={row['loss']:.6f} "
+              f"step_ms={row['step_ms']:.1f} "
+              f"max_memory_allocated={row['max_memory_allocated']} "
+              f"launches={delta}", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = train.main(RWKV_ARGV, on_step=on_step)
+    totals = ops.launch_counts()
+
+    check(len(per_step) == 6, f"ran {len(per_step)} rwkv steps, want 6")
+    for row in per_step:
+        for name, n in want.items():
+            check(row["launches"][name] == n,
+                  f"rwkv step {row['step']}: {row['launches'][name]} {name} "
+                  f"launches, want {n}")
+        check(bool(torch.isfinite(torch.tensor(row["loss"]))),
+              f"rwkv step {row['step']}: loss {row['loss']} is not finite")
+    for name, n in want.items():
+        check(totals[name] == 6 * n, f"rwkv run: {totals[name]} {name} "
+                                     f"launches, want 6 x {n}")
+    for name, (_, _, _, path) in SOURCES.items():
+        if path == "rwkv":
+            results["launches"][name] = totals[name]
+    steady = [r["step_ms"] for r in per_step[1:]]
+    print(f"[rwkv] launches over 6 steps: {totals}", flush=True)
+    print(f"[rwkv] step_ms steps 2-6: {[round(t, 1) for t in steady]} "
+          f"median={statistics.median(steady):.1f} tokens_per_s="
+          f"{M_TOKENS / statistics.median(steady) * 1e3:.0f} step1_ms="
+          f"{per_step[0]['step_ms']:.1f} peak_bytes="
+          f"{torch.cuda.max_memory_allocated()} losses="
+          f"{[round(r['loss'], 6) for r in per_step]}", flush=True)
+    return tc, out
+
+
+def phase_rwkv_frozen(tc, out):
+    """After the run: the frozen params (embedding, ln0, head, final norm,
+    the 30 frozen layers) bitwise equal to a fresh init from the run's
+    seed."""
+    from repro_torch.core.sparse_update import tree_leaves
+    from repro_torch.models import transformer as T
+    from repro_torch.train import split_params
+
+    state, plan = out["state"], out["plan"]
+    init = T.init_params(tc.model, tc.seed, "cuda")
+    frozen0, _ = split_params(init, plan)
+    a, b = tree_leaves(frozen0), tree_leaves(state["params_frozen"])
+    check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
+          "rwkv: a frozen param changed")
+    check("ln0" in state["params_frozen"], "rwkv: ln0 is not frozen")
+    print(f"[rwkv] frozen params bitwise equal to a fresh init ({len(a)} "
+          f"leaves: embedding, ln0, head, final norm, "
+          f"{tc.model.num_layers - K_LAYERS} frozen layers)", flush=True)
+    del init, frozen0
 
 
 # the serving path: full-width llama3-8b, 4 slots, pages of 16 tokens, 8
@@ -1545,6 +1823,86 @@ def phase_serve_profile(cfg, eng):
     profile_step("one decode step of run B", step)
 
 
+def _bf16_ulp(x):
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    _, exp = torch.frexp(x.float().abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - 8)
+
+
+def phase_wave_bf16(cfg, eng):
+    """The bf16 online wave against the f32 wave on the same bf16 inputs:
+    run B's engine, user 0's selection, a zero delta, 16 tokens; the f32
+    wave runs on the served bf16 weights cast to fp32 (exact) with
+    `make_online_wave` on the f32 config. Both are one SGD step, so each
+    delta element is -lr * dW on its selected block, and the bf16 one
+    differs from the f32 one by
+    - the rounding of the updated weight to bf16: at most half a bf16 ulp
+      of max(|p|, |p + delta|), as the delta is read back as new - base;
+    - the error of its dW, which comes from bf16 activations and weights
+      (each rounding relative 2^-8 of the terms it rounds; about 16 of them
+      in series along the 32-layer forward, the loss and the K-layer
+      backward) and from the dW's own cast to bf16 (2^-8): bounded by
+      2^-4 of the leaf's largest |delta|, since cancellation makes the
+      error scale with the terms summed, not with each result.
+    Each element is held within the sum of the two."""
+    from repro_torch.core.delta import zeros_delta_tree
+    from repro_torch.core.sparse_update import (SelSpec, gather_param_blocks,
+                                                tree_map)
+    from repro_torch.train.steps import make_online_wave
+
+    eng._dbatch = None          # the slots' delta rows are not needed here
+    gc.collect()
+    torch.cuda.empty_cache()
+    p13n, plan = eng._p13n, eng._plan
+    idx = tree_map(lambda a: a.cuda(), eng._deltas.peek(0).idx)
+    zeros = zeros_delta_tree(eng._trainable["segments"], idx, plan.spec,
+                             device="cuda")
+    draw = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab_size, (1, p13n.train_tokens + 1),
+                         generator=draw)
+    batch = {"tokens": eng._tensor(toks[:, :-1]),
+             "labels": eng._tensor(toks[:, 1:])}
+    new_b, m_b = eng._wave(eng._trainable, eng._frozen, zeros, idx, batch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    wave32 = make_online_wave(cfg32, p13n.sparse, p13n.optimizer, plan,
+                              wave_tokens=p13n.train_tokens)
+    to32 = lambda a: a.float()
+    new_f, m_f = wave32(tree_map(to32, eng._trainable),
+                        tree_map(to32, eng._frozen), zeros, idx, batch)
+    torch.cuda.synchronize()
+    rows = []
+
+    def walk(base, db, df, ix, spec, path):
+        if isinstance(spec, SelSpec):
+            p = gather_param_blocks(base, ix, spec).float()
+            tol = 0.5 * _bf16_ulp(torch.maximum(p.abs(), (p + df).abs())) \
+                + 2.0 ** -4 * float(df.abs().max())
+            err = (db - df).abs()
+            check(bool(torch.isfinite(db).all()) and bool((err <= tol).all()),
+                  f"bf16 wave {path}: max |bf16 - f32| {float(err.max())} "
+                  f"exceeds its bound at {int((err > tol).sum())} elements")
+            rows.append((path, float(err.max()), float(df.abs().max()),
+                         float(err.norm() / df.norm().clamp_min(1e-30)),
+                         float((db == 0).float().mean())))
+            return
+        for name in spec:
+            walk(base[name], db[name], df[name], ix[name], spec[name],
+                 f"{path}/{name}")
+
+    for seg, spec in plan.spec.items():
+        walk(eng._trainable["segments"][seg], new_b[seg], new_f[seg],
+             idx[seg], spec, seg)
+    print(f"[serve wave] bf16 wave against the f32 wave on the same bf16 "
+          f"inputs (llama3-8b full width, {p13n.train_tokens} tokens, sgd "
+          f"lr {p13n.optimizer.learning_rate}): loss bf16="
+          f"{float(m_b['loss']):.6f} f32={float(m_f['loss']):.6f}; per leaf "
+          f"(max |bf16 - f32|, max |f32 delta|, relative norm, bf16 zero "
+          f"share): " + "; ".join(f"{n} {e:.3e} {m:.3e} {r:.4f} {z:.3f}"
+                                  for n, e, m, r, z in rows), flush=True)
+    del new_b, new_f, zeros
+    torch.cuda.empty_cache()
+
+
 def phase_serve_oracle():
     """Full llama3-8b widths cut to 4 layers, f32: the engine's greedy
     tokens against the contiguous prefill + decode_step oracle, plain and,
@@ -1643,9 +2001,11 @@ def kernels_line(results: dict) -> dict:
     the K trainable layers; block_act_prune over the 35 activations of one
     full-width CNN forward at batch 32, block_act_prune_bwd over the 5 that
     one dynamic-method step differentiates; batched_dw over the 3 expert
-    leaf shapes of one trainable MoE layer. Launches: the LM path's run
-    (6 steps), the MoE path's run (6 steps; batched_dw) and the CNN path's
-    run (12 steps of `dynamic`)."""
+    leaf shapes of one trainable MoE layer; wkv6 / wkv6_bwd one call at the
+    rwkv path's shapes (batch 4 x 1024 x 40 heads x 64). Launches: the LM
+    path's run (6 steps), the MoE path's run (6 steps; batched_dw), the
+    rwkv path's run (6 steps; wkv6, wkv6_bwd) and the CNN path's run (12
+    steps of `dynamic`)."""
     dtypes = {"block_sparse_dw": "bfloat16", "batched_dw": "bfloat16"}
     rows = []
     for name, (route, source, replaces, _) in SOURCES.items():
@@ -1707,6 +2067,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[chip_smoke] MoE phases done at {time.perf_counter() - t0:.0f} s",
           flush=True)
+    tc, out = phase_rwkv_path(results)
+    print(f"[chip_smoke] rwkv path done at {time.perf_counter() - t0:.0f} s",
+          flush=True)
+    phase_profile(tc, out, "one fixed-phase rwkv step")
+    phase_rwkv_frozen(tc, out)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_compact_vs_dense(dataclasses.replace(
+        get_config("rwkv6-3b"), num_layers=4), "rwkv-compact-vs-dense")
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] rwkv phases done at {time.perf_counter() - t0:.0f} s",
+          flush=True)
     init = phase_cnn(results)
     print(f"[chip_smoke] CNN path done at {time.perf_counter() - t0:.0f} s",
           flush=True)
@@ -1722,6 +2095,7 @@ def main() -> int:
     print(f"[chip_smoke] serving runs done at {time.perf_counter() - t0:.0f}"
           f" s", flush=True)
     phase_serve_profile(cfg, eng)
+    phase_wave_bf16(cfg, eng)
     del eng
     gc.collect()
     torch.cuda.empty_cache()

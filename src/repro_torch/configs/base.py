@@ -89,6 +89,7 @@ class ShapeConfig:
 _MODULES = {
     "llama3-8b": "llama3_8b",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 

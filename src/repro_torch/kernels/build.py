@@ -32,6 +32,7 @@ SOURCES = {
     "fused_block_opt": ["-fmad=false"],
     "block_act_prune": [],
     "block_scatter_update": [],
+    "wkv6": [],
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -76,6 +77,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     elif name == "block_scatter_update":
         fns = [(lib.block_scatter_update_launch,
                 [p, p, p, i64, i64, i64, i32, i32, i32, i32, i32, p])]
+    elif name == "wkv6":
+        fns = [(lib.wkv6_fwd_launch, [p] * 6 + [i32] * 4 + [p]),
+               (lib.wkv6_bwd_launch, [p] * 12 + [i32] * 4 + [p])]
+        lib.wkv6_ckpt_floats.argtypes = [i32] * 3
+        lib.wkv6_ckpt_floats.restype = i64
     else:
         fns = [(lib.block_act_prune_fwd_launch,
                 [p, p, i64, i32, f32, i32, p]),

@@ -13,7 +13,9 @@ Every logical op is one launch: the dW kernel covers all shards and
 selected blocks of one matmul (and, batched, all experts of an expert
 leaf), the optimizer and the block scatter-update kernels the whole stacked
 leaf (all trainable layers, all shards, lead dims flattened into rows), and
-the activation pruning kernel a whole activation, forward or backward.
+the activation pruning kernel a whole activation, forward or backward,
+and the WKV kernel a whole recurrence (all batch rows and heads of one
+layer), forward or backward.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from repro_torch.kernels import ref
 # launch counts, by kernel; only a launch on the card counts
 LAUNCHES = {"block_sparse_dw": 0, "batched_dw": 0, "fused_block_opt": 0,
             "block_act_prune": 0, "block_act_prune_bwd": 0,
-            "block_scatter_update": 0}
+            "block_scatter_update": 0, "wkv6": 0, "wkv6_bwd": 0}
 # block_sparse_dw and batched_dw launches by instance (grid / pipelined),
 # for reports
 DW_INSTANCES = {"grid": 0, "pipelined": 0}
@@ -407,3 +409,89 @@ def block_act_prune(x, threshold: float = 0.15, block: int = 2):
     x with every `block`-wide channel run whose max |x| is below the
     threshold zeroed. One kernel launch forward, one backward."""
     return _BlockActPrune.apply(x, threshold, block)
+
+
+# ---------------------------------------------------------------------------
+# RWKV-6 WKV recurrence
+# ---------------------------------------------------------------------------
+
+# the head size the kernel is built for (rwkv6-3b's); the plain version
+# takes any
+WKV_HEAD_DIM = 64
+
+
+def _check_wkv(name: str, tensors, u):
+    r = tensors[0]
+    _require(r.dim() == 4, f"{name}: need [B, T, H, D], got "
+                           f"{tuple(r.shape)}")
+    _require(tuple(u.shape) == tuple(r.shape[2:]),
+             f"{name}: u must be [H, D] = {tuple(r.shape[2:])}, got "
+             f"{tuple(u.shape)}")
+    every = tuple(tensors) + (u,)
+    _require(all(t.dtype == torch.float32 for t in every),
+             f"{name}: every tensor must be float32")
+    _require(all(t.shape == r.shape for t in tensors),
+             f"{name}: the [B, T, H, D] tensors disagree on shape")
+    _require(all(t.is_contiguous() for t in every),
+             f"{name}: every tensor must be contiguous")
+    _require(all(t.device == r.device for t in every),
+             f"{name}: every tensor must be on one device")
+    _require(not r.is_cuda or r.shape[-1] == WKV_HEAD_DIM,
+             f"{name}: the kernel takes D = {WKV_HEAD_DIM}, got "
+             f"{r.shape[-1]}")
+
+
+def wkv6_fwd(r, k, v, w, u):
+    """The WKV recurrence from a zero state (see `ref.wkv6_ref`): r, k, v, w
+    [B, T, H, D] and u [H, D], fp32, contiguous -> y [B, T, H, D]."""
+    _check_wkv("wkv6", (r, k, v, w), u)
+    if not r.is_cuda:
+        return ref.wkv6_ref(r, k, v, w, u)
+    from repro_torch.kernels.build import load
+    b, t, h, d = r.shape
+    y = torch.empty_like(r)
+    rc = load("wkv6").wkv6_fwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        y.data_ptr(), b, t, h, d, _stream(r))
+    _raise_on(rc, "wkv6")
+    LAUNCHES["wkv6"] += 1
+    return y
+
+
+def wkv6_bwd(r, k, v, w, u, dy):
+    """The gradients of `wkv6_fwd` (see `ref.wkv6_bwd_ref`) -> (dr, dk, dv,
+    dw, du), du [H, D]. The kernel writes du per batch row; its sum over
+    the batch is taken here."""
+    _check_wkv("wkv6_bwd", (r, k, v, w, dy), u)
+    if not r.is_cuda:
+        return ref.wkv6_bwd_ref(r, k, v, w, u, dy)
+    from repro_torch.kernels.build import load
+    lib = load("wkv6")
+    b, t, h, d = r.shape
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du_part = torch.empty((b, h, d), dtype=torch.float32, device=r.device)
+    ckpt = torch.empty(lib.wkv6_ckpt_floats(b, t, h), dtype=torch.float32,
+                       device=r.device)
+    rc = lib.wkv6_bwd_launch(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        dy.data_ptr(), dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        dw.data_ptr(), du_part.data_ptr(), ckpt.data_ptr(), b, t, h, d,
+        _stream(r))
+    _raise_on(rc, "wkv6_bwd")
+    LAUNCHES["wkv6_bwd"] += 1
+    return dr, dk, dv, dw, du_part.sum(0)
+
+
+class WKV6(torch.autograd.Function):
+    """The WKV recurrence, both directions through the kernel. Saves the
+    inputs only: the backward recomputes the states it needs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.save_for_backward(r, k, v, w, u)
+        return wkv6_fwd(r, k, v, w, u)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # autograd's incoming gradient may be a strided view
+        return wkv6_bwd(*ctx.saved_tensors, dy.contiguous())

@@ -141,3 +141,64 @@ def block_act_prune_bwd_ref(dy, y, threshold: float = 0.15,
     y: dy * keep(y), which is dy * keep(x) (see the kernel source)."""
     dyb = dy.reshape(dy.shape[:-1] + (dy.shape[-1] // block, block))
     return (dyb * _keep(y, threshold, block)).reshape(dy.shape)
+
+
+def wkv6_ref(r, k, v, w, u):
+    """The RWKV-6 WKV recurrence, step by step (the reference's
+    `models/rwkv6._wkv_chunk` from a zero state, and its `kernels/ref.wkv6_ref`
+    with one u per head):
+
+        y_t = r_t . (diag(u) k_t v_t^T + S_{t-1})
+        S_t = diag(w_t) S_{t-1} + k_t v_t^T,   S_0 = 0
+
+    r, k, v, w: [B, T, H, D] (w the per-channel decay in (0, 1)); u: [H, D].
+    Returns y [B, T, H, D] fp32."""
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    b, t, h, d = r.shape
+    uu = u.float()[None, :, :, None]
+    s = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+    ys = []
+    for i in range(t):
+        kt, vt = k[:, i, :, :, None], v[:, i, :, None, :]
+        ys.append(torch.einsum("bhd,bhde->bhe", r[:, i], uu * kt * vt + s))
+        s = w[:, i, :, :, None] * s + kt * vt
+    return torch.stack(ys, dim=1)
+
+
+def wkv6_bwd_ref(r, k, v, w, u, dy):
+    """The gradient of `wkv6_ref`, written out (no autograd): the states
+    S_0..S_{T-1} forward, then dS backward in time,
+
+        dS_{t-1} = r_t dy_t^T + diag(w_t) dS_t,   dS_{T} = 0
+        dr_t = (diag(u) k_t v_t^T + S_{t-1}) dy_t
+        dk_t = dS_t v_t + r_t u (dy_t . v_t)
+        dv_t = dS_t^T k_t + dy_t (r_t . (u k_t))
+        dw_t = rowsum(dS_t * S_{t-1})
+        du   = sum over b and t of r_t k_t (dy_t . v_t)
+
+    with dS_t the gradient of S_t. Shapes as `wkv6_ref`, dy [B, T, H, D].
+    Returns (dr, dk, dv, dw, du), fp32, du [H, D]."""
+    r, k, v, w, dy = (a.float() for a in (r, k, v, w, dy))
+    uf = u.float()
+    b, t, h, d = r.shape
+    s = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+    states = []                         # S_{t-1} for every step t
+    for i in range(t):
+        states.append(s)
+        s = w[:, i, :, :, None] * s + k[:, i, :, :, None] * v[:, i, :, None, :]
+    g = torch.zeros_like(s)             # dS_t, the gradient of S_t
+    grads = [torch.empty_like(r) for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros_like(uf)
+    for i in range(t - 1, -1, -1):
+        rt, kt, vt, wt, dyt = (a[:, i] for a in (r, k, v, w, dy))
+        dyv = (dyt * vt).sum(-1, keepdim=True)              # [B, H, 1]
+        dr[:, i] = uf * kt * dyv + torch.einsum("bhde,bhe->bhd", states[i],
+                                                dyt)
+        dk[:, i] = torch.einsum("bhde,bhe->bhd", g, vt) + rt * uf * dyv
+        dv[:, i] = torch.einsum("bhde,bhd->bhe", g, kt) + dyt * (
+            rt * uf * kt).sum(-1, keepdim=True)
+        dw[:, i] = (g * states[i]).sum(-1)
+        du = du + (rt * kt * dyv).sum(0)
+        g = rt[..., :, None] * dyt[..., None, :] + wt[..., :, None] * g
+    return dr, dk, dv, dw, du

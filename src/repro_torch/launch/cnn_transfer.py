@@ -269,9 +269,13 @@ def main(argv=None, on_step=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA device; pass --device cpu to run "
                  "on the CPU")
-    # the reference's convs and matmuls are full fp32: no TF32 on the card
+    # the reference's convs and matmuls are full fp32: no TF32 on the card;
+    # and its table is a function of its seed: deterministic cuDNN
+    # algorithms only, none picked by timing
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     cfg = CONFIG if args.config == "full" else smoke_config()
     if args.img:
         cfg = dataclasses.replace(cfg, img_size=args.img)
@@ -279,7 +283,9 @@ def main(argv=None, on_step=None):
           f"batch={args.batch} steps={args.steps} "
           f"pretrain_steps={args.pretrain_steps} device={device} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
-          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+          f"cudnn.deterministic={torch.backends.cudnn.deterministic}",
+          flush=True)
     task = TransferTask(img=cfg.img_size, seed=args.seed)
     pre = _pretrain(cfg, task, args.pretrain_steps, args.batch, args.seed,
                     device)

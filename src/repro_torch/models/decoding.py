@@ -38,7 +38,7 @@ _LATER = {
                    "queue A items 10 and 12",
     "jamba_super": "the jamba super-block (mamba state): ROADMAP queue A "
                    "item 10",
-    "rwkv": "rwkv state caches: ROADMAP queue A item 10",
+    "rwkv": "rwkv state caches: ROADMAP queue A item 12",
 }
 
 

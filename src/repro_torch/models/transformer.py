@@ -1,6 +1,7 @@
-"""Decoder-only LM: the dense family (llama3 and its kin) and the MoE family
-(deepseek-moe: a dense first layer, then MoE layers); the other families
-of the reference package come with their slices.
+"""Decoder-only LM: the dense family (llama3 and its kin), the MoE family
+(deepseek-moe: a dense first layer, then MoE layers) and RWKV-6 (rwkv6:
+time mix + channel mix blocks behind a layernorm `ln0` on the embedding);
+the other families of the reference package come with their slices.
 
 Layout: layers are grouped into SEGMENTS of stacked params [steps, ...],
 keyed as in the reference, so a parameter tree bridged from there means the
@@ -30,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_update import tree_leaves, tree_map
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import rwkv6 as R
 from repro_torch.models.common import dense_init, embed_init
 
 CE_CHUNK = 1024
@@ -49,7 +51,7 @@ def dtype_of(cfg) -> torch.dtype:
 class SegmentDef(NamedTuple):
     name: str
     steps: int          # stacked layers
-    kind: str           # dense | moe
+    kind: str           # dense | moe | rwkv
 
 
 # ---------------------------------------------------------------------------
@@ -58,15 +60,19 @@ class SegmentDef(NamedTuple):
 
 def segment_layout(cfg: ModelConfig) -> list[SegmentDef]:
     """Stacked dense blocks; for MoE, a dense `first` layer (layout
-    all_but_first) and the MoE `blocks`. The reference's other layouts
-    (local:global, hybrid and RWKV super-blocks) come with their slices."""
+    all_but_first) and the MoE `blocks`; for RWKV-6, stacked rwkv blocks.
+    The reference's other layouts (the gemma local:global and the jamba
+    hybrid super-blocks) come with their slice."""
+    if cfg.family == "ssm" and cfg.rwkv is not None:
+        return [SegmentDef("blocks", cfg.num_layers, "rwkv")]
     moe = cfg.family == "moe" and cfg.moe is not None
     if ((cfg.family not in ("dense", "audio", "vlm") and not moe)
             or cfg.attn_pattern != "full" or cfg.embed_inputs
             or (moe and cfg.moe.layout not in ("all", "all_but_first"))):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense and MoE families so far "
-            f"(family {cfg.family}, attn_pattern {cfg.attn_pattern})")
+            f"{cfg.name}: the port runs the dense, MoE and RWKV-6 families so "
+            f"far (family {cfg.family}, attn_pattern {cfg.attn_pattern}); "
+            f"gemma3, mamba and jamba: ROADMAP queue A item 10")
     if moe and cfg.moe.layout == "all_but_first":
         return [SegmentDef("first", 1, "dense"),
                 SegmentDef("blocks", cfg.num_layers - 1, "moe")]
@@ -94,6 +100,15 @@ def _init_moe_block(gen, cfg, dtype, device):
         "attn": L.init_attention(gen, cfg, dtype, device),
         "mlp_ln": L.init_norm(cfg.d_model, cfg.norm_kind, dtype, device),
         "moe": MOE.init_moe(gen, cfg, dtype, device),
+    }
+
+
+def _init_rwkv_block(gen, cfg, dtype, device):
+    return {
+        "time_ln": L.init_norm(cfg.d_model, "layernorm", dtype, device),
+        "time": R.init_time_mix(gen, cfg, dtype, device),
+        "chan_ln": L.init_norm(cfg.d_model, "layernorm", dtype, device),
+        "chan": R.init_channel_mix(gen, cfg, dtype, device),
     }
 
 
@@ -126,12 +141,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense_init(g, (cfg.d_model, cfg.vocab_size),
                                              dtype=dtype, device=device)}
+    if cfg.family == "ssm":
+        params["ln0"] = L.init_norm(cfg.d_model, "layernorm", dtype, device)
     for seg in segs:
         g = generator(zlib.crc32(seg.name.encode()))
         stack = None
         for i in range(seg.steps):
             if seg.kind == "moe":
                 block = _init_moe_block(g, cfg, dtype, device)
+            elif seg.kind == "rwkv":
+                block = _init_rwkv_block(g, cfg, dtype, device)
             else:
                 block = _init_dense_block(
                     g, cfg, dtype, device,
@@ -144,8 +163,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
             if not meta:
                 tree_map(lambda dst, src: dst[i].copy_(src), stack, block)
         params["segments"][seg.name] = stack
-    params["final_norm"] = L.init_norm(cfg.d_model, cfg.norm_kind, dtype,
-                                       device)
+    params["final_norm"] = L.init_norm(
+        cfg.d_model, "layernorm" if cfg.family == "ssm" else cfg.norm_kind,
+        dtype, device)
     return params
 
 
@@ -183,7 +203,19 @@ def _apply_moe_block(cfg, p, x, positions, sel):
     return x + y, torch.stack([aux["load_balance"], aux["router_z"]])
 
 
-_APPLY = {"dense": _apply_dense_block, "moe": _apply_moe_block}
+def _apply_rwkv_block(cfg, p, x, positions, sel):
+    """-> (x, None): no auxiliary losses, no positions (the recurrence
+    orders the tokens)."""
+    h = L.apply_norm(p["time_ln"], x)
+    y, _ = R.apply_time_mix(p["time"], cfg, h, sel=_sub_sel(sel, "time"))
+    x = x + y
+    h = L.apply_norm(p["chan_ln"], x)
+    y, _ = R.apply_channel_mix(p["chan"], cfg, h, sel=_sub_sel(sel, "chan"))
+    return x + y, None
+
+
+_APPLY = {"dense": _apply_dense_block, "moe": _apply_moe_block,
+          "rwkv": _apply_rwkv_block}
 
 
 def _unstack(tree, steps: int) -> list:
@@ -254,6 +286,8 @@ def forward(cfg, params_pair, batch, sel=None, remat: bool = True):
     frozen, trainable = params_pair
     emb = _pick(frozen, trainable, "embed", "tok")
     x = F.embedding(batch["tokens"].long(), emb)
+    if cfg.family == "ssm":
+        x = L.apply_norm(_pick(frozen, trainable, "ln0"), x)
     b, s = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:

@@ -42,7 +42,8 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
             "repro_torch.serve", "repro_torch.serve.engine",
             "repro_torch.serve.scheduler", "repro_torch.serve.paging",
             "repro_torch.serve.deltas", "repro_torch.serve.sampling",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.models.rwkv6",
+            "repro_torch.configs.rwkv6_3b"} <= set(mods)
     assert len(mods) > 15
     code = (
         "import importlib, sys\n"

@@ -196,11 +196,19 @@ def test_wrappers_take_the_plain_path_on_cpu_and_count_nothing():
                                    SelSpec(block=8, n_shards=1, n_sel=2,
                                            n_blocks=4))
     assert got is w3
+    r, kk, v = (_t(rng.normal(size=(1, 8, 2, 16)).astype(np.float32))
+                for _ in range(3))
+    wd = _t(rng.uniform(0.1, 0.9, size=(1, 8, 2, 16)).astype(np.float32))
+    u = _t(rng.normal(size=(2, 16)).astype(np.float32))
+    y = ops.wkv6_fwd(r, kk, v, wd, u)
+    torch.testing.assert_close(y, ref.wkv6_ref(r, kk, v, wd, u))
+    ops.wkv6_bwd(r, kk, v, wd, u, y)
     assert ops.launch_counts() == {"block_sparse_dw": 0, "batched_dw": 0,
                                    "fused_block_opt": 0,
                                    "block_act_prune": 0,
                                    "block_act_prune_bwd": 0,
-                                   "block_scatter_update": 0}
+                                   "block_scatter_update": 0,
+                                   "wkv6": 0, "wkv6_bwd": 0}
 
 
 def _dw_args():
