@@ -11,7 +11,12 @@ Phases (any failure exits non-zero and prints no result):
 3. kernels against their plain versions at the main paths' shapes
    (M = 4096 tokens, full llama3-8b widths; every activation shape of the
    full-width MobileNetV2 at batch 32), with their times, bounds and the
-   library call's time;
+   library call's time; the dW on both instances at every bf16 leaf of
+   one trainable llama3-8b, deepseek-moe-16b and rwkv6-3b layer, at
+   M = 32768, capacity 17 and 8192, two shards with the last block
+   selected, with exact layout probes (one-hot x, ramp dy) for both tile
+   widths, two calls bitwise equal, and the calls that take the grid
+   instance (fp32, block 8, misaligned);
 4. the LM path: the compact sparse-update train step on full-width
    llama3-8b (32 layers, bf16), batch 4 x seq 1024, AdamW, 6 steps across
    the fixed / dynamic / fixed phases, through `repro_torch.launch.train`;
@@ -90,6 +95,7 @@ The last lines are one JSON object with every kernel's numbers, and then
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import statistics
@@ -104,7 +110,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 M_TOKENS = 4096            # batch 4 x seq 1024: the main path's dW rows
-M_LONG = 32768             # the pipelined instance at long M
+M_LONG = 32768             # the dW at long M
 K_LAYERS = 2               # trainable layers on the main path
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
 PEAK_BYTES = 3.35e12
@@ -126,7 +132,8 @@ C_LONG = 8192              # the batched dW at a long capacity
 SERVE_RATIO = 0.25         # the serving launcher's per-user update ratio
 # name -> (route, source, the TPU kernel it replaces, the path that launches
 # it). block_sparse_dw also replaces block_sparse_dw_pipelined_kernel
-# (masked_dw.py:131) with its pipelined instance, which the wrapper picks
+# (masked_dw.py:131) with its pipelined (TMA + wgmma) instance, which the
+# wrapper picks for every bf16 call whose rows, block and bases suit TMA
 # wherever the shape is aligned; batched_dw, the same source's expert entry
 # point, likewise replaces batched_dw_pipelined_kernel (batched_dw.py:130).
 # block_act_prune_bwd is the same kernel's backward entry point (the
@@ -159,8 +166,8 @@ SOURCES = {
 # kernels with a one-call PyTorch yardstick (library_ms)
 LIBRARY = ("block_sparse_dw", "batched_dw", "block_scatter_update")
 # the port's kernels as the profiler names them
-PORT_KERNELS = ("batched_dw_grid_kernel", "batched_dw_pipelined_kernel",
-                "dw_grid_kernel", "dw_pipelined_kernel",
+PORT_KERNELS = ("batched_dw_grid_kernel", "batched_dw_tma_kernel",
+                "dw_grid_kernel", "dw_tma_kernel",
                 "fused_block_opt_kernel", "prune_kernel",
                 "scatter_vec_kernel", "scatter_scalar_kernel",
                 "wkv6_fwd_kernel", "wkv6_bwd_kernel")
@@ -262,20 +269,36 @@ def _selected_mask(leaf, idx, spec):
         leaf.shape).bool()
 
 
-def _main_path_leaves() -> dict:
-    """{leaf: (fan_in, out, SelSpec)} of one trainable llama3-8b layer, as
-    the main path's plan gives them."""
+def _dense_leaves(arch: str, ratio: float = 0.2, block: int = 128) -> dict:
+    """{group/leaf: (fan_in, out, SelSpec)} of the dense (not per-expert)
+    selectable leaves of one trainable layer of `arch`, as its plan gives
+    them with the paths' flags (update ratio, channel block)."""
     from repro_torch.configs import SparseUpdateConfig, get_config
     from repro_torch.core.selection import build_plan
     from repro_torch.models.registry import abstract_params
-    cfg = get_config("llama3-8b")
-    plan = build_plan(cfg, SparseUpdateConfig(update_ratio=0.2,
+    cfg = get_config(arch)
+    plan = build_plan(cfg, SparseUpdateConfig(update_ratio=ratio,
                                               num_update_layers=K_LAYERS,
-                                              channel_block=128))
-    shapes = abstract_params(cfg)["segments"]["blocks"]
-    return {name: tuple(shapes[group][name].shape[1:]) + (spec,)
-            for group in ("attn", "mlp")
-            for name, spec in plan.spec["blocks"][group].items()}
+                                              channel_block=block))
+    found = {}
+
+    def walk(spec, shapes, path):
+        if isinstance(spec, dict):
+            for name in spec:
+                walk(spec[name], shapes[name], f"{path}/{name}"
+                     if path else name)
+        elif len(shapes.shape) == 3:      # [L, fan_in, out]; experts are 4-D
+            found[path] = tuple(shapes.shape[1:]) + (spec,)
+
+    walk(plan.spec["blocks"], abstract_params(cfg)["segments"]["blocks"], "")
+    return found
+
+
+def _main_path_leaves() -> dict:
+    """{leaf: (fan_in, out, SelSpec)} of one trainable llama3-8b layer, as
+    the main path's plan gives them."""
+    return {path.split("/")[-1]: leaf
+            for path, leaf in _dense_leaves("llama3-8b").items()}
 
 
 # ---------------------------------------------------------------------------
@@ -327,62 +350,123 @@ def _new_sums() -> dict:
             "bytes": 0.0, "max_abs_err": 0.0}
 
 
-def check_dw(leaves: dict, gen, sums: dict):
-    """Both dW instances at every leaf shape, bf16 and fp32, against the
-    plain version (fp32 sums over M in another order: 1e-4 of the largest
-    output). The main path's instance, in bf16, goes into the sums."""
+def _dw_case(tag, x, dy, idx, spec, want_inst: str, reps: int = 20):
+    """One dW call shape: the instance the wrapper picks must be
+    `want_inst`; each instance that can take the call against the plain
+    version (fp32 sums over M in another order: 1e-4 of the largest output),
+    the picked one twice, bitwise equal. Times are the card's (profiler
+    device time over `reps` calls): CUDA events around back-to-back calls
+    also count the gaps between launches, ~5 us a call, a seventh of the
+    smallest leaves' time; the events' time is returned beside. Returns
+    ({instance: (ms, err, events_ms)}, plain_ms, tol)."""
     from repro_torch.kernels import ops, ref
-    for dtype in (torch.bfloat16, torch.float32):
-        for leaf, (fan_in, out, spec) in leaves.items():
-            x = torch.randn(M_TOKENS, fan_in, generator=gen,
-                            device="cuda").to(dtype)
-            dy = torch.randn(M_TOKENS, out, generator=gen,
-                             device="cuda").to(dtype)
-            idx = _rand_idx((spec.n_shards,), spec, gen)
-            want = ref.block_sparse_dw_ref(x, dy, idx, spec.block)
-            tol = 1e-4 * float(want.abs().max())
-            main_pipe = ops.use_pipelined(x, dy, spec.block)
-            dy_sel = ref.gather_dy_blocks(dy, idx, spec.block).reshape(
-                M_TOKENS, -1).contiguous()
-            lib = cuda_ms(lambda: torch.matmul(x.t(), dy_sel))
-            plain = cuda_ms(lambda: ref.block_sparse_dw_ref(x, dy, idx,
-                                                            spec.block))
-            cols = spec.n_shards * spec.n_sel * spec.block
-            flops = 2.0 * M_TOKENS * fan_in * cols
-            # x once, the selected dy columns once, idx, the fp32 output
-            nbytes = (M_TOKENS * fan_in + M_TOKENS * cols) * x.element_size() \
-                + idx.numel() * 4 + fan_in * cols * 4
-            b_ms, b_by = bound_ms(flops, nbytes, _dname(dtype))
-            for pipe in (False, True):
-                got = ops.block_sparse_dw(x, dy, idx, spec, pipelined=pipe)
-                torch.cuda.synchronize()
-                err = float((got - want).abs().max())
-                inst = "pipelined" if pipe else "grid"
-                check(got.shape == want.shape and err <= tol,
-                      f"block_sparse_dw {inst} {leaf} {_dname(dtype)}: "
-                      f"max_abs_err {err} > {tol}")
-                ms = cuda_ms(lambda: ops.block_sparse_dw(x, dy, idx, spec,
-                                                         pipelined=pipe))
-                main = pipe == main_pipe
-                print(f"[kernel] block_sparse_dw {inst} {leaf} "
-                      f"{_dname(dtype)} M={M_TOKENS} K={fan_in} N={out} "
-                      f"n_sel={spec.n_sel} block={spec.block} "
-                      f"main_path={main} kernel_ms={ms:.4f} "
-                      f"plain_ms={plain:.4f} library_ms={lib:.4f} "
-                      f"bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err:.3e} "
-                      f"tol={tol:.3e}", flush=True)
-                if dtype == torch.bfloat16 and main:
+    batched = x.dim() == 3
+    fn = ops.block_sparse_dw_batched if batched else ops.block_sparse_dw
+    plain_fn = ref.batched_dw_ref if batched else ref.block_sparse_dw_ref
+    picked = "pipelined" if ops.use_pipelined(x, dy, spec.block) else "grid"
+    check(picked == want_inst, f"dW {tag}: the wrapper picks {picked}, "
+                               f"want {want_inst}")
+    want = plain_fn(x, dy, idx, spec.block)
+    tol = 1e-4 * float(want.abs().max())
+    res = {}
+    for inst in ("pipelined", "grid") if picked == "pipelined" else ("grid",):
+        got = fn(x, dy, idx, spec, pipelined=inst == "pipelined")
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(got.shape == want.shape and err <= tol,
+              f"dW {inst} {tag}: max_abs_err {err} > {tol}")
+        if inst == picked:
+            again = fn(x, dy, idx, spec)
+            check(torch.equal(got, again),
+                  f"dW {inst} {tag}: two calls differ")
+        call = functools.partial(fn, x, dy, idx, spec,
+                                 pipelined=inst == "pipelined")
+        res[inst] = (device_ms(call, reps=reps), err,
+                     cuda_ms(call, reps=reps))
+        del got
+    if picked == "grid":
+        try:
+            fn(x, dy, idx, spec, pipelined=True)
+        except ValueError:
+            pass
+        else:
+            raise SmokeError(f"dW {tag}: the pipelined instance took a call "
+                             f"it cannot run")
+    plain = device_ms(lambda: plain_fn(x, dy, idx, spec.block), reps=reps)
+    del want
+    return res, plain, tol
+
+
+def _dw_bound(m, fan_in, spec, experts: int, dtype):
+    """(flops, bytes, bound_ms, bound_by) of one dW call: x once, the
+    selected dy columns once, idx, the fp32 output."""
+    cols = spec.n_shards * spec.n_sel * spec.block
+    size = 2 if dtype == torch.bfloat16 else 4
+    flops = 2.0 * experts * m * fan_in * cols
+    nbytes = experts * m * (fan_in + cols) * size \
+        + spec.n_shards * spec.n_sel * 4 + experts * fan_in * cols * 4
+    return (flops, nbytes) + bound_ms(flops, nbytes, _dname(dtype))
+
+
+def check_dw(leaves: dict, gen, sums: dict):
+    """The dense dW at every leaf shape of one trainable layer of the LM
+    (llama3-8b, bf16 and fp32), MoE (deepseek-moe-16b: 4 attention and 3
+    shared-expert leaves) and rwkv (rwkv6-3b: 8 leaves) paths, M = 4096:
+    bf16 takes the pipelined (TMA + wgmma) instance, fp32 the grid one
+    (exact products), each held against the plain version. The LM's bf16
+    times go into the sums; each path's sums are printed."""
+    from repro_torch.kernels import ref
+    paths = (("lm", leaves, (torch.bfloat16, torch.float32)),
+             ("moe", _dense_leaves("deepseek-moe-16b"), (torch.bfloat16,)),
+             ("rwkv", _dense_leaves("rwkv6-3b"), (torch.bfloat16,)))
+    for path, path_leaves, dtypes in paths:
+        for dtype in dtypes:
+            tot = {"ms": 0.0, "events_ms": 0.0, "library_ms": 0.0,
+                   "bound_ms": 0.0}
+            for leaf, (fan_in, out, spec) in path_leaves.items():
+                x = torch.randn(M_TOKENS, fan_in, generator=gen,
+                                device="cuda").to(dtype)
+                dy = torch.randn(M_TOKENS, out, generator=gen,
+                                 device="cuda").to(dtype)
+                idx = _rand_idx((spec.n_shards,), spec, gen)
+                main = "pipelined" if dtype == torch.bfloat16 else "grid"
+                res, plain, tol = _dw_case(f"{path} {leaf} {_dname(dtype)}",
+                                           x, dy, idx, spec, main)
+                dy_sel = ref.gather_dy_blocks(dy, idx, spec.block).reshape(
+                    M_TOKENS, -1).contiguous()
+                lib = device_ms(lambda: torch.matmul(x.t(), dy_sel))
+                flops, nbytes, b_ms, b_by = _dw_bound(M_TOKENS, fan_in, spec,
+                                                      1, dtype)
+                for inst, (ms, err, ev) in res.items():
+                    print(f"[kernel] block_sparse_dw {inst} {path} {leaf} "
+                          f"{_dname(dtype)} M={M_TOKENS} K={fan_in} N={out} "
+                          f"n_sel={spec.n_sel} block={spec.block} "
+                          f"main_path={inst == main} kernel_ms={ms:.4f} "
+                          f"events_ms={ev:.4f} "
+                          f"plain_ms={plain:.4f} library_ms={lib:.4f} "
+                          f"bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err:.3e}"
+                          f" tol={tol:.3e}", flush=True)
+                ms, err, ev = res[main]
+                tot["ms"] += ms
+                tot["events_ms"] += ev
+                tot["library_ms"] += lib
+                tot["bound_ms"] += b_ms
+                if path == "lm" and dtype == torch.bfloat16:
                     for key, val in (("ms", ms), ("plain_ms", plain),
                                      ("library_ms", lib), ("flops", flops),
                                      ("bytes", nbytes)):
                         sums[key] += val
                     sums["max_abs_err"] = max(sums["max_abs_err"], err)
-            del x, dy, want, dy_sel
+                del x, dy, dy_sel
+            print(f"[kernel] block_sparse_dw {path} {_dname(dtype)} sum over "
+                  f"{len(path_leaves)} leaves: kernel_ms={tot['ms']:.4f} "
+                  f"events_ms={tot['events_ms']:.4f} "
+                  f"library_ms={tot['library_ms']:.4f} "
+                  f"bound_ms={tot['bound_ms']:.4f}", flush=True)
 
 
 def check_dw_long(leaves: dict, gen):
     """Both instances at M = 32768 rows, bf16."""
-    from repro_torch.kernels import ops, ref
     for leaf in ("wk", "w_down"):
         fan_in, out, spec = leaves[leaf]
         x = torch.randn(M_LONG, fan_in, generator=gen,
@@ -390,22 +474,104 @@ def check_dw_long(leaves: dict, gen):
         dy = torch.randn(M_LONG, out, generator=gen,
                          device="cuda").to(torch.bfloat16)
         idx = _rand_idx((spec.n_shards,), spec, gen)
-        want = ref.block_sparse_dw_ref(x, dy, idx, spec.block)
-        tol = 1e-4 * float(want.abs().max())
-        for pipe in (True, False):
-            got = ops.block_sparse_dw(x, dy, idx, spec, pipelined=pipe)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            check(err <= tol, f"block_sparse_dw pipelined={pipe} {leaf} "
-                              f"M={M_LONG}: max_abs_err {err} > {tol}")
-            ms = cuda_ms(lambda: ops.block_sparse_dw(x, dy, idx, spec,
-                                                     pipelined=pipe), reps=3)
-            print(f"[kernel] block_sparse_dw "
-                  f"{'pipelined' if pipe else 'grid'} {leaf} bfloat16 "
+        res, _, tol = _dw_case(f"{leaf} M={M_LONG}", x, dy, idx, spec,
+                               "pipelined", reps=3)
+        for inst, (ms, err, _) in res.items():
+            print(f"[kernel] block_sparse_dw {inst} {leaf} bfloat16 "
                   f"M={M_LONG} K={fan_in} N={out} n_sel={spec.n_sel} "
                   f"kernel_ms={ms:.4f} max_abs_err={err:.3e} tol={tol:.3e}",
                   flush=True)
-        del x, dy, want
+        del x, dy
+
+
+def _layout_probe(e: int, m: int, fan_in: int, spec, gen):
+    """Structured inputs that show where each product lands: x rows one-hot
+    (x[e, i, i] = 1 for i < min(m, fan_in)), dy a ramp of its own column
+    index, then of its own row index (small integers, exact in bf16), so
+    out[e, k, c] is dy[e, k, column of c]; held bitwise against the plain
+    version."""
+    from repro_torch.kernels import ops, ref
+    n = spec.n_shards * spec.n_blocks * spec.block
+    x = torch.zeros(e, m, fan_in, device="cuda")
+    diag = torch.arange(min(m, fan_in), device="cuda")
+    x[:, diag, diag] = 1
+    x = x.to(torch.bfloat16)
+    idx = _rand_idx((spec.n_shards,), spec, gen)
+    idx[-1, -1] = spec.n_blocks - 1
+    cols = torch.arange(n, device="cuda") % 128 + 64 * torch.arange(
+        e, device="cuda")[:, None]
+    rows = torch.arange(m, device="cuda") % 128 + 64 * torch.arange(
+        e, device="cuda")[:, None]
+    for tag, dy in (("column ramp", cols[:, None, :].expand(e, m, n)),
+                    ("row ramp", rows[:, :, None].expand(e, m, n))):
+        dy = dy.to(torch.bfloat16).contiguous()
+        if e == 1:
+            got = ops.block_sparse_dw(x[0], dy[0], idx, spec, pipelined=True)
+            want = ref.block_sparse_dw_ref(x[0], dy[0], idx, spec.block)
+        else:
+            got = ops.block_sparse_dw_batched(x, dy, idx, spec,
+                                              pipelined=True)
+            want = ref.batched_dw_ref(x, dy, idx, spec.block)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"dW layout probe ({tag}, E={e}, M={m}, K={fan_in}): "
+              f"{int((got != want).sum())} of {got.numel()} differ")
+    print(f"[kernel] dW layout probe E={e} M={m} K={fan_in} "
+          f"n_shards={spec.n_shards} n_sel={spec.n_sel} block={spec.block}: "
+          f"column and row ramps bitwise equal", flush=True)
+
+
+def check_dw_edges(gen):
+    """The dW's edge cases: the layout probes (dense and batched, two
+    shards, the last block selected, ragged rows and columns, both tile
+    widths); two shards
+    with the last block selected at full size; a base pointer one element
+    off alignment and the serving wave's block 8 (both take the grid
+    instance and refuse the pipelined one); capacity 17."""
+    from repro_torch.core.sparse_update import SelSpec
+    spec2 = SelSpec(block=128, n_shards=2, n_sel=3, n_blocks=16)
+    _layout_probe(1, 256, 256, spec2, gen)
+    _layout_probe(3, 130, 200, SelSpec(block=64, n_shards=2, n_sel=3,
+                                       n_blocks=4), gen)
+    _layout_probe(1, 64, 128, SelSpec(block=256, n_shards=1, n_sel=2,
+                                      n_blocks=3), gen)
+    # long enough, and tiles enough, for the 256-column tile
+    _layout_probe(1, 1024, 4096, SelSpec(block=128, n_shards=1, n_sel=18,
+                                         n_blocks=20), gen)
+    fan_in, n = 4096, 2 * 16 * 128
+    x = torch.randn(M_TOKENS, fan_in, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    dy = torch.randn(M_TOKENS, n, generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    idx = _rand_idx((2,), spec2, gen)
+    idx[-1, -1] = spec2.n_blocks - 1
+    cases = [("two shards, last block", x, dy, idx, spec2, "pipelined")]
+    # one element off: every row of x starts off 16-byte alignment
+    xs = torch.empty(M_TOKENS * fan_in + 1, device="cuda",
+                     dtype=torch.bfloat16)[1:].view(M_TOKENS, fan_in)
+    xs.copy_(x)
+    cases.append(("x one element off alignment", xs, dy, idx, spec2, "grid"))
+    fan_w, out_w, spec_w = _wave_leaves()["w_gate"]
+    cases.append(("serving wave w_gate block 8 M=16",
+                  torch.randn(16, fan_w, generator=gen, device="cuda")
+                  .to(torch.bfloat16),
+                  torch.randn(16, out_w, generator=gen, device="cuda")
+                  .to(torch.bfloat16),
+                  _rand_idx((spec_w.n_shards,), spec_w, gen), spec_w,
+                  "grid"))
+    e, _, moe = _moe_leaves()
+    fan_g, out_g, spec_g = moe["w_gate"]
+    xb, dyb, idxb = _batched_case(e, 17, fan_g, out_g, spec_g,
+                                  torch.bfloat16, gen)
+    cases.append((f"experts E={e} C=17", xb, dyb, idxb, spec_g,
+                  "pipelined"))
+    for tag, xc, dyc, idxc, spec, want in cases:
+        res, plain, tol = _dw_case(tag, xc, dyc, idxc, spec, want)
+        print(f"[kernel] dW {tag}: picked {want}; "
+              + "; ".join(f"{inst} kernel_ms={ms:.4f} max_abs_err="
+                          f"{err:.3e}" for inst, (ms, err, _) in res.items())
+              + f" tol={tol:.3e}", flush=True)
+    del x, dy, xs, xb, dyb
 
 
 def check_opt(leaves: dict, gen, sums: dict):
@@ -626,94 +792,54 @@ def _batched_case(e, c, fan_in, out, spec, dtype, gen, offset: int = 0):
             _rand_idx((spec.n_shards,), spec, gen))
 
 
-def _check_batched(tag, x, dy, idx, spec, instances, reps=10):
-    """Each instance against the plain version (fp32 sums over C in another
-    order: 1e-4 of the largest output); returns {instance: (ms, err)}."""
-    from repro_torch.kernels import ops, ref
-    want = ref.batched_dw_ref(x, dy, idx, spec.block)
-    tol = 1e-4 * float(want.abs().max())
-    res = {}
-    for pipe in instances:
-        got = ops.block_sparse_dw_batched(x, dy, idx, spec, pipelined=pipe)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        inst = "pipelined" if pipe else "grid"
-        check(got.shape == want.shape and err <= tol,
-              f"batched_dw {inst} {tag}: max_abs_err {err} > {tol}")
-        res[inst] = (cuda_ms(lambda: ops.block_sparse_dw_batched(
-            x, dy, idx, spec, pipelined=pipe), reps=reps), err, tol)
-    return res
-
-
 def check_batched_dw(gen, sums: dict):
     """The expert-batched dW at the three expert leaf shapes of the MoE path
-    (E = 64, capacity 481, bf16, both instances), one fp32 case, one with
-    its base pointers off alignment (the wrapper takes the grid instance
-    and refuses the pipelined one), one at a long capacity, and the
-    dense-scatter form's dW, exactly zero outside the selected blocks. The
-    main path's instance, in bf16, goes into the sums."""
+    (E = 64, capacity 481, bf16: the pipelined instance, and the grid one
+    beside it), an fp32 case and one with its base pointers off alignment
+    (both take the grid instance and refuse the pipelined one), one at a
+    long capacity, and the dense-scatter form's dW, exactly zero outside the
+    selected blocks. The bf16 main-path times go into the sums."""
     from repro_torch.core.sparse_update import gather_param_blocks, smm
     from repro_torch.kernels import ops, ref
     e, c, leaves = _moe_leaves()
-    cases = [(leaf, torch.bfloat16) for leaf in leaves] + \
-        [("w_gate", torch.float32)]
-    for leaf, dtype in cases:
+    cases = [(leaf, torch.bfloat16, 0, "pipelined") for leaf in leaves] + \
+        [("w_gate", torch.float32, 0, "grid"),
+         ("w_gate", torch.bfloat16, 1, "grid")]
+    for leaf, dtype, offset, main in cases:
         fan_in, out, spec = leaves[leaf]
-        x, dy, idx = _batched_case(e, c, fan_in, out, spec, dtype, gen)
-        main_pipe = ops.use_pipelined(x, dy, spec.block)
+        x, dy, idx = _batched_case(e, c, fan_in, out, spec, dtype, gen,
+                                   offset)
+        tag = f"experts {leaf} {_dname(dtype)}" + (
+            " base pointers off alignment" if offset else "")
+        res, plain, tol = _dw_case(tag, x, dy, idx, spec, main)
         dy_sel = ref.gather_dy_blocks(dy.reshape(e * c, out), idx,
                                       spec.block).reshape(e, c, -1)
         dy_sel = dy_sel.contiguous()
-        lib = cuda_ms(lambda: torch.bmm(x.transpose(1, 2), dy_sel))
-        plain = cuda_ms(lambda: ref.batched_dw_ref(x, dy, idx, spec.block))
-        cols = spec.n_shards * spec.n_sel * spec.block
-        flops = 2.0 * e * c * fan_in * cols
-        # x once, the selected dy columns once, idx, the fp32 output
-        nbytes = e * c * (fan_in + cols) * x.element_size() \
-            + idx.numel() * 4 + e * fan_in * cols * 4
-        b_ms, b_by = bound_ms(flops, nbytes, _dname(dtype))
-        res = _check_batched(f"{leaf} {_dname(dtype)}", x, dy, idx, spec,
-                             (False, True))
-        for inst, (ms, err, tol) in res.items():
-            main = (inst == "pipelined") == main_pipe
-            print(f"[kernel] batched_dw {inst} {leaf} {_dname(dtype)} E={e} "
-                  f"C={c} K={fan_in} N={out} n_sel={spec.n_sel} "
-                  f"block={spec.block} main_path={main} kernel_ms={ms:.4f} "
+        lib = device_ms(lambda: torch.bmm(x.transpose(1, 2), dy_sel))
+        flops, nbytes, b_ms, b_by = _dw_bound(c, fan_in, spec, e, dtype)
+        for inst, (ms, err, ev) in res.items():
+            print(f"[kernel] batched_dw {inst} {tag} E={e} C={c} K={fan_in} "
+                  f"N={out} n_sel={spec.n_sel} block={spec.block} "
+                  f"main_path={inst == main} kernel_ms={ms:.4f} "
+                  f"events_ms={ev:.4f} "
                   f"plain_ms={plain:.4f} library_ms={lib:.4f} "
                   f"bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err:.3e} "
                   f"tol={tol:.3e}", flush=True)
-            if dtype == torch.bfloat16 and main:
-                for key, val in (("ms", ms), ("plain_ms", plain),
-                                 ("library_ms", lib), ("flops", flops),
-                                 ("bytes", nbytes)):
-                    sums[key] += val
-                sums["max_abs_err"] = max(sums["max_abs_err"], err)
+        if dtype == torch.bfloat16 and not offset:
+            ms, err, _ = res[main]
+            for key, val in (("ms", ms), ("plain_ms", plain),
+                             ("library_ms", lib), ("flops", flops),
+                             ("bytes", nbytes)):
+                sums[key] += val
+            sums["max_abs_err"] = max(sums["max_abs_err"], err)
         del x, dy, dy_sel
 
     fan_in, out, spec = leaves["w_gate"]
-    x, dy, idx = _batched_case(e, c, fan_in, out, spec, torch.bfloat16, gen,
-                               offset=1)
-    check(not ops.use_pipelined(x, dy, spec.block),
-          "batched_dw: a misaligned base pointer must take the grid instance")
-    try:
-        ops.block_sparse_dw_batched(x, dy, idx, spec, pipelined=True)
-    except ValueError:
-        pass
-    else:
-        raise SmokeError("batched_dw: the pipelined instance took a "
-                         "misaligned pointer")
-    (ms, err, tol), = _check_batched("w_gate misaligned", x, dy, idx, spec,
-                                     (None,)).values()
-    print(f"[kernel] batched_dw grid (picked: base pointers off alignment) "
-          f"w_gate bfloat16 E={e} C={c} kernel_ms={ms:.4f} "
-          f"max_abs_err={err:.3e} tol={tol:.3e}", flush=True)
-    del x, dy
-
     x, dy, idx = _batched_case(8, C_LONG, fan_in, out, spec, torch.bfloat16,
                                gen)
-    for inst, (ms, err, tol) in _check_batched(
-            f"w_gate C={C_LONG}", x, dy, idx, spec, (True, False),
-            reps=3).items():
+    res, _, tol = _dw_case(f"experts w_gate C={C_LONG}", x, dy, idx, spec,
+                           "pipelined", reps=3)
+    for inst, (ms, err, _) in res.items():
         print(f"[kernel] batched_dw {inst} w_gate bfloat16 E=8 C={C_LONG} "
               f"K={fan_in} N={out} kernel_ms={ms:.4f} max_abs_err={err:.3e} "
               f"tol={tol:.3e}", flush=True)
@@ -764,17 +890,8 @@ def _wave_leaves() -> dict:
     """{leaf: (fan_in, out, SelSpec)} of the online wave on full-width
     llama3-8b: the reference launcher's personalization defaults (K = 2,
     r = 0.25, channel block 8)."""
-    from repro_torch.configs import SparseUpdateConfig, get_config
-    from repro_torch.core.selection import build_plan
-    from repro_torch.models.registry import abstract_params
-    cfg = get_config("llama3-8b")
-    plan = build_plan(cfg, SparseUpdateConfig(update_ratio=SERVE_RATIO,
-                                              num_update_layers=K_LAYERS,
-                                              channel_block=8))
-    shapes = abstract_params(cfg)["segments"]["blocks"]
-    return {name: tuple(shapes[group][name].shape[1:]) + (spec,)
-            for group in ("attn", "mlp")
-            for name, spec in plan.spec["blocks"][group].items()}
+    return {path.split("/")[-1]: leaf for path, leaf in
+            _dense_leaves("llama3-8b", SERVE_RATIO, 8).items()}
 
 
 def _scatter_case(tag, w, upd, idx, spec, flush, timed=False):
@@ -974,6 +1091,7 @@ def phase_kernels(results: dict):
     results["fused_block_opt"] = _new_sums()
     check_dw(leaves, gen, results["block_sparse_dw"])
     check_dw_long(leaves, gen)
+    check_dw_edges(gen)
     results["batched_dw"] = _new_sums()
     check_batched_dw(gen, results["batched_dw"])
     check_opt(leaves, gen, results["fused_block_opt"])
@@ -1053,6 +1171,10 @@ def phase_main_path(results: dict):
             check(totals[name] > 0, f"{name} was never launched on the LM "
                                     f"path")
             results["launches"][name] = totals[name]
+    check(ops.DW_INSTANCES == {"grid": 0,
+                               "pipelined": totals["block_sparse_dw"]},
+          f"LM run: dW instances {ops.DW_INSTANCES}, want every bf16 launch "
+          f"on the pipelined one")
     print(f"[main] launches over 6 steps: {totals}; block_sparse_dw by "
           f"instance: {dict(ops.DW_INSTANCES)}", flush=True)
     return tc, out
@@ -1467,7 +1589,15 @@ def phase_moe_path(results: dict):
                   batch)
     dropped = [float(d) / n for d, n in routed]
     steady = [r["step_ms"] for r in per_step[1:]]
-    print(f"[moe] launches over 6 steps: {totals}; batched_dw by instance: "
+    check(ops.DW_INSTANCES == {"grid": 0,
+                               "pipelined": totals["block_sparse_dw"]}
+          and ops.BATCHED_DW_INSTANCES == {"grid": 0,
+                                           "pipelined": totals["batched_dw"]},
+          f"MoE run: dW instances {ops.DW_INSTANCES}, batched "
+          f"{ops.BATCHED_DW_INSTANCES}, want every bf16 launch on the "
+          f"pipelined one")
+    print(f"[moe] launches over 6 steps: {totals}; dW by instance: "
+          f"{dict(ops.DW_INSTANCES)}, batched_dw by instance: "
           f"{dict(ops.BATCHED_DW_INSTANCES)}", flush=True)
     print(f"[moe] step_ms steps 2-6: {[round(t, 1) for t in steady]} "
           f"median={statistics.median(steady):.1f} tokens_per_s="
@@ -1601,7 +1731,12 @@ def phase_rwkv_path(results: dict):
         if path == "rwkv":
             results["launches"][name] = totals[name]
     steady = [r["step_ms"] for r in per_step[1:]]
-    print(f"[rwkv] launches over 6 steps: {totals}", flush=True)
+    check(ops.DW_INSTANCES == {"grid": 0,
+                               "pipelined": totals["block_sparse_dw"]},
+          f"rwkv run: dW instances {ops.DW_INSTANCES}, want every bf16 "
+          f"launch on the pipelined one")
+    print(f"[rwkv] launches over 6 steps: {totals}; dW by instance: "
+          f"{dict(ops.DW_INSTANCES)}", flush=True)
     print(f"[rwkv] step_ms steps 2-6: {[round(t, 1) for t in steady]} "
           f"median={statistics.median(steady):.1f} tokens_per_s="
           f"{M_TOKENS / statistics.median(steady) * 1e3:.0f} step1_ms="

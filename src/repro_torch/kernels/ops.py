@@ -30,8 +30,8 @@ from repro_torch.kernels import ref
 LAUNCHES = {"block_sparse_dw": 0, "batched_dw": 0, "fused_block_opt": 0,
             "block_act_prune": 0, "block_act_prune_bwd": 0,
             "block_scatter_update": 0, "wkv6": 0, "wkv6_bwd": 0}
-# block_sparse_dw and batched_dw launches by instance (grid / pipelined),
-# for reports
+# block_sparse_dw and batched_dw launches by instance, for reports: grid
+# (SIMT) and pipelined (TMA + wgmma); see dw_instance
 DW_INSTANCES = {"grid": 0, "pipelined": 0}
 BATCHED_DW_INSTANCES = {"grid": 0, "pipelined": 0}
 
@@ -92,32 +92,34 @@ def _check_dw(name: str, x, dy, idx, block: int, ndim: int):
              f"{name}: x, dy and idx must be on one device")
 
 
-def pipelined_fits(x, dy, block: int) -> bool:
-    """The pipelined instance copies 16-byte chunks: rows, block and base
-    pointers must be 16-byte aligned (then so is every expert's base of a
-    batched call, its stride being a whole number of rows)."""
-    vec = 16 // x.element_size()
-    return (x.shape[-1] % vec == 0 and dy.shape[-1] % vec == 0
-            and block % vec == 0 and x.data_ptr() % 16 == 0
-            and dy.data_ptr() % 16 == 0)
+def dw_instance(dtype, k: int, n: int, block: int, x_ptr: int,
+                dy_ptr: int) -> str:
+    """The dW instance that takes a call on the card, from its arguments
+    alone: "pipelined" (TMA + wgmma on the tensor cores) for bf16 with K
+    and N multiples of 8 (TMA's 16-byte row strides), `block` a multiple
+    of 64 (a TMA box never spans two selected blocks) and 16-byte-aligned
+    bases (then every expert's base is aligned too, its stride being whole
+    rows); "grid" (SIMT, exact fp32 products) for everything else: fp32,
+    the serving waves' block 8, misaligned or ragged rows."""
+    fits = (dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0
+            and block % 64 == 0 and x_ptr % 16 == 0 and dy_ptr % 16 == 0)
+    return "pipelined" if fits else "grid"
 
 
 def use_pipelined(x, dy, block: int,
                   pipelined: Optional[bool] = None) -> bool:
-    """The pipelined instance wherever its alignment holds: on an H100 it
-    was the faster of the two at every shape of the llama3-8b main path
-    (chip_smoke.py's kernel phase); the grid instance takes the rest."""
-    if pipelined is not None:
-        return pipelined
-    return pipelined_fits(x, dy, block)
-
-
-def _pick_instance(name, x, dy, block, pipelined) -> bool:
-    pipe = use_pipelined(x, dy, block, pipelined)
-    _require(not pipe or pipelined_fits(x, dy, block),
-             f"{name}: the pipelined instance needs K, N, block and the base "
-             f"pointers 16-byte aligned")
-    return pipe
+    """Whether a call on x, dy takes the TMA + wgmma instance: `pipelined`
+    where given (True is refused where `dw_instance` says "grid"), else
+    wherever `dw_instance` allows it."""
+    fits = dw_instance(x.dtype, x.shape[-1], dy.shape[-1], block,
+                       x.data_ptr(), dy.data_ptr()) == "pipelined"
+    if pipelined is None:
+        return fits
+    _require(not pipelined or fits,
+             "the pipelined (TMA + wgmma) dW instance takes bf16 only, with "
+             "K and N multiples of 8, block a multiple of 64 and 16-byte-"
+             "aligned base pointers")
+    return pipelined
 
 
 def block_sparse_dw(x2, dy2, idx, spec, pipelined: Optional[bool] = None):
@@ -125,15 +127,16 @@ def block_sparse_dw(x2, dy2, idx, spec, pipelined: Optional[bool] = None):
     shards.
 
     x2: [M, K], dy2: [M, N], idx: [n_shards, n_sel] int32 ->
-    [K, n_shards, n_sel, block] fp32. pipelined: force the double-buffered
-    instance (True) or the grid one (False); None picks by alignment.
+    [K, n_shards, n_sel, block] fp32. pipelined: force the TMA + wgmma
+    instance (True; a ValueError where it cannot take the call) or the
+    grid one (False); None picks by `dw_instance`. On the CPU it is ignored.
     """
     block = spec.block
     _check_dw("block_sparse_dw", x2, dy2, idx, block, 2)
     if not x2.is_cuda:
         return ref.block_sparse_dw_ref(x2, dy2, idx, block)
     from repro_torch.kernels.build import load
-    pipe = _pick_instance("block_sparse_dw", x2, dy2, block, pipelined)
+    pipe = use_pipelined(x2, dy2, block, pipelined)
     m, k = x2.shape
     n = dy2.shape[1]
     n_shards, n_sel = idx.shape
@@ -165,7 +168,7 @@ def block_sparse_dw_batched(x3, dy3, idx, spec,
     from repro_torch.kernels.build import load
     e, c, k = x3.shape
     _require(e <= 65535, f"batched_dw: {e} experts exceed the grid's 65535")
-    pipe = _pick_instance("batched_dw", x3, dy3, block, pipelined)
+    pipe = use_pipelined(x3, dy3, block, pipelined)
     n = dy3.shape[2]
     n_shards, n_sel = idx.shape
     out = torch.empty((e, k, n_shards, n_sel, block), dtype=torch.float32,
