@@ -87,7 +87,8 @@ version at the online wave's 7 leaf shapes of full-width llama3-8b and at
 an fp32, a lead-dim and an unaligned case, and the WKV recurrence forward
 and backward against its plain version and torch.autograd of it at the
 rwkv path's shapes (batch 4 x 1024 steps x 40 heads x 64, fp32), with w
-down to 1e-12 and with T = 1001.
+down to 1e-12, with T = 1001 and with T = 1 and T one step either side of
+the kernels' chunk of 16 steps, and two calls bitwise equal.
 
 The last lines are one JSON object with every kernel's numbers, and then
 `{"ok": true, "device": {...}}`.
@@ -170,7 +171,8 @@ PORT_KERNELS = ("batched_dw_grid_kernel", "batched_dw_tma_kernel",
                 "dw_grid_kernel", "dw_tma_kernel",
                 "fused_block_opt_kernel", "prune_kernel",
                 "scatter_vec_kernel", "scatter_scalar_kernel",
-                "wkv6_fwd_kernel", "wkv6_bwd_kernel")
+                "wkv6_fwd_chunk_kernel", "wkv6_bwd_scan_kernel",
+                "wkv6_bwd_chunk_kernel")
 CNN_BATCH = 32
 CNN_STEPS, CNN_J, CNN_K = 12, 4, 4
 CNN_ARGV = ["--config", "full", "--batch", str(CNN_BATCH), "--steps",
@@ -1023,8 +1025,11 @@ def _wkv_errors(tag, inputs, dy):
     for name, g, x in zip("rkvwu", got, xs):
         check(bool(torch.isfinite(g).all()), f"wkv6_bwd {tag}: d{name} not "
                                              f"finite")
-        sc = float(x.grad.abs().max())
-        e = float((g - x.grad).abs().max())
+        # autograd leaves no gradient where none flows (w at T = 1: the
+        # state after the last step reaches no output): it is zero
+        want_g = x.grad if x.grad is not None else torch.zeros_like(x)
+        sc = float(want_g.abs().max())
+        e = float((g - want_g).abs().max())
         check(e <= 1e-4 * max(sc, 1e-30),
               f"wkv6_bwd {tag}: d{name} max abs err {e} against max "
               f"|d{name}| {sc}")
@@ -1037,16 +1042,33 @@ def _wkv_errors(tag, inputs, dy):
     return err_f, err_b
 
 
+# the kernels' chunk of time (csrc/wkv6.cu FWD_C, BWD_C)
+WKV_CHUNK = 16
+
+
 def check_wkv(gen, fwd: dict, bwd: dict):
     """The WKV kernels at the rwkv path's shapes, forward and backward,
-    against the plain versions, timed with the L2 flushed into the sums;
-    then a strong-decay case (w down to 1e-12, where the reference's
-    log-space chunks overflow) and a case with T = 1000, not a multiple of
-    the kernels' step chunks."""
+    against the plain versions, two calls bitwise equal, timed with the L2
+    flushed into the sums; then a strong-decay case (w down to 1e-12,
+    where the reference's log-space chunks overflow), a case with
+    T = 1001, not a multiple of the kernels' chunk, and T = 1 and T one
+    step either side of the chunk."""
     from repro_torch.kernels import ops, ref
     inputs = _wkv_inputs(WKV_SHAPE, gen, -6.0)
     dy = torch.randn(WKV_SHAPE, generator=gen, device="cuda")
     err_f, err_b = _wkv_errors("rwkv6-3b shapes", inputs, dy)
+    # no atomics anywhere, du summed in a fixed order: bitwise repeatable
+    y1, y2 = ops.wkv6_fwd(*inputs), ops.wkv6_fwd(*inputs)
+    g1, g2 = ops.wkv6_bwd(*inputs, dy), ops.wkv6_bwd(*inputs, dy)
+    torch.cuda.synchronize()
+    check(torch.equal(y1.view(torch.int32), y2.view(torch.int32)),
+          "wkv6: two calls differ")
+    for name, a, b in zip("rkvwu", g1, g2):
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              f"wkv6_bwd: two calls differ in d{name}")
+    print("[kernel] wkv6 / wkv6_bwd rwkv6-3b shapes: two calls bitwise "
+          "equal (y, dr, dk, dv, dw, du)", flush=True)
+    del y1, y2, g1, g2
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     n = inputs[0].numel()
     d = WKV_SHAPE[-1]
@@ -1076,11 +1098,12 @@ def check_wkv(gen, fwd: dict, bwd: dict):
     dy = torch.randn(r.shape, generator=gen, device="cuda")
     _wkv_errors("strong decay (w = 1e-12 on half the channels)",
                 (r, k, v, w, u), dy)
-    # T not a multiple of 32 (the forward's chunk) nor of 8 (the
-    # backward's checkpoint interval)
-    r, k, v, w, u = _wkv_inputs((2, 1001, 8, 64), gen, -1.0)
-    dy = torch.randn(r.shape, generator=gen, device="cuda")
-    _wkv_errors("T=1001", (r, k, v, w, u), dy)
+    # T not a multiple of the chunk, T = 1 and T one step either side of
+    # the chunk: partial chunks, zero-filled past T
+    for t in (1001, 1, WKV_CHUNK - 1, WKV_CHUNK + 1):
+        r, k, v, w, u = _wkv_inputs((2, t, 8, 64), gen, -1.0)
+        dy = torch.randn(r.shape, generator=gen, device="cuda")
+        _wkv_errors(f"T={t}", (r, k, v, w, u), dy)
     torch.cuda.empty_cache()
 
 

@@ -82,6 +82,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                (lib.wkv6_bwd_launch, [p] * 12 + [i32] * 4 + [p])]
         lib.wkv6_ckpt_floats.argtypes = [i32] * 3
         lib.wkv6_ckpt_floats.restype = i64
+        lib.wkv6_bwd_chunks.argtypes = [i32]
+        lib.wkv6_bwd_chunks.restype = i32
     else:
         fns = [(lib.block_act_prune_fwd_launch,
                 [p, p, i64, i32, f32, i32, p]),

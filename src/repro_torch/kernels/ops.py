@@ -463,8 +463,8 @@ def wkv6_fwd(r, k, v, w, u):
 
 def wkv6_bwd(r, k, v, w, u, dy):
     """The gradients of `wkv6_fwd` (see `ref.wkv6_bwd_ref`) -> (dr, dk, dv,
-    dw, du), du [H, D]. The kernel writes du per batch row; its sum over
-    the batch is taken here."""
+    dw, du), du [H, D]. The kernels write du per batch row and chunk of
+    time; its sum over both is taken here, in a fixed order."""
     _check_wkv("wkv6_bwd", (r, k, v, w, dy), u)
     if not r.is_cuda:
         return ref.wkv6_bwd_ref(r, k, v, w, u, dy)
@@ -472,7 +472,8 @@ def wkv6_bwd(r, k, v, w, u, dy):
     lib = load("wkv6")
     b, t, h, d = r.shape
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
-    du_part = torch.empty((b, h, d), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((b, h, lib.wkv6_bwd_chunks(t), d),
+                          dtype=torch.float32, device=r.device)
     ckpt = torch.empty(lib.wkv6_ckpt_floats(b, t, h), dtype=torch.float32,
                        device=r.device)
     rc = lib.wkv6_bwd_launch(
@@ -482,7 +483,7 @@ def wkv6_bwd(r, k, v, w, u, dy):
         _stream(r))
     _raise_on(rc, "wkv6_bwd")
     LAUNCHES["wkv6_bwd"] += 1
-    return dr, dk, dv, dw, du_part.sum(0)
+    return dr, dk, dv, dw, du_part.sum((0, 2))
 
 
 class WKV6(torch.autograd.Function):
