@@ -16,7 +16,10 @@ Phases (any failure exits non-zero and prints no result):
    M = 32768, capacity 17 and 8192, two shards with the last block
    selected, with exact layout probes (one-hot x, ramp dy) for both tile
    widths, two calls bitwise equal, and the calls that take the grid
-   instance (fp32, block 8, misaligned);
+   instance (fp32, block 8, block 96, misaligned, ragged K or N, capacity
+   17), among them the serving wave's 7 llama3-8b leaves (M = 16 tokens,
+   block 8) in bf16 and in fp32, each timed beside torch.matmul and its
+   bound;
 4. the LM path: the compact sparse-update train step on full-width
    llama3-8b (32 layers, bf16), batch 4 x seq 1024, AdamW, 6 steps across
    the fixed / dynamic / fixed phases, through `repro_torch.launch.train`;
@@ -528,8 +531,11 @@ def check_dw_edges(gen):
     shards, the last block selected, ragged rows and columns, both tile
     widths); two shards
     with the last block selected at full size; a base pointer one element
-    off alignment and the serving wave's block 8 (both take the grid
-    instance and refuse the pipelined one); capacity 17."""
+    off alignment, the serving wave's block 8, block 96 (a packed tile
+    ends inside a block), a ragged fan-in (K = 4100 in bf16, 4099 in fp32:
+    element loads), a ragged width (block 60: N = 14340) and fp32 experts
+    at capacity 17 (all take the grid instance and refuse the pipelined
+    one); bf16 experts at capacity 17."""
     from repro_torch.core.sparse_update import SelSpec
     spec2 = SelSpec(block=128, n_shards=2, n_sel=3, n_blocks=16)
     _layout_probe(1, 256, 256, spec2, gen)
@@ -561,19 +567,79 @@ def check_dw_edges(gen):
                   .to(torch.bfloat16),
                   _rand_idx((spec_w.n_shards,), spec_w, gen), spec_w,
                   "grid"))
+    for tag, fan_in, block, n_blocks, n_sel, dtype in (
+            ("block 96", 4096, 96, 144, 29, torch.bfloat16),
+            ("ragged fan-in K=4100", 4100, 128, 112, 22, torch.bfloat16),
+            ("ragged fan-in K=4099", 4099, 128, 112, 22, torch.float32),
+            ("ragged width block 60 N=14340", 4096, 60, 239, 48,
+             torch.bfloat16)):
+        spec = SelSpec(block=block, n_shards=1, n_sel=n_sel,
+                       n_blocks=n_blocks)
+        idx_r = _rand_idx((1,), spec, gen)
+        idx_r[-1, -1] = n_blocks - 1
+        cases.append((f"{tag} {_dname(dtype)}",
+                      torch.randn(M_TOKENS, fan_in, generator=gen,
+                                  device="cuda").to(dtype),
+                      torch.randn(M_TOKENS, n_blocks * block, generator=gen,
+                                  device="cuda").to(dtype),
+                      idx_r, spec, "grid"))
     e, _, moe = _moe_leaves()
     fan_g, out_g, spec_g = moe["w_gate"]
-    xb, dyb, idxb = _batched_case(e, 17, fan_g, out_g, spec_g,
-                                  torch.bfloat16, gen)
-    cases.append((f"experts E={e} C=17", xb, dyb, idxb, spec_g,
-                  "pipelined"))
+    for dtype, want in ((torch.bfloat16, "pipelined"),
+                        (torch.float32, "grid")):
+        xb, dyb, idxb = _batched_case(e, 17, fan_g, out_g, spec_g, dtype,
+                                      gen)
+        cases.append((f"experts E={e} C=17 {_dname(dtype)}", xb, dyb, idxb,
+                      spec_g, want))
     for tag, xc, dyc, idxc, spec, want in cases:
         res, plain, tol = _dw_case(tag, xc, dyc, idxc, spec, want)
         print(f"[kernel] dW {tag}: picked {want}; "
               + "; ".join(f"{inst} kernel_ms={ms:.4f} max_abs_err="
                           f"{err:.3e}" for inst, (ms, err, _) in res.items())
               + f" tol={tol:.3e}", flush=True)
-    del x, dy, xs, xb, dyb
+    del x, dy, xs, xb, dyb, cases
+
+
+def check_dw_wave(gen):
+    """The grid instance at the serving wave's 7 leaves of full-width
+    llama3-8b (M = 16 train tokens, r = 0.25, block 8), in bf16 (the
+    wave's type) and in fp32 (the f32 wave and the oracle's): each against
+    the plain version, two calls bitwise equal, timed beside torch.matmul
+    on a pre-gathered dy and its bound; a wave makes these 7 calls for
+    each of its K trainable layers."""
+    from repro_torch.kernels import ref
+    m = 16
+    for dtype in (torch.bfloat16, torch.float32):
+        tot = {"ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes": 0.0}
+        for leaf, (fan_in, out, spec) in _wave_leaves().items():
+            x = torch.randn(m, fan_in, generator=gen,
+                            device="cuda").to(dtype)
+            dy = torch.randn(m, out, generator=gen, device="cuda").to(dtype)
+            idx = _rand_idx((spec.n_shards,), spec, gen)
+            res, plain, tol = _dw_case(f"wave {leaf} {_dname(dtype)}", x,
+                                       dy, idx, spec, "grid")
+            ms, err, ev = res["grid"]
+            dy_sel = ref.gather_dy_blocks(dy, idx, spec.block).reshape(
+                m, -1).contiguous()
+            lib = device_ms(lambda: torch.matmul(x.t(), dy_sel))
+            _, nbytes, b_ms, b_by = _dw_bound(m, fan_in, spec, 1, dtype)
+            print(f"[kernel] block_sparse_dw grid wave {leaf} "
+                  f"{_dname(dtype)} M={m} K={fan_in} N={out} "
+                  f"n_sel={spec.n_sel} block={spec.block} kernel_ms={ms:.4f} "
+                  f"events_ms={ev:.4f} plain_ms={plain:.4f} "
+                  f"library_ms={lib:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+                  f"max_abs_err={err:.3e} tol={tol:.3e}", flush=True)
+            for key, val in (("ms", ms), ("library_ms", lib),
+                             ("bound_ms", b_ms), ("bytes", nbytes)):
+                tot[key] += val
+            del x, dy, dy_sel
+        print(f"[kernel] block_sparse_dw grid wave {_dname(dtype)} sum over "
+              f"7 leaves: kernel_ms={tot['ms']:.4f} "
+              f"library_ms={tot['library_ms']:.4f} "
+              f"bound_ms={tot['bound_ms']:.4f} bytes={tot['bytes']:.0f}; "
+              f"a wave's {K_LAYERS * 7} calls: "
+              f"kernel_ms={K_LAYERS * tot['ms']:.4f} "
+              f"bound_ms={K_LAYERS * tot['bound_ms']:.4f}", flush=True)
 
 
 def check_opt(leaves: dict, gen, sums: dict):
@@ -1115,6 +1181,7 @@ def phase_kernels(results: dict):
     check_dw(leaves, gen, results["block_sparse_dw"])
     check_dw_long(leaves, gen)
     check_dw_edges(gen)
+    check_dw_wave(gen)
     results["batched_dw"] = _new_sums()
     check_batched_dw(gen, results["batched_dw"])
     check_opt(leaves, gen, results["fused_block_opt"])

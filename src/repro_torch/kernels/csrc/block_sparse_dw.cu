@@ -77,17 +77,34 @@
 //    run. The epilogue always goes through shared memory so that a warp
 //    writes whole 512-byte runs of a row of the compact layout. A ring wait
 //    that cannot finish traps instead of hanging the card.
-//  - grid (SIMT; `dw_grid_kernel`, `batched_dw_grid_kernel`): every other
-//    call: fp32 inputs (exact fp32 products on the CUDA cores, no TF32:
-//    the f32 serving oracle and the f32 online wave rely on it), misaligned
-//    bases, rows that are no multiple of 16 bytes, and blocks that are no
-//    multiple of 64 (the serving waves use block 8). One block of 256
-//    threads per (shard*selected block, 64-column tile, 64-row K tile,
-//    expert), staging [32 x 64] tiles of x and dy converted to fp32 in
-//    shared memory, a 4 x 4 fp32 accumulator a thread; ragged edges
-//    masked, 64-bit offsets, no atomics. It is bound by shared-memory
-//    loads, far from either bound, and stays for the calls the tensor
-//    cores cannot take.
+//  - grid (`dw_grid_kernel`, `batched_dw_grid_kernel`): every other call:
+//    fp32 inputs, misaligned bases, rows that are no multiple of 16 bytes,
+//    and blocks that are no multiple of 64 (the serving waves use block 8).
+//    One CTA of 128 threads (four an SM) computes a 64 x 128 tile of one
+//    expert's [K, C] output: 64 fan-in rows by 128 compact columns, across
+//    as many selected blocks as those columns span (16 at block 8); a tile
+//    may straddle a shard boundary or end inside a block. At its start the
+//    CTA reads its columns' idx entries from device memory into a table of
+//    dy columns in shared memory (a bad index clamped). A 4-stage cp.async
+//    ring stages 16 (fp32) or 32 (bf16) contraction rows of x and of the
+//    selected dy columns a stage, in 16-byte pieces where the bases, rows
+//    and blocks allow (bf16 block 8 is one piece, fp32 block 8 two), else
+//    by element loads, chosen from the arguments; rows past M, fan-in past
+//    K and columns past C read zeros and are not stored. fp32 runs on the
+//    CUDA cores, exact (no TF32: the f32 serving oracle and the f32 online
+//    wave rely on it): a thread holds 8 x 8 outputs, reads its operands
+//    from shared memory four at a time, and keeps each output one chain of
+//    fused multiply-adds over m in ascending order, so the fp32 sums are
+//    bit for bit those of the earlier one-block-a-CTA tile (`python -m
+//    repro_torch.launch.dw_probe` checks). bf16 runs on the tensor cores:
+//    ldmatrix .trans + mma.sync m16n8k16 (bf16 in, fp32 sums; bf16
+//    products are exact in fp32), each warp 64 x 32 outputs; mma.sync,
+//    not wgmma, because the operands are gathered and padded by the CTA
+//    itself and the tiles are small (M = 16 in a wave). The tile goes out
+//    through shared memory, a warp writing whole 512-byte runs of a compact
+//    row. No atomics, no split of M: two calls are bitwise equal. At M = 16
+//    (a wave) the fp32 output bounds it; at M = 4096 in fp32 the CUDA
+//    cores' FMA stream does (the probe's `no_smem_reads` build).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (see repro_torch/kernels/build.py).
@@ -100,117 +117,454 @@
 
 namespace {
 
-constexpr int TK = 64;        // output rows (fan-in K) per block
-constexpr int BN = 64;        // output columns of one selected block per block
-constexpr int TM = 32;        // contraction rows staged per step
-constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---------------------------------------------------------------------------
+// grid instance: packed column tiles, cp.async ring, fp32 FMAs or bf16
+// mma.sync, the epilogue through shared memory
+// ---------------------------------------------------------------------------
+
+// A tile is TR fan-in rows by TC compact columns, computed by 2 TR
+// threads, four CTAs an SM. (128-row tiles of 256 threads, two an SM, left
+// small leaves' few tiles on part of the card and made a ragged last wave
+// of large ones: on an H100, llama3-8b's fp32 wk took 0.386 ms against
+// 0.233, w_gate 2.261 against 2.142; `dw_probe`'s rows128 build.)
+constexpr int TR = 64;           // fan-in rows of a tile
+constexpr int TC = 128;          // compact columns of a tile
+constexpr int G_THREADS = 2 * TR;
+constexpr int G_STAGES = 4;      // cp.async ring over the contraction
+constexpr int G_LD = TC + 8;     // floats a staged output row (banks)
+
+// The design's switches; `python -m repro_torch.launch.dw_probe` builds
+// the source with each one undone.
+constexpr bool kPackColumns = true;   // a tile spans selected blocks
+constexpr bool kCpAsync = true;       // 16-byte cp.async pieces where aligned
+constexpr bool kBf16Mma = true;       // bf16 on the tensor cores
+
+template <typename T>
+constexpr bool kIsBf16 = false;
+template <>
+constexpr bool kIsBf16<__nv_bfloat16> = true;
+
+// How kThreads threads stage rows of a WIDTH-wide operand tile: as 16-byte
+// pieces of V elements (kPieceRows rows a pass), or as elements
+// (kElemRows rows a pass).
+template <int WIDTH, int kThreads, int V>
+struct StageMap {
+  static constexpr int kPieceRows = kThreads / (WIDTH / V);
+  static constexpr int kElemRows = kThreads / WIDTH;
+  static_assert(kThreads % (WIDTH / V) == 0 && kThreads % WIDTH == 0,
+                "every thread stages alike");
+  static __device__ __forceinline__ int piece_row(int tid) {
+    return tid / (WIDTH / V);
+  }
+  static __device__ __forceinline__ int piece_col(int tid) {
+    return tid % (WIDTH / V) * V;
+  }
+  static __device__ __forceinline__ int elem_row(int tid) {
+    return tid / WIDTH;
+  }
+  static __device__ __forceinline__ int elem_col(int tid) {
+    return tid % WIDTH;
+  }
+};
+
+// Contraction rows a stage and the row strides of the staged operands, in
+// elements: fp32 rows are read whole by each warp (no padding needed);
+// bf16 rows are padded by 16 bytes so that ldmatrix's 8 row addresses fall
+// in 8 different bank groups. Dynamic shared memory holds the ring, which
+// the staged output tile reuses, then the tile's dy column table.
+template <typename T>
+struct GridStage {
+  static constexpr int kThreads = G_THREADS;
+  static constexpr int kRows = kIsBf16<T> ? 32 : 16;
+  static constexpr int kPad = kIsBf16<T> ? 8 : 0;
+  static constexpr int kLdX = TR + kPad, kLdD = TC + kPad;
+  static constexpr int kDyAt = kRows * kLdX;   // dy's offset in a stage
+  static constexpr int kElems = kRows * (kLdX + kLdD);
+  static constexpr int kRingBytes = G_STAGES * kElems * (int)sizeof(T);
+  static constexpr int kTileBytes = TR * G_LD * 4;
+  static constexpr int kColsAt =
+      kRingBytes > kTileBytes ? kRingBytes : kTileBytes;
+  static constexpr int kSmem = kColsAt + TC * 4;
+  static constexpr int kVec = 16 / (int)sizeof(T);   // elements a piece
+  using MapX = StageMap<TR, kThreads, kVec>;
+  using MapD = StageMap<TC, kThreads, kVec>;
+  static_assert(kRows % MapX::kPieceRows == 0 &&
+                    kRows % MapD::kPieceRows == 0 &&
+                    kRows % MapX::kElemRows == 0 &&
+                    kRows % MapD::kElemRows == 0,
+                "a stage is whole passes");
+};
 
 struct Geometry {
-  int64_t M, K, N;
-  int n_shards, n_sel, block, n_blocks, col_tiles;
+  int64_t M, K, N, C;           // C = n_shards * n_sel * block
+  int n_sel, block, n_blocks;
+  int tiles_per_block;          // column tiles a selected block takes
+                                // (only without packing)
+  int vec_x, vec_dy, vec_out;   // 16-byte pieces allowed
   int64_t x_stride, dy_stride, out_stride;   // per expert, in elements
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
 }
 
-struct Tile {
-  int sj;         // s * n_sel + j
-  int ct;         // column tile within the selected block
-  int64_t col0;   // first dy column of this tile
-  int ncol;       // valid columns in this tile
-  int64_t k0;     // first fan-in row of this tile
-  int nk;         // valid fan-in rows in this tile
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+// Four consecutive staged elements as fp32.
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  v[0] = f.x;
+  v[1] = f.y;
+  v[2] = f.z;
+  v[3] = f.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  v[0] = lo.x;
+  v[1] = lo.y;
+  v[2] = hi.x;
+  v[3] = hi.y;
+}
+
+// Where a thread stages from, fixed for the whole contraction: `x` and
+// `dy` point at its first piece or element (as vec_x / vec_dy say) in
+// stage 0, null where its column lies past the tile's fan-in rows or
+// compact columns. Computed once, so that no stage reads the column table
+// (which the compiler cannot tell apart from the staged tiles) or
+// multiplies 64-bit offsets anew.
+template <typename T>
+struct Pieces {
+  const T* x;
+  const T* dy;
 };
 
-__device__ __forceinline__ Tile tile_of(const int* __restrict__ idx,
-                                        const Geometry& g) {
-  Tile t;
-  t.sj = blockIdx.x / g.col_tiles;
-  t.ct = blockIdx.x % g.col_tiles;
-  const int s = t.sj / g.n_sel;
-  int sel = idx[t.sj];
-  // indices are trusted; the clamp only keeps a bad one inside the tensor
-  sel = min(max(sel, 0), g.n_blocks - 1);
-  t.col0 = ((int64_t)s * g.n_blocks + sel) * g.block + (int64_t)t.ct * BN;
-  t.ncol = min(BN, g.block - t.ct * BN);
-  t.k0 = (int64_t)blockIdx.y * TK;
-  const int64_t k_left = g.K - t.k0;
-  t.nk = k_left < TK ? (int)k_left : TK;
-  return t;
-}
-
-__device__ __forceinline__ void store_tile(float (&acc)[4][4], float* out,
-                                           const Tile& t, const Geometry& g,
-                                           int tx, int ty) {
-  // out[k, s, j, c] sits at (k * n_shards * n_sel + s * n_sel + j) * block + c
-  const int64_t row_stride = (int64_t)g.n_shards * g.n_sel * g.block;
+// Stage rows [m0, m0 + kRows) of the tile's x rows and selected dy
+// columns into xs / ds. Rows past M and columns past the tile read zeros.
+// 16-byte cp.async pieces where the geometry allows them (`vec_*`; always
+// where kAligned), else element loads through registers.
+template <typename T, bool kAligned>
+__device__ __forceinline__ void load_stage(T* xs, T* ds, const Pieces<T>& p,
+                                           const T* x, const T* dy,
+                                           const Geometry& g, int64_t m0) {
+  using S = GridStage<T>;
+  using MX = typename S::MapX;
+  using MD = typename S::MapD;
+  const int tid = threadIdx.x;
+  if (kAligned || g.vec_x) {
+    const int row = MX::piece_row(tid), col = MX::piece_col(tid);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kk = ty + 16 * i;
-    if (kk >= t.nk) continue;
+    for (int u = 0; u < S::kRows / MX::kPieceRows; ++u) {
+      const int r = row + u * MX::kPieceRows;
+      const bool ok = p.x != nullptr && m0 + r < g.M;
+      cp_async16(xs + r * S::kLdX + col,
+                 ok ? p.x + (m0 + u * MX::kPieceRows) * g.K : x,
+                 ok ? 16 : 0);
+    }
+  } else {
+    const int row = MX::elem_row(tid), col = MX::elem_col(tid);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      if (c >= t.ncol) continue;
-      out[(t.k0 + kk) * row_stride + (int64_t)t.sj * g.block +
-          (int64_t)t.ct * BN + c] = acc[i][j];
+    for (int u = 0; u < S::kRows / MX::kElemRows; ++u) {
+      const int r = row + u * MX::kElemRows;
+      xs[r * S::kLdX + col] =
+          p.x != nullptr && m0 + r < g.M
+              ? p.x[(m0 + u * MX::kElemRows) * g.K] : zero_of<T>();
+    }
+  }
+  if (kAligned || g.vec_dy) {
+    const int row = MD::piece_row(tid), col = MD::piece_col(tid);
+#pragma unroll
+    for (int u = 0; u < S::kRows / MD::kPieceRows; ++u) {
+      const int r = row + u * MD::kPieceRows;
+      const bool ok = p.dy != nullptr && m0 + r < g.M;
+      cp_async16(ds + r * S::kLdD + col,
+                 ok ? p.dy + (m0 + u * MD::kPieceRows) * g.N : dy,
+                 ok ? 16 : 0);
+    }
+  } else {
+    const int row = MD::elem_row(tid), col = MD::elem_col(tid);
+#pragma unroll
+    for (int u = 0; u < S::kRows / MD::kElemRows; ++u) {
+      const int r = row + u * MD::kElemRows;
+      ds[r * S::kLdD + col] =
+          p.dy != nullptr && m0 + r < g.M
+              ? p.dy[(m0 + u * MD::kElemRows) * g.N] : zero_of<T>();
     }
   }
 }
 
-// The block's tile of one expert's output (expert 0 for a single weight).
+// CUDA cores: the warp (w / 2, w % 2) takes fan-in rows [32 (w / 2), +32)
+// and columns [64 (w % 2), +64); lane (l / 8, l % 8) its rows
+// 4 (l / 8) + {0..3} and 16 + 4 (l / 8) + {0..3}, columns 4 (l % 8) +
+// {0..3} and 32 + 4 (l % 8) + {0..3}: 8 x 8 outputs read from shared
+// memory four at a time. Each output is one chain of fused multiply-adds
+// over m in ascending order (fp32: the sum the earlier one-block tile gave,
+// bit for bit).
+struct SimtLayout {
+  int r0, c0;
+  __device__ __forceinline__ SimtLayout(int warp, int lane)
+      : r0(warp / 2 * 32 + lane / 8 * 4), c0(warp % 2 * 64 + lane % 8 * 4) {}
+  __device__ __forceinline__ int row(int i) const {
+    return r0 + (i < 4 ? i : 12 + i);
+  }
+};
+
 template <typename T>
+__device__ __forceinline__ void simt_stage(const T* xs, const T* ds,
+                                           float (&acc)[64],
+                                           const SimtLayout& l) {
+  using S = GridStage<T>;
+#pragma unroll
+  for (int r = 0; r < S::kRows; ++r) {
+    float a[8], b[8];
+    load4(xs + r * S::kLdX + l.r0, a);
+    load4(xs + r * S::kLdX + l.r0 + 16, a + 4);
+    load4(ds + r * S::kLdD + l.c0, b);
+    load4(ds + r * S::kLdD + l.c0 + 32, b + 4);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        acc[i * 8 + j] = fmaf(a[i], b[j], acc[i * 8 + j]);
+  }
+}
+
+__device__ __forceinline__ void simt_store(const float (&acc)[64],
+                                           float* staged,
+                                           const SimtLayout& l) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* row = staged + l.row(i) * G_LD;
+    *reinterpret_cast<float4*>(row + l.c0) =
+        make_float4(acc[i * 8], acc[i * 8 + 1], acc[i * 8 + 2],
+                    acc[i * 8 + 3]);
+    *reinterpret_cast<float4*>(row + l.c0 + 32) =
+        make_float4(acc[i * 8 + 4], acc[i * 8 + 5], acc[i * 8 + 6],
+                    acc[i * 8 + 7]);
+  }
+}
+
+// Tensor cores (bf16): the warp (w / 4, w % 4) takes fan-in rows
+// [64 (w / 4), +64) and columns [32 (w % 4), +32): 4 x 4 products
+// m16n8k16 a 16-row step. out = x^T dy, so both staged operands are
+// transposed against mma's row.col: ldmatrix .trans reads them as they lie
+// (xs [m][k] gives A = x^T, ds [m][c] gives B). acc[(mi * 4 + ni) * 4 + q]
+// holds row 16 mi + lane / 4 (+ 8 for q >= 2), column 8 ni + 2 (lane % 4)
+// (+ 1 for odd q) of the warp's block.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_stage(const __nv_bfloat16* xs,
+                                          const __nv_bfloat16* ds,
+                                          float (&acc)[64], int warp,
+                                          int lane, int steps) {
+  using S = GridStage<__nv_bfloat16>;
+  const int wr = warp / 4 * 64, wc = warp % 4 * 32;
+  // lane l addresses row l % 8 of 8 x 8 matrix l / 8
+  const int q = lane / 8, i = lane % 8;
+#pragma unroll
+  for (int kk = 0; kk < S::kRows / 16; ++kk) {
+    if (kk >= steps) break;   // rows past M: nothing to add
+    const int mb = kk * 16;
+    uint32_t a[4][4], b[2][4];
+    // A's four matrices: (m, k) blocks (0, 0), (0, 8), (8, 0), (8, 8)
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+      ldmatrix_x4_trans(a[mi], xs + (mb + q / 2 * 8 + i) * S::kLdX + wr +
+                                   mi * 16 + q % 2 * 8);
+    // B's: (m, c) blocks (0, 0), (8, 0), (0, 8), (8, 8) of 16 columns
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+      ldmatrix_x4_trans(b[p], ds + (mb + q % 2 * 8 + i) * S::kLdD + wc +
+                                  p * 16 + q / 2 * 8);
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        mma_bf16(acc + (mi * 4 + ni) * 4, a[mi], b[ni / 2][ni % 2 * 2],
+                 b[ni / 2][ni % 2 * 2 + 1]);
+  }
+}
+
+__device__ __forceinline__ void mma_store(const float (&acc)[64],
+                                          float* staged, int warp,
+                                          int lane) {
+  const int wr = warp / 4 * 64, wc = warp % 4 * 32;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const float* d = acc + (mi * 4 + ni) * 4;
+      float* p = staged + (wr + mi * 16 + lane / 4) * G_LD + wc + ni * 8 +
+                 lane % 4 * 2;
+      *reinterpret_cast<float2*>(p) = make_float2(d[0], d[1]);
+      *reinterpret_cast<float2*>(p + 8 * G_LD) = make_float2(d[2], d[3]);
+    }
+}
+
+// The CTA's tile of one expert's output (expert 0 for a single weight):
+// fan-in rows [TR blockIdx.y, +TR) by compact columns [128 blockIdx.x,
+// +128), across as many selected blocks as the columns span (packed), or
+// a 128-column piece of one selected block (unpacked). kAligned: both
+// operands stage as 16-byte pieces (the element loads are not compiled).
+template <typename T, bool kAligned>
 __device__ __forceinline__ void grid_tile(const T* __restrict__ x,
                                           const T* __restrict__ dy,
                                           const int* __restrict__ idx,
                                           float* __restrict__ out,
                                           const Geometry& g, int64_t expert) {
-  __shared__ float xs[TM][TK];
-  __shared__ float ds[TM][BN];
+  using S = GridStage<T>;
+  constexpr bool kMma = kIsBf16<T> && kBf16Mma;
+  extern __shared__ uint8_t smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  float* staged = reinterpret_cast<float*>(smem_raw);
+  int* cols = reinterpret_cast<int*>(smem_raw + S::kColsAt);
   x += expert * g.x_stride;
   dy += expert * g.dy_stride;
   out += expert * g.out_stride;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const Tile t = tile_of(idx, g);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int64_t m0 = 0; m0 < g.M; m0 += TM) {
-    for (int e = tid; e < TM * TK; e += THREADS) {
-      const int r = e / TK, c = e % TK;
-      const int64_t m = m0 + r;
-      xs[r][c] = (m < g.M && c < t.nk) ? to_f32(x[m * g.K + t.k0 + c]) : 0.f;
-    }
-    for (int e = tid; e < TM * BN; e += THREADS) {
-      const int r = e / BN, c = e % BN;
-      const int64_t m = m0 + r;
-      ds[r][c] = (m < g.M && c < t.ncol) ? to_f32(dy[m * g.N + t.col0 + c])
-                                         : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int r = 0; r < TM; ++r) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[r][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ds[r][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
-    }
-    __syncthreads();
+  int64_t c0;
+  int ncol;
+  if (kPackColumns) {
+    c0 = (int64_t)blockIdx.x * TC;
+    ncol = g.C - c0 < TC ? (int)(g.C - c0) : TC;
+  } else {
+    const int ct = blockIdx.x % g.tiles_per_block;
+    c0 = (int64_t)(blockIdx.x / g.tiles_per_block) * g.block +
+         (int64_t)ct * TC;
+    ncol = min(TC, g.block - ct * TC);
   }
-  store_tile(acc, out, t, g, tx, ty);
+  const int64_t k0 = (int64_t)blockIdx.y * TR;
+  const int nk = g.K - k0 < TR ? (int)(g.K - k0) : TR;
+  // each column's dy column, from idx in device memory: a new selection
+  // needs no host sync and no rebuild
+  for (int c = tid; c < TC; c += S::kThreads) {
+    int col = -1;
+    if (c < ncol) {
+      const int64_t cc = c0 + c;
+      const int sj = (int)(cc / g.block);
+      int sel = idx[sj];
+      // indices are trusted; the clamp only keeps a bad one inside the
+      // tensor
+      sel = min(max(sel, 0), g.n_blocks - 1);
+      col = (int)(((int64_t)(sj / g.n_sel) * g.n_blocks + sel) * g.block +
+                  cc % g.block);
+    }
+    cols[c] = col;
+  }
+  __syncthreads();
+  using MX = typename S::MapX;
+  using MD = typename S::MapD;
+  Pieces<T> pc;
+  {
+    const bool vx = kAligned || g.vec_x, vdy = kAligned || g.vec_dy;
+    const int xr = vx ? MX::piece_row(tid) : MX::elem_row(tid);
+    const int xc = vx ? MX::piece_col(tid) : MX::elem_col(tid);
+    const int dr = vdy ? MD::piece_row(tid) : MD::elem_row(tid);
+    const int dc = cols[vdy ? MD::piece_col(tid) : MD::elem_col(tid)];
+    pc.x = xc < nk ? x + xr * g.K + k0 + xc : nullptr;
+    pc.dy = dc >= 0 ? dy + dr * g.N + dc : nullptr;
+  }
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  const SimtLayout lay(warp, lane);
+  const int64_t steps = (g.M + S::kRows - 1) / S::kRows;
+#pragma unroll
+  for (int s = 0; s < G_STAGES - 1; ++s) {
+    if (s < steps)
+      load_stage<T, kAligned>(ring + s * S::kElems,
+                              ring + s * S::kElems + S::kDyAt, pc, x, dy, g,
+                              (int64_t)s * S::kRows);
+    cp_async_commit();
+  }
+  for (int64_t it = 0; it < steps; ++it) {
+    cp_async_wait<G_STAGES - 2>();
+    // stage `it` has landed, and every warp is done with stage it - 1,
+    // whose slot the next load takes
+    __syncthreads();
+    const int64_t next = it + G_STAGES - 1;
+    if (next < steps) {
+      T* slot = ring + (next % G_STAGES) * S::kElems;
+      load_stage<T, kAligned>(slot, slot + S::kDyAt, pc, x, dy, g,
+                              next * S::kRows);
+    }
+    cp_async_commit();
+    const T* xs = ring + (it % G_STAGES) * S::kElems;
+    const T* ds = xs + S::kDyAt;
+    if constexpr (kMma) {
+      const int64_t left = g.M - it * S::kRows;   // rows of this stage
+      mma_stage(xs, ds, acc, warp, lane,
+                left < 32 ? (int)(left + 15) / 16 : 2);
+    } else {
+      simt_stage(xs, ds, acc, lay);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();   // the ring is free: it holds the staged tile now
+
+  if constexpr (kMma)
+    mma_store(acc, staged, warp, lane);
+  else
+    simt_store(acc, staged, lay);
+  __syncthreads();
+  // a warp writes whole rows of the compact layout, 512 bytes at a time
+  for (int r = warp; r < nk; r += S::kThreads / 32) {
+    float* dst = out + (k0 + r) * g.C + c0;
+    const float* src = staged + r * G_LD;
+    const int c = lane * 4;
+    if (g.vec_out && c + 4 <= ncol) {
+      *reinterpret_cast<float4*>(dst + c) =
+          *reinterpret_cast<const float4*>(src + c);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (c + j < ncol) dst[c + j] = src[c + j];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -246,10 +600,6 @@ struct TmaGeometry {
   int n_sel, block, n_blocks;
   int row_tiles, col_tiles, splits, m_stages;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -592,12 +942,12 @@ __device__ __forceinline__ void tma_tile(const CUtensorMap* tx,
 // a dense weight is expert 0 of one), and have names of their own so that
 // a profile tells the expert dW from a dense layer's.
 #define DW_GRID_KERNEL(name, expert)                                         \
-  template <typename T>                                                      \
-  __global__ void __launch_bounds__(THREADS)                                 \
+  template <typename T, bool kAligned>                               \
+  __global__ void __launch_bounds__(G_THREADS, 512 / G_THREADS)             \
       name(const T* __restrict__ x, const T* __restrict__ dy,               \
            const int* __restrict__ idx, float* __restrict__ out,            \
            Geometry g) {                                                     \
-    grid_tile<T>(x, dy, idx, out, g, expert);                               \
+    grid_tile<T, kAligned>(x, dy, idx, out, g, expert);                     \
   }
 DW_GRID_KERNEL(dw_grid_kernel, 0)
 DW_GRID_KERNEL(batched_dw_grid_kernel, (int64_t)blockIdx.z)
@@ -616,19 +966,27 @@ DW_TMA_KERNEL(dw_tma_kernel)
 DW_TMA_KERNEL(batched_dw_tma_kernel)
 #undef DW_TMA_KERNEL
 
+// blockIdx.x walks the column tiles, so neighbouring CTAs share x's rows
+// in L2; blockIdx.y the fan-in tiles, blockIdx.z the expert.
 template <typename T>
 cudaError_t launch_grid(const void* x, const void* dy, const int* idx,
                         float* out, const Geometry& g, int experts,
                         bool batched, cudaStream_t stream) {
-  const dim3 grid((unsigned)(g.n_shards * g.n_sel * g.col_tiles),
-                  (unsigned)((g.K + TK - 1) / TK), (unsigned)experts);
-  const T* xt = static_cast<const T*>(x);
-  const T* dyt = static_cast<const T*>(dy);
-  if (batched)
-    batched_dw_grid_kernel<T><<<grid, THREADS, 0, stream>>>(xt, dyt, idx,
-                                                            out, g);
-  else
-    dw_grid_kernel<T><<<grid, THREADS, 0, stream>>>(xt, dyt, idx, out, g);
+  const int64_t col_tiles =
+      kPackColumns ? (g.C + TC - 1) / TC : g.C / g.block * g.tiles_per_block;
+  const dim3 grid((unsigned)col_tiles, (unsigned)((g.K + TR - 1) / TR),
+                  (unsigned)experts);
+  const bool aligned = g.vec_x && g.vec_dy;
+  void (*kernel)(const T*, const T*, const int*, float*, Geometry) =
+      batched ? (aligned ? batched_dw_grid_kernel<T, true>
+                         : batched_dw_grid_kernel<T, false>)
+              : (aligned ? dw_grid_kernel<T, true> : dw_grid_kernel<T, false>);
+  const int smem = GridStage<T>::kSmem;
+  const cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return rc;
+  kernel<<<grid, G_THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), idx, out, g);
   return cudaGetLastError();
 }
 
@@ -765,18 +1123,31 @@ int run(const void* x, const void* dy, const void* idx, void* out,
     return (int)launch_tma(x, dy, ip, op, e, m, k, n, n_shards, n_sel, block,
                            batched, st);
   }
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (n > INT32_MAX) return (int)cudaErrorInvalidValue;   // int dy columns
+  if (e == 0 || k == 0 || n_shards == 0 || n_sel == 0)
+    return (int)cudaSuccess;   // no output
+  // elements a 16-byte piece; the pieces need aligned bases, rows and
+  // selected blocks
+  const int64_t v = dtype == 0 ? 4 : 8;
   Geometry g;
   g.M = m;
   g.K = k;
   g.N = n;
-  g.n_shards = n_shards;
+  g.C = (int64_t)n_shards * n_sel * block;
   g.n_sel = n_sel;
   g.block = block;
   g.n_blocks = (int)(n / ((int64_t)n_shards * block));
-  g.col_tiles = (block + BN - 1) / BN;
+  g.tiles_per_block = (block + TC - 1) / TC;
+  g.vec_x = kCpAsync && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+            k % v == 0;
+  g.vec_dy = kCpAsync && reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+             n % v == 0 && block % v == 0;
+  g.vec_out = g.C % 4 == 0 && (kPackColumns || block % 4 == 0) &&
+              reinterpret_cast<uintptr_t>(out) % 16 == 0;
   g.x_stride = m * k;
   g.dy_stride = m * n;
-  g.out_stride = k * n_shards * n_sel * block;
+  g.out_stride = k * g.C;
   const int experts = (int)e;
   if (dtype == 0)
     return (int)launch_grid<float>(x, dy, ip, op, g, experts, batched, st);

@@ -77,12 +77,22 @@ def _t(a, dtype):
 
 # (m, fan-in, n_shards, n_blocks, n_sel, block): two shards; a compact width
 # (n_shards * n_sel * block = 192) that leaves the last 128-column tile half
-# full; fan-in 24 (one ragged row tile) and 136 (a second, 8 rows deep)
+# full; fan-in 24 (one ragged row tile) and 136 (a second, 8 rows deep).
+# Then the seams of the grid instance's packed 128-column tile: block 8 at
+# M = 16 (a serving wave) with compact widths of 104 and 144 (no multiple
+# of 128; the second straddles a shard boundary at column 72 and a tile
+# boundary); 16-column blocks whose first tile straddles the shard
+# boundary at column 80, the last block selected; block 96, where the
+# first tile ends 32 columns into the second selected block.
 DENSE_CASES = [(40, 24, 2, 3, 2, 64), (64, 136, 1, 4, 3, 64),
-               (24, 24, 1, 2, 1, 128)]
+               (24, 24, 1, 2, 1, 128),
+               (16, 24, 1, 20, 13, 8), (16, 40, 2, 12, 9, 8),
+               (32, 24, 2, 6, 5, 16), (40, 136, 1, 3, 2, 96)]
 # (experts, capacity, fan-in, n_shards, n_blocks, n_sel, block): a capacity
-# that is no multiple of 8, as an expert's 481 is not
-BATCHED_CASES = [(3, 17, 24, 2, 3, 2, 64), (2, 70, 136, 1, 4, 3, 64)]
+# that is no multiple of 8, as an expert's 481 is not; capacity 17 at block
+# 8 over two shards (compact width 112)
+BATCHED_CASES = [(3, 17, 24, 2, 3, 2, 64), (2, 70, 136, 1, 4, 3, 64),
+                 (4, 17, 40, 2, 10, 7, 8)]
 
 
 @pytest.mark.parametrize("against", ["grid_kernel", "oracle"])
@@ -149,3 +159,18 @@ def test_batched_dw_edge_shapes_match_reference(against, dtype, e, c, k,
     assert tuple(got.shape) == (e, k, n_shards, n_sel, block)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
+
+
+def test_dw_probe_variants_apply_to_the_shipped_source():
+    """`launch/dw_probe.py` undoes design choices by editing the CUDA
+    source's text (old_grid splices `launch/dw_old_grid.cuh` in): every
+    edit must find its text exactly once, or the probe cannot build on the
+    card."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import dw_probe
+    src = (build.CSRC / "block_sparse_dw.cu").read_text()
+    for name in dw_probe.VARIANTS:
+        edits = dw_probe.edits_of(name)
+        for old, _ in edits:
+            assert src.count(old) == 1, (name, old)
+        assert dw_probe._edit(src, edits, name) != src or not edits
