@@ -76,8 +76,11 @@ Phases (any failure exits non-zero and prints no result):
    request, the largest logit difference between the paged and the
    contiguous path;
 14. one decode step of run B under torch.profiler, beside its byte bound;
-   then the bf16 online wave against the f32 wave on the same bf16 inputs,
-   within a bound derived from bf16 rounding;
+   then one bf16 online wave under torch.profiler (its 7 scatter launches'
+   device time, and its 7 scatter calls replayed as a copy + the in-place
+   kernel and as one out-of-place launch), and the bf16 online wave against
+   the f32 wave on the same bf16 inputs, within a bound derived from bf16
+   rounding;
 15. oracle parity at full widths cut to 4 layers, f32: the engine's greedy
    tokens against the contiguous prefill + decode_step oracle, plain and,
    after one wave, personalized (the delta dense-scattered into the
@@ -85,9 +88,10 @@ Phases (any failure exits non-zero and prints no result):
 
 Phase 3 also holds the expert-batched dW (`batched_dw`) against its plain
 version at the three expert leaf shapes of the MoE path (64 experts,
-capacity 481), the block scatter-update bitwise against its plain
-version at the online wave's 7 leaf shapes of full-width llama3-8b and at
-an fp32, a lead-dim and an unaligned case, and the WKV recurrence forward
+capacity 481), the block scatter-update in place and out of place
+bitwise against its plain version at the online wave's 7 leaf shapes of
+full-width llama3-8b and at an fp32, a lead-dim, an unaligned and a
+duplicate-index case, and the WKV recurrence forward
 and backward against its plain version and torch.autograd of it at the
 rwkv path's shapes (batch 4 x 1024 steps x 40 heads x 64, fp32), with w
 down to 1e-12, with T = 1001 and with T = 1 and T one step either side of
@@ -173,7 +177,7 @@ LIBRARY = ("block_sparse_dw", "batched_dw", "block_scatter_update")
 PORT_KERNELS = ("batched_dw_grid_kernel", "batched_dw_tma_kernel",
                 "dw_grid_kernel", "dw_tma_kernel",
                 "fused_block_opt_kernel", "prune_kernel",
-                "scatter_vec_kernel", "scatter_scalar_kernel",
+                "scatter_columns_kernel",
                 "wkv6_fwd_chunk_kernel", "wkv6_bwd_scan_kernel",
                 "wkv6_bwd_chunk_kernel")
 CNN_BATCH = 32
@@ -591,12 +595,21 @@ def check_dw_edges(gen):
                                       gen)
         cases.append((f"experts E={e} C=17 {_dname(dtype)}", xb, dyb, idxb,
                       spec_g, want))
+    from repro_torch.kernels import ref
     for tag, xc, dyc, idxc, spec, want in cases:
         res, plain, tol = _dw_case(tag, xc, dyc, idxc, spec, want)
+        # the library call in the call's type, on a pre-gathered dy_sel
+        n = dyc.shape[-1]
+        dy_sel = ref.gather_dy_blocks(dyc.reshape(-1, n), idxc,
+                                      spec.block).reshape(
+            dyc.shape[:-1] + (-1,)).contiguous()
+        lib = device_ms(lambda: torch.matmul(xc.transpose(-1, -2), dy_sel))
         print(f"[kernel] dW {tag}: picked {want}; "
               + "; ".join(f"{inst} kernel_ms={ms:.4f} max_abs_err="
                           f"{err:.3e}" for inst, (ms, err, _) in res.items())
-              + f" tol={tol:.3e}", flush=True)
+              + f" tol={tol:.3e} plain_ms={plain:.4f} library_ms={lib:.4f}",
+              flush=True)
+        del dy_sel
     del x, dy, xs, xb, dyb, cases
 
 
@@ -962,86 +975,148 @@ def _wave_leaves() -> dict:
             _dense_leaves("llama3-8b", SERVE_RATIO, 8).items()}
 
 
+def _scatter_bytes(w, upd, idx, spec) -> tuple[int, int]:
+    """(in place, out of place) bytes the function must move on these
+    inputs: upd's values for the selected blocks and idx read; in place the
+    selected elements of w written, out of place the rest of w read and
+    all of out written."""
+    k, n = w.shape[0], w.shape[-1]
+    r = w[0].numel() // n
+    sel = int(_selected_mask(w.view(k, r, n), idx, spec).sum())
+    es = w.element_size()
+    read = sel * upd.element_size() + idx.numel() * 4
+    return read + sel * es, read + (w.numel() - sel) * es + w.numel() * es
+
+
 def _scatter_case(tag, w, upd, idx, spec, flush, timed=False):
-    """The kernel against its plain version on one input: bitwise equal,
-    every unselected element's bits unchanged. Returns (ms, plain_ms,
-    library_ms, bytes) when `timed`."""
+    """Both modes of the kernel against its plain version on one input,
+    bitwise: in place, every unselected element keeps its bits; out of
+    place, every element of `out` is the plain version's and w keeps its
+    bits. Returns {mode: (ms, library_ms)}, "plain", "before" (the out-of-
+    place function as clone + the in-place kernel) and the bytes of both
+    modes when `timed`."""
     from repro_torch.kernels import ops, ref
     k, n = w.shape[0], w.shape[-1]
     r = w[0].numel() // n
     w3, u5 = w.view(k, r, n), upd.view(k, r, spec.n_shards, spec.n_sel,
                                        spec.block)
+    ib = torch.int16 if w.dtype == torch.bfloat16 else torch.int32
+    bits = lambda t: t.view(k, r, n).view(ib)
     want = ref.block_scatter_update_ref(w3, u5, idx, spec.block)
     got = w.clone()
     ops.block_scatter_update(got, upd, idx, spec)
+    before = w.clone()
+    out = torch.full_like(w, 7.0)
+    check(ops.block_scatter_update(w, upd, idx, spec, out=out) is out,
+          f"block_scatter_update {tag}: out of place returned another tensor")
     torch.cuda.synchronize()
-    ib = torch.int16 if w.dtype == torch.bfloat16 else torch.int32
-    check(torch.equal(got.view(k, r, n).view(ib), want.view(ib)),
-          f"block_scatter_update {tag}: not bitwise equal to the plain "
-          f"version")
+    for mode, t in (("in place", got), ("out of place", out)):
+        check(torch.equal(bits(t), bits(want)),
+              f"block_scatter_update {tag} {mode}: not bitwise equal to the "
+              f"plain version")
     mask = _selected_mask(w3, idx, spec)
-    check(torch.equal(got.view(k, r, n).view(ib)[~mask], w3.view(ib)[~mask]),
-          f"block_scatter_update {tag}: an unselected element changed")
+    check(torch.equal(bits(got)[~mask], bits(w)[~mask]),
+          f"block_scatter_update {tag} in place: an unselected element "
+          f"changed")
+    check(torch.equal(bits(w), bits(before)),
+          f"block_scatter_update {tag} out of place: w changed")
     line = (f"[kernel] block_scatter_update {tag} w={tuple(w.shape)} "
             f"{_dname(w.dtype)} upd={_dname(upd.dtype)} n_sel={spec.n_sel} "
-            f"block={spec.block} bitwise=True unselected_unchanged=True")
+            f"block={spec.block} in place and out of place bitwise=True "
+            f"unselected_unchanged=True w_unchanged=True")
     if not timed:
         print(line, flush=True)
         return None
-    ms = cuda_ms_flushed(lambda: ops.block_scatter_update(got, upd, idx,
-                                                          spec), flush)
+    t_in = cuda_ms_flushed(lambda: ops.block_scatter_update(got, upd, idx,
+                                                            spec), flush)
+    t_out = cuda_ms_flushed(lambda: ops.block_scatter_update(
+        w, upd, idx, spec, out=out), flush)
+    t_before = cuda_ms_flushed(lambda: ops.block_scatter_update(
+        w.clone(), upd, idx, spec), flush)
     plain = cuda_ms_flushed(lambda: ref.block_scatter_update_ref(
         w3, u5, idx, spec.block), flush)
-    # the library call: one Tensor.scatter_ on the blocked view, the upd
-    # already cast to w's type and its index already built
+    # the library calls: one Tensor.scatter_ (in place) or Tensor.scatter
+    # (out of place) on the blocked view, the upd already cast to w's type
+    # and its index already built
     blocked = got.view(k, r, spec.n_shards * spec.n_blocks, spec.block)
+    w_blocked = w.view(blocked.shape)
     u_cast = u5.to(w.dtype).reshape(k, r, -1, spec.block)
     offs = (torch.arange(spec.n_shards, device=idx.device)
             * spec.n_blocks)[None, :, None]
     index = (idx.long() + offs).reshape(k, 1, -1, 1).expand(
         k, r, spec.n_shards * spec.n_sel, spec.block).contiguous()
-    lib = cuda_ms_flushed(lambda: blocked.scatter_(2, index, u_cast), flush)
-    # upd read once, the selected elements of w written once, idx read
-    nbytes = upd.numel() * (upd.element_size() + w.element_size()) \
-        + idx.numel() * 4
-    b_ms, _ = bound_ms(0.0, nbytes, "float32")
-    print(f"{line} kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-          f"library_ms={lib:.4f} bound_ms={b_ms:.4f} (bytes)", flush=True)
-    return ms, plain, lib, nbytes
+    lib_in = cuda_ms_flushed(lambda: blocked.scatter_(2, index, u_cast),
+                             flush)
+    lib_out = cuda_ms_flushed(lambda: w_blocked.scatter(2, index, u_cast),
+                              flush)
+    b_in, b_out = _scatter_bytes(w, upd, idx, spec)
+    print(f"{line} in_place_ms={t_in:.4f} library_ms={lib_in:.4f} "
+          f"bound_ms={b_in / PEAK_BYTES * 1e3:.4f}; out_of_place_ms="
+          f"{t_out:.4f} library_ms={lib_out:.4f} bound_ms="
+          f"{b_out / PEAK_BYTES * 1e3:.4f} clone_plus_in_place_ms="
+          f"{t_before:.4f}; plain_ms={plain:.4f} (bytes)", flush=True)
+    return {"in place": (t_in, lib_in), "out of place": (t_out, lib_out),
+            "plain": plain, "before": t_before, "bytes": (b_in, b_out)}
 
 
 def check_scatter(gen, sums: dict):
-    """The block scatter-update at the 7 wave leaf shapes of full-width
-    llama3-8b (w [2, d_in, N] bf16, upd fp32, block 8, r = 0.25), timed into
-    the sums; then an fp32 case, a lead-dim case [K, E, d, N] and an
-    unaligned case (block 5) that takes the scalar loop."""
+    """The block scatter-update, both modes, at the 7 wave leaf shapes of
+    full-width llama3-8b (w [2, d_in, N] bf16, upd fp32, block 8, r =
+    0.25), timed; the out-of-place mode (the one the wave runs) goes into
+    the sums. Then, untimed: an fp32 case, a lead-dim case [K, E, d, N], an
+    unaligned case (block 5) that takes one element a thread, and a case
+    whose idx names blocks twice (the highest j wins)."""
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    tot = {"in place": 0.0, "lib in place": 0.0, "bytes in place": 0.0,
+           "before": 0.0}
     for leaf, (fan_in, out, spec) in _wave_leaves().items():
         w = (torch.randn(K_LAYERS, fan_in, out, generator=gen, device="cuda")
              * 0.02).to(torch.bfloat16)
         upd = torch.randn(K_LAYERS, fan_in, spec.n_shards, spec.n_sel,
                           spec.block, generator=gen, device="cuda") * 0.02
         idx = _rand_idx((K_LAYERS, spec.n_shards), spec, gen)
-        ms, plain, lib, nbytes = _scatter_case(leaf, w, upd, idx, spec,
-                                               flush, timed=True)
-        for key, val in (("ms", ms), ("plain_ms", plain),
-                         ("library_ms", lib), ("bytes", nbytes)):
-            sums[key] += val
-        del w, upd, idx
+        got = _scatter_case(leaf, w, upd, idx, spec, flush, timed=True)
+        sums["ms"] += got["out of place"][0]
+        sums["library_ms"] += got["out of place"][1]
+        sums["plain_ms"] += got["plain"]
+        sums["bytes"] += got["bytes"][1]
+        tot["in place"] += got["in place"][0]
+        tot["lib in place"] += got["in place"][1]
+        tot["bytes in place"] += got["bytes"][0]
+        tot["before"] += got["before"]
+        del w, upd, idx, got
+    print(f"[kernel] block_scatter_update, the wave's 7 leaves: in place "
+          f"{tot['in place']:.4f} ms (bound "
+          f"{tot['bytes in place'] / PEAK_BYTES * 1e3:.4f}, Tensor.scatter_ "
+          f"{tot['lib in place']:.4f}); out of place {sums['ms']:.4f} ms "
+          f"(bound {sums['bytes'] / PEAK_BYTES * 1e3:.4f}, Tensor.scatter "
+          f"{sums['library_ms']:.4f}, clone + in-place kernel "
+          f"{tot['before']:.4f}); plain {sums['plain_ms']:.4f}", flush=True)
     from repro_torch.core.sparse_update import SelSpec
     cases = [("fp32 wk", (K_LAYERS, 4096, 1024), (1, 32, 8, 128),
               torch.float32),
              ("lead dims [K,E,d,N]", (K_LAYERS, 8, 512, 1408),
               (1, 44, 8, 176), torch.bfloat16),
              ("unaligned block 5", (K_LAYERS, 333, 2 * 7 * 5),
-              (2, 3, 5, 7), torch.bfloat16)]
+              (2, 3, 5, 7), torch.bfloat16),
+             ("duplicate indices", (K_LAYERS, 4096, 1024), (2, 48, 8, 64),
+              torch.bfloat16)]
     for tag, shape, (n_shards, n_sel, block, n_blocks), dtype in cases:
         spec = SelSpec(block=block, n_shards=n_shards, n_sel=n_sel,
                        n_blocks=n_blocks)
         w = torch.randn(shape, generator=gen, device="cuda").to(dtype)
         upd = torch.randn(shape[:-1] + (n_shards, n_sel, block),
                           generator=gen, device="cuda")
-        idx = _rand_idx((K_LAYERS, n_shards), spec, gen)
+        if tag == "duplicate indices":     # 48 draws of 64 blocks
+            idx = torch.randint(0, n_blocks, (K_LAYERS, n_shards, n_sel),
+                                generator=gen, device="cuda",
+                                dtype=torch.int32)
+            idx[0, 0, -3:] = idx[0, 0, 0]
+            check(any(len(set(row.tolist())) < n_sel
+                      for row in idx.view(-1, n_sel)),
+                  "the duplicate-index case has no duplicate")
+        else:
+            idx = _rand_idx((K_LAYERS, n_shards), spec, gen)
         _scatter_case(tag, w, upd, idx, spec, flush)
     del flush
 
@@ -2054,6 +2129,56 @@ def _bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exp - 8)
 
 
+def profile_wave_scatter(wave):
+    """One bf16 online wave under torch.profiler: its scatter kernels'
+    device time and launches. Then the wave's 7 scatter calls, recorded
+    as it made them, replayed the way the wave computed them before the
+    out-of-place mode (a copy of the leaf, then the in-place kernel) and
+    as it computes them now (one out-of-place launch), device time each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import ops
+
+    calls = []
+    launch = ops.block_scatter_update
+
+    def record(w, vals, idx, spec, out=None):
+        calls.append((w, vals, idx, spec))
+        return launch(w, vals, idx, spec, out=out)
+
+    ops.block_scatter_update = record
+    before = ops.launch_counts()["block_scatter_update"]
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wave()
+            torch.cuda.synchronize()
+    finally:
+        ops.block_scatter_update = launch
+    launches = ops.launch_counts()["block_scatter_update"] - before
+    check(len(calls) == 7 and launches == 7,
+          f"the profiled wave made {len(calls)} scatter calls and "
+          f"{launches} scatter launches, want 7")
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(_dev_us(e) for e in rows) / 1e3
+    scatter = [e for e in rows if "scatter_columns_kernel" in e.key]
+    ms = sum(_dev_us(e) for e in scatter) / 1e3
+    seen = sum(e.count for e in scatter)
+    outs = [torch.empty_like(w) for w, _, _, _ in calls]
+    old = device_ms(lambda: [launch(w.clone(), v, i, s)
+                             for w, v, i, s in calls], reps=5)
+    now = device_ms(lambda: [launch(w, v, i, s, out=o)
+                             for (w, v, i, s), o in zip(calls, outs)],
+                    reps=5)
+    print(f"[serve wave] one bf16 wave under torch.profiler: device busy "
+          f"{busy:.3f} ms; the profiler recorded {seen} of its 7 scatter "
+          f"launches, {ms:.4f} ms; the same 7 calls replayed (L2 warm, "
+          f"device time): before, clone + in-place kernel {old:.4f} ms; "
+          f"now, one out-of-place launch each {now:.4f} ms", flush=True)
+    del calls, outs
+
+
 def phase_wave_bf16(cfg, eng):
     """The bf16 online wave against the f32 wave on the same bf16 inputs:
     run B's engine, user 0's selection, a zero delta, 16 tokens; the f32
@@ -2088,6 +2213,8 @@ def phase_wave_bf16(cfg, eng):
     batch = {"tokens": eng._tensor(toks[:, :-1]),
              "labels": eng._tensor(toks[:, 1:])}
     new_b, m_b = eng._wave(eng._trainable, eng._frozen, zeros, idx, batch)
+    profile_wave_scatter(lambda: eng._wave(eng._trainable, eng._frozen, zeros,
+                                           idx, batch))
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     wave32 = make_online_wave(cfg32, p13n.sparse, p13n.optimizer, plan,
                               wave_tokens=p13n.train_tokens)
@@ -2227,10 +2354,12 @@ def kernels_line(results: dict) -> dict:
     full-width CNN forward at batch 32, block_act_prune_bwd over the 5 that
     one dynamic-method step differentiates; batched_dw over the 3 expert
     leaf shapes of one trainable MoE layer; wkv6 / wkv6_bwd one call at the
-    rwkv path's shapes (batch 4 x 1024 x 40 heads x 64). Launches: the LM
-    path's run (6 steps), the MoE path's run (6 steps; batched_dw), the
-    rwkv path's run (6 steps; wkv6, wkv6_bwd) and the CNN path's run (12
-    steps of `dynamic`)."""
+    rwkv path's shapes (batch 4 x 1024 x 40 heads x 64);
+    block_scatter_update its out-of-place mode (the one the serving wave
+    runs) over the wave's 7 leaves. Launches: the LM path's run (6 steps),
+    the MoE path's run (6 steps; batched_dw), the rwkv path's run (6 steps;
+    wkv6, wkv6_bwd), the CNN path's run (12 steps of `dynamic`) and
+    serving run B (8 waves; block_scatter_update)."""
     dtypes = {"block_sparse_dw": "bfloat16", "batched_dw": "bfloat16"}
     rows = []
     for name, (route, source, replaces, _) in SOURCES.items():

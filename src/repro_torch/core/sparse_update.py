@@ -234,11 +234,12 @@ def gather_param_blocks(w, idx, spec: SelSpec):
 def scatter_param_blocks(w, vals, idx, spec: SelSpec):
     """Inverse of gather_param_blocks, out of place: a copy of `w` with its
     selected blocks overwritten by `vals` (cast to w's dtype; unselected
-    blocks untouched, `w` itself never written). The overwrite is one
-    `block_scatter_update` launch on the card (the kernel writes in place,
-    so it writes into the copy), its plain version on the CPU."""
-    return kops.block_scatter_update(w.contiguous().clone(),
-                                     vals.contiguous(), idx, spec)
+    blocks untouched, `w` itself never written). The copy and the overwrite
+    are one out-of-place `block_scatter_update` launch on the card, its
+    plain version on the CPU."""
+    w = w.contiguous()
+    return kops.block_scatter_update(w, vals.contiguous(), idx, spec,
+                                     out=torch.empty_like(w))
 
 
 def map_selectable(tree, spec_tree, fn):

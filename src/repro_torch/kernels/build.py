@@ -76,7 +76,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                  i32, f32, f32, f32, f32, f32, f32, f32, p])]
     elif name == "block_scatter_update":
         fns = [(lib.block_scatter_update_launch,
-                [p, p, p, i64, i64, i64, i32, i32, i32, i32, i32, p])]
+                [p, p, p, p, i64, i64, i64, i32, i32, i32, i32, i32, p])]
     elif name == "wkv6":
         fns = [(lib.wkv6_fwd_launch, [p] * 6 + [i32] * 4 + [p]),
                (lib.wkv6_bwd_launch, [p] * 12 + [i32] * 4 + [p])]

@@ -299,33 +299,53 @@ def _check_scatter(w, vals, idx, spec):
              f"{name}: w, vals and idx must be on one device")
 
 
-def block_scatter_update(w, vals, idx, spec):
-    """Overwrite the selected column blocks of a stacked leaf with `vals`,
-    in place, in one launch over (K, rows, shards, selected blocks):
+def _check_scatter_out(w, out):
+    name = "block_scatter_update"
+    _require(out.shape == w.shape and out.dtype == w.dtype
+             and out.device == w.device,
+             f"{name}: out must have w's shape, type and device: "
+             f"{tuple(w.shape)} {w.dtype} {w.device}; got {tuple(out.shape)} "
+             f"{out.dtype} {out.device}")
+    _require(out.is_contiguous(), f"{name}: out must be contiguous")
+    nbytes = w.numel() * w.element_size()
+    a, b = w.data_ptr(), out.data_ptr()
+    _require(a == b or a + nbytes <= b or b + nbytes <= a,
+             f"{name}: out overlaps w without being w")
+
+
+def block_scatter_update(w, vals, idx, spec, out=None):
+    """The selected column blocks of a stacked leaf overwritten with
+    `vals`, in one launch over (K, rows, shards, selected blocks):
 
     w:    [K, *lead, N]                     (N = n_shards * n_blocks * block)
     vals: [K, *lead, n_shards, n_sel, block]  float32 or w's type, cast to
           w's type on the store
-    idx:  [K, n_shards, n_sel] int32
+    idx:  [K, n_shards, n_sel] int32; a block named twice in one shard takes
+          the values of its highest j
 
-    Lead dims (an expert axis) flatten into the kernel's rows. Unselected
-    blocks are never touched. Returns w."""
+    out=None (or w itself): in place, unselected blocks never touched;
+    returns w. Else `out` (w's shape, type and device, contiguous, not
+    overlapping w) receives the whole result and w is only read; returns
+    out. Lead dims (an expert axis) flatten into the kernel's rows."""
     _check_scatter(w, vals, idx, spec)
+    if out is None:
+        out = w
+    _check_scatter_out(w, out)
     k, n = w.shape[0], w.shape[-1]
     r = w[0].numel() // n if k else 0
-    w3 = w.view(k, r, n)
+    w3, o3 = w.view(k, r, n), out.view(k, r, n)
     v5 = vals.view(k, r, spec.n_shards, spec.n_sel, spec.block)
     if not w.is_cuda:
-        w3.copy_(ref.block_scatter_update_ref(w3, v5, idx, spec.block))
-        return w
+        o3.copy_(ref.block_scatter_update_ref(w3, v5, idx, spec.block))
+        return out
     from repro_torch.kernels.build import load
     rc = load("block_scatter_update").block_scatter_update_launch(
-        w3.data_ptr(), v5.data_ptr(), idx.data_ptr(), k, r, n,
-        spec.n_shards, spec.n_sel, spec.block, _DTYPE_CODE[w.dtype],
+        o3.data_ptr(), w3.data_ptr(), v5.data_ptr(), idx.data_ptr(), k, r,
+        n, spec.n_shards, spec.n_sel, spec.block, _DTYPE_CODE[w.dtype],
         _DTYPE_CODE[vals.dtype], _stream(w))
     _raise_on(rc, "block_scatter_update")
     LAUNCHES["block_scatter_update"] += 1
-    return w
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -52,10 +52,19 @@ def gather_blocks3(a, idx, block: int):
 
 def scatter_blocks3(a, vals, idx, block: int):
     """Inverse of gather_blocks3, out of place: `a` with its selected blocks
-    overwritten by `vals` (cast to a's dtype), everything else untouched."""
+    overwritten by `vals` (cast to a's dtype), everything else untouched.
+    Where idx[k, s] names a block twice, the highest j wins, as the TPU
+    kernel's sequential j axis gives: every duplicate carries the winner's
+    values, so the order in which `Tensor.scatter` writes them does not
+    matter."""
     k, r, n = a.shape
     n_shards, n_sel = idx.shape[1], idx.shape[2]
     ab = a.reshape(k, r, n_shards, n // (n_shards * block), block)
+    same = idx[..., :, None] == idx[..., None, :]        # [K, S, j, j']
+    j = torch.arange(n_sel, device=idx.device)
+    winner = torch.where(same, j, -1).amax(-1) if n_sel else idx.long()
+    vals = torch.gather(vals, 3, winner[:, None, :, :, None].expand(
+        vals.shape))
     index = idx.long()[:, None, :, :, None].expand(k, r, n_shards, n_sel,
                                                    block)
     return ab.scatter(3, index, vals.to(a.dtype)).reshape(k, r, n)
@@ -64,8 +73,9 @@ def scatter_blocks3(a, vals, idx, block: int):
 def block_scatter_update_ref(w, upd, idx, block: int):
     """The block scatter-update kernel's plain version: w [K,R,N], upd
     [K,R,n_shards,n_sel,block], idx [K,n_shards,n_sel] -> w with the
-    selected blocks overwritten by upd cast to w's type (out of place; the
-    kernel writes in place)."""
+    selected blocks overwritten by upd cast to w's type, the highest j
+    winning a duplicate (out of place: a new tensor, whichever mode the
+    kernel runs in)."""
     return scatter_blocks3(w, upd, idx, block)
 
 
