@@ -12,8 +12,10 @@ Phases (any failure exits non-zero and prints no result):
    (M = 4096 tokens, full llama3-8b widths; every activation shape of the
    full-width MobileNetV2 at batch 32), with their times, bounds and the
    library call's time; the dW on both instances at every bf16 leaf of
-   one trainable llama3-8b, deepseek-moe-16b and rwkv6-3b layer, at
-   M = 32768, capacity 17 and 8192, two shards with the last block
+   one trainable llama3-8b, deepseek-moe-16b, rwkv6-3b and gemma3-4b
+   layer and of one layer of the jamba cut (M = 2048; its experts E = 4,
+   capacity 1281), at M = 32768, capacity 17 and 8192, two shards with
+   the last block
    selected, with exact layout probes (one-hot x, ramp dy) for both tile
    widths, two calls bitwise equal, and the calls that take the grid
    instance (fp32, block 8, block 96, misaligned, ragged K or N, capacity
@@ -23,7 +25,9 @@ Phases (any failure exits non-zero and prints no result):
 4. the LM path: the compact sparse-update train step on full-width
    llama3-8b (32 layers, bf16), batch 4 x seq 1024, AdamW, 6 steps across
    the fixed / dynamic / fixed phases, through `repro_torch.launch.train`;
-   the kernels' launch counts are zeroed just before and read just after;
+   the kernels' launch counts are zeroed just before and read just after:
+   exactly K x 7 block_sparse_dw and 7 fused_block_opt a step, the
+   unselected blocks of mlp/w_gate unchanged every step;
 5. one more LM step under torch.profiler: device time by op and the
    device's idle share;
 6. compact against dense-scatter on the card: SGD, 2 fixed-phase steps,
@@ -45,9 +49,10 @@ Phases (any failure exits non-zero and prints no result):
    4 x seq 1024, AdamW, 6 steps across the fixed / dynamic / fixed phases,
    through `repro_torch.launch.train`, counts zeroed just before and read
    just after: exactly K x 7 block_sparse_dw, K x 3 batched_dw and 10
-   fused_block_opt launches a step; the expert leaves' unselected blocks
-   bitwise their init through the first fixed phase; the share of routed
-   choices the capacity dropped;
+   fused_block_opt launches a step (as the plan derives them); the
+   unselected blocks of attn/wo unchanged every step; the expert leaves'
+   unselected blocks bitwise their init through the first fixed phase;
+   the share of routed choices the capacity dropped;
 11. one more MoE step under torch.profiler, then the frozen params (the
    dense first layer and the 25 frozen MoE layers) bitwise against a fresh
    init from the same seed;
@@ -64,6 +69,32 @@ Phases (any failure exits non-zero and prints no result):
    bitwise against a fresh init from the same seed;
 12c. rwkv compact against dense-scatter: SGD, 2 fixed-phase steps at full
    width cut to 4 layers, trainable params bitwise equal;
+12d. the gemma path: the compact train step on full-width gemma3-4b (34
+   layers, no depth cut: 5 super-blocks of 5 local + 1 global layers and
+   a tail of 4 local ones; bf16, tied embeddings, vocab 262144, head_dim
+   320, window 1024), batch 2 x seq 2048, K = 5 scan steps (the tail and
+   the last super-block), AdamW, 6 steps through
+   `repro_torch.launch.train`, counts zeroed just before and read just
+   after: exactly the launches its plan derives (60 block_sparse_dw and
+   42 fused_block_opt) every step, no grid dW, the unselected blocks of
+   the global layer's wo unchanged every step; one profiled step; the
+   frozen params bitwise against a fresh init; compact against
+   dense-scatter (SGD, 2 steps) bitwise at full width cut to 10 layers;
+12e. the jamba path: jamba-1.5-large-398b at published widths (d_model
+   8192, d_ff 24576, vocab 65536, d_inner 16384, d_state 16) CUT to one
+   super-block (72 -> 8 layers: 7 mamba, attention at index 4, MoE on the
+   odd FFNs) and 16 -> 4 experts, passed to the launcher as `model=`;
+   K = 1, SGD lr 0.1, batch 2 x seq 1024, 6 steps: exactly the launches
+   its plan derives (30 block_sparse_dw, 12 batched_dw, 42
+   fused_block_opt) every step, the unselected blocks of a mamba
+   out_proj unchanged every step; the share of routed choices dropped;
+   one profiled step and the mamba scan's share of its device time
+   (beside the scan's chunks as step-by-step loops); the frozen params
+   and every expert leaf's unselected blocks through the first fixed
+   phase bitwise against a fresh init; compact against dense-scatter
+   (SGD, 2 steps) bitwise, cut further to a super-block of 4 layers and
+   2 experts (the dense-scatter path's full-shape gradients and updated
+   copy of every trainable leaf do not fit beside the 8-layer one);
 13. the serving path: full-width llama3-8b (32 layers, bf16) through
    `repro_torch.launch.serve`'s `build_engine`, 4 slots, pages of 16, 8
    requests of 128 + 32 tokens, greedy, twice on one copy of the weights,
@@ -76,9 +107,12 @@ Phases (any failure exits non-zero and prints no result):
    request, the largest logit difference between the paged and the
    contiguous path;
 14. one decode step of run B under torch.profiler, beside its byte bound;
-   then one bf16 online wave under torch.profiler (its 7 scatter launches'
-   device time, and its 7 scatter calls replayed as a copy + the in-place
-   kernel and as one out-of-place launch), and the bf16 online wave against
+   then bf16 online waves under torch.profiler (a profiler window drops
+   the first kernels launched in it: the wave's scatter launches in a
+   first window, per call, and all 14 of two waves after a discarded
+   warm-up wave, as required; its 7 scatter calls replayed as a copy +
+   the in-place kernel and as one out-of-place launch), and the bf16
+   online wave against
    the f32 wave on the same bf16 inputs, within a bound derived from bf16
    rounding;
 15. oracle parity at full widths cut to 4 layers, f32: the engine's greedy
@@ -131,12 +165,31 @@ MAIN_ARGV = ["--arch", "llama3-8b", "--steps", "6", "--batch", "4",
 MOE_ARGV = ["--arch", "deepseek-moe-16b"] + MAIN_ARGV[2:]
 RWKV_ARGV = ["--arch", "rwkv6-3b"] + MAIN_ARGV[2:]
 MOE_J = 2                  # the first fixed phase of the MoE run
-# launches a step of the MoE path: 4 attention and 3 shared-expert dW per
-# trainable layer, 3 expert dW per layer, one optimizer launch per
-# selectable stacked leaf (the router takes the plain optimizer)
-MOE_PER_STEP = {"block_sparse_dw": K_LAYERS * 7, "batched_dw": K_LAYERS * 3,
-                "fused_block_opt": 10}
 C_LONG = 8192              # the batched dW at a long capacity
+# the gemma path: full-width gemma3-4b (34 layers), batch 2 x seq 2048 (the
+# 1024-token window restricts the local layers), K = 5 scan steps (the
+# 4-layer tail and the last super-block, which holds a global layer)
+GEMMA_K = 5
+GEMMA_TOKENS = 2 * 2048
+GEMMA_ARGV = ["--arch", "gemma3-4b", "--steps", "6", "--batch", "2",
+              "--seq", "2048", "--compact-grads",
+              "--update-layers", str(GEMMA_K), "--update-ratio", "0.2",
+              "--channel-block", "128", "--optimizer", "adamw",
+              "--phase-j", "2", "--phase-k", "2", "--log-every", "1",
+              "--seed", "0"]
+# the jamba path: jamba-1.5-large-398b at published widths, cut to one
+# super-block (72 -> 8 layers) and 16 -> 4 experts (jamba_cut), one
+# super-block trainable, SGD (the paper's optimizer, lr 0.1), batch 2 x
+# seq 1024
+JAMBA_LAYERS, JAMBA_EXPERTS = 8, 4
+JAMBA_TOKENS = 2 * 1024
+JAMBA_J = 2                # the first fixed phase of the jamba run
+JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--steps", "6", "--batch",
+              "2", "--seq", "1024", "--compact-grads", "--update-layers",
+              "1", "--update-ratio", "0.2", "--channel-block", "128",
+              "--optimizer", "sgd", "--lr", "0.1", "--phase-j",
+              str(JAMBA_J), "--phase-k", "2", "--log-every", "1",
+              "--seed", "0"]
 SERVE_RATIO = 0.25         # the serving launcher's per-user update ratio
 # name -> (route, source, the TPU kernel it replaces, the path that launches
 # it). block_sparse_dw also replaces block_sparse_dw_pipelined_kernel
@@ -218,28 +271,51 @@ def _dev_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fn, reps: int = 20, warmup: int = 2, flush=None) -> float:
+def _rows(prof) -> list:
+    """The profile's kernel rows (a CPU op's row repeats its kernels'
+    device time)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 2, flush=None,
+              kernel=None) -> float:
     """The card's time per call: the device time of every kernel `fn`
     launches, from torch.profiler over `reps` calls. Where the host takes
     longer to submit a call than the card takes to run it (a small
     element-wise kernel), CUDA events around back-to-back calls time the
     host; this times the card. flush: a tensor larger than the 50 MB L2,
     zeroed before every call (its fill kernel is not counted), so that the
-    call reads its inputs from device memory, as the byte bound assumes."""
-    from torch.autograd import DeviceType
+    call reads its inputs from device memory, as the byte bound assumes.
+    kernel: (name, launches per call) of a port kernel `fn` launches; the
+    window must hold all reps x launches of it, else it is profiled again
+    (at most 3 times): a profiler window on the card can lose kernels
+    (PERF.md §6), and one that did would time fewer calls than reps."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if flush is not None:
-                flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_dev_us(e) for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and not (flush is not None and "FillFunctor" in e.key))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        rows = _rows(prof)
+        if kernel is None:
+            break
+        name, per_call = kernel
+        seen = sum(e.count for e in rows if name in e.key)
+        if seen == reps * per_call:
+            break
+        print(f"[profile] the window recorded {seen} of {reps * per_call} "
+              f"{name} launches: profiled again", flush=True)
+    else:
+        raise SmokeError(f"three profiler windows lost {name} launches")
+    us = sum(_dev_us(e) for e in rows
+             if not (flush is not None and "FillFunctor" in e.key))
     return us / reps / 1e3
 
 
@@ -278,14 +354,18 @@ def _selected_mask(leaf, idx, spec):
         leaf.shape).bool()
 
 
-def _dense_leaves(arch: str, ratio: float = 0.2, block: int = 128) -> dict:
+def _dense_leaves(arch: str, ratio: float = 0.2, block: int = 128,
+                  model=None, seg: str = "blocks") -> dict:
     """{group/leaf: (fan_in, out, SelSpec)} of the dense (not per-expert)
-    selectable leaves of one trainable layer of `arch`, as its plan gives
-    them with the paths' flags (update ratio, channel block)."""
+    selectable leaves of one trainable step of segment `seg` of `arch` (or
+    of `model`, a cut of it), as its plan gives them with the paths' flags
+    (update ratio, channel block). A super-block's `sub{i}` levels are
+    dropped: each leaf shape is listed once."""
+    import re
     from repro_torch.configs import SparseUpdateConfig, get_config
     from repro_torch.core.selection import build_plan
     from repro_torch.models.registry import abstract_params
-    cfg = get_config(arch)
+    cfg = model or get_config(arch)
     plan = build_plan(cfg, SparseUpdateConfig(update_ratio=ratio,
                                               num_update_layers=K_LAYERS,
                                               channel_block=block))
@@ -294,13 +374,29 @@ def _dense_leaves(arch: str, ratio: float = 0.2, block: int = 128) -> dict:
     def walk(spec, shapes, path):
         if isinstance(spec, dict):
             for name in spec:
-                walk(spec[name], shapes[name], f"{path}/{name}"
-                     if path else name)
+                sub = path if re.fullmatch(r"sub\d+", name) else (
+                    f"{path}/{name}" if path else name)
+                walk(spec[name], shapes[name], sub)
         elif len(shapes.shape) == 3:      # [L, fan_in, out]; experts are 4-D
-            found[path] = tuple(shapes.shape[1:]) + (spec,)
+            found.setdefault(path, tuple(shapes.shape[1:]) + (spec,))
 
-    walk(plan.spec["blocks"], abstract_params(cfg)["segments"]["blocks"], "")
+    walk(plan.spec[seg], abstract_params(cfg)["segments"][seg], "")
     return found
+
+
+def jamba_cut(experts: int = JAMBA_EXPERTS, period: int = JAMBA_LAYERS):
+    """jamba-1.5-large-398b at published widths cut to one super-block and
+    `experts` routed experts (16 in the config): the 16-expert super-block
+    alone holds ~45 B params, ~90 GB in bf16. period: the super-block's
+    layers (8 in the config; attention at period // 2, MoE at the odd
+    indices); fewer only for the compact-against-dense-scatter check, whose
+    full-shape gradients and updated copy of every trainable leaf do not
+    fit beside an 8-layer super-block."""
+    from repro_torch.configs import get_config
+    cfg = get_config("jamba-1.5-large-398b")
+    return dataclasses.replace(
+        cfg, num_layers=period, attn_every=period,
+        moe=dataclasses.replace(cfg.moe, num_experts=experts))
 
 
 def _main_path_leaves() -> dict:
@@ -390,7 +486,7 @@ def _dw_case(tag, x, dy, idx, spec, want_inst: str, reps: int = 20):
                   f"dW {inst} {tag}: two calls differ")
         call = functools.partial(fn, x, dy, idx, spec,
                                  pipelined=inst == "pipelined")
-        res[inst] = (device_ms(call, reps=reps), err,
+        res[inst] = (device_ms(call, reps=reps, kernel=("dw_", 1)), err,
                      cuda_ms(call, reps=reps))
         del got
     if picked == "grid":
@@ -420,35 +516,43 @@ def _dw_bound(m, fan_in, spec, experts: int, dtype):
 def check_dw(leaves: dict, gen, sums: dict):
     """The dense dW at every leaf shape of one trainable layer of the LM
     (llama3-8b, bf16 and fp32), MoE (deepseek-moe-16b: 4 attention and 3
-    shared-expert leaves) and rwkv (rwkv6-3b: 8 leaves) paths, M = 4096:
+    shared-expert leaves), rwkv (rwkv6-3b: 8 leaves) and gemma (gemma3-4b:
+    wq, wk, wv, wo, w_up, w_down) paths at M = 4096, and of the jamba cut
+    (mamba in_proj / out_proj, 4 attention and 3 dense FFN leaves) at its
+    M = 2048:
     bf16 takes the pipelined (TMA + wgmma) instance, fp32 the grid one
     (exact products), each held against the plain version. The LM's bf16
     times go into the sums; each path's sums are printed."""
     from repro_torch.kernels import ref
-    paths = (("lm", leaves, (torch.bfloat16, torch.float32)),
-             ("moe", _dense_leaves("deepseek-moe-16b"), (torch.bfloat16,)),
-             ("rwkv", _dense_leaves("rwkv6-3b"), (torch.bfloat16,)))
-    for path, path_leaves, dtypes in paths:
+    bf16 = (torch.bfloat16,)
+    paths = (("lm", leaves, (torch.bfloat16, torch.float32), M_TOKENS),
+             ("moe", _dense_leaves("deepseek-moe-16b"), bf16, M_TOKENS),
+             ("rwkv", _dense_leaves("rwkv6-3b"), bf16, M_TOKENS),
+             ("gemma", _dense_leaves("gemma3-4b", seg="tail"), bf16,
+              GEMMA_TOKENS),
+             ("jamba", _dense_leaves("", model=jamba_cut()), bf16,
+              JAMBA_TOKENS))
+    for path, path_leaves, dtypes, m in paths:
         for dtype in dtypes:
             tot = {"ms": 0.0, "events_ms": 0.0, "library_ms": 0.0,
                    "bound_ms": 0.0}
             for leaf, (fan_in, out, spec) in path_leaves.items():
-                x = torch.randn(M_TOKENS, fan_in, generator=gen,
+                x = torch.randn(m, fan_in, generator=gen,
                                 device="cuda").to(dtype)
-                dy = torch.randn(M_TOKENS, out, generator=gen,
+                dy = torch.randn(m, out, generator=gen,
                                  device="cuda").to(dtype)
                 idx = _rand_idx((spec.n_shards,), spec, gen)
                 main = "pipelined" if dtype == torch.bfloat16 else "grid"
                 res, plain, tol = _dw_case(f"{path} {leaf} {_dname(dtype)}",
                                            x, dy, idx, spec, main)
                 dy_sel = ref.gather_dy_blocks(dy, idx, spec.block).reshape(
-                    M_TOKENS, -1).contiguous()
+                    m, -1).contiguous()
                 lib = device_ms(lambda: torch.matmul(x.t(), dy_sel))
-                flops, nbytes, b_ms, b_by = _dw_bound(M_TOKENS, fan_in, spec,
-                                                      1, dtype)
+                flops, nbytes, b_ms, b_by = _dw_bound(m, fan_in, spec, 1,
+                                                      dtype)
                 for inst, (ms, err, ev) in res.items():
                     print(f"[kernel] block_sparse_dw {inst} {path} {leaf} "
-                          f"{_dname(dtype)} M={M_TOKENS} K={fan_in} N={out} "
+                          f"{_dname(dtype)} M={m} K={fan_in} N={out} "
                           f"n_sel={spec.n_sel} block={spec.block} "
                           f"main_path={inst == main} kernel_ms={ms:.4f} "
                           f"events_ms={ev:.4f} "
@@ -795,7 +899,8 @@ def check_prune(gen, fwd: dict, bwd: dict):
                     "bwd": lambda: ops.block_act_prune_bwd(dy, y, thr, blk),
                     "bwd_plain": lambda: ref.block_act_prune_bwd_ref(
                         dy, y, thr, blk)}
-                t = {k: device_ms(fn, flush=flush)
+                t = {k: device_ms(fn, flush=flush, kernel=None if "plain"
+                                  in k else ("prune_kernel", 1))
                      for k, fn in calls.items()}
                 warm = {k: device_ms(fn) for k, fn in calls.items()}
                 events = {k: cuda_ms(fn) for k, fn in calls.items()}
@@ -840,25 +945,29 @@ def check_prune_paths(gen):
           "tails; misaligned): bitwise equal", flush=True)
 
 
-def _moe_leaves():
+def _moe_leaves(arch: str = "deepseek-moe-16b", model=None,
+                tokens: int = M_TOKENS, group=("moe",)):
     """(experts, capacity, {leaf: (fan_in, out, SelSpec)}) of the routed
-    experts of one trainable deepseek-moe-16b layer, as the MoE path's plan
-    and its batch of M_TOKENS tokens give them."""
+    experts of one trainable layer of `arch` (or `model`, a cut of it), as
+    the path's plan and its batch of `tokens` tokens give them; `group` is
+    the path to the layer's MoE params inside a stacked step."""
     from repro_torch.configs import SparseUpdateConfig, get_config
     from repro_torch.core.selection import build_plan
     from repro_torch.models import moe
     from repro_torch.models.registry import abstract_params
-    cfg = get_config("deepseek-moe-16b")
+    cfg = model or get_config(arch)
     plan = build_plan(cfg, SparseUpdateConfig(update_ratio=0.2,
                                               num_update_layers=K_LAYERS,
                                               channel_block=128))
-    shapes = abstract_params(cfg)["segments"]["blocks"]["moe"]
-    leaves = {name: tuple(shapes[name].shape[2:])
-              + (plan.spec["blocks"]["moe"][name],)
+    shapes = abstract_params(cfg)["segments"]["blocks"]
+    spec = plan.spec["blocks"]
+    for key in group:
+        shapes, spec = shapes[key], spec[key]
+    leaves = {name: tuple(shapes[name].shape[2:]) + (spec[name],)
               for name in ("w_gate", "w_up", "w_down")}
     mc = cfg.moe
     return (mc.num_experts,
-            moe._capacity(M_TOKENS, mc.top_k, mc.capacity_factor,
+            moe._capacity(tokens, mc.top_k, mc.capacity_factor,
                           mc.num_experts), leaves)
 
 
@@ -876,21 +985,28 @@ def _batched_case(e, c, fan_in, out, spec, dtype, gen, offset: int = 0):
 def check_batched_dw(gen, sums: dict):
     """The expert-batched dW at the three expert leaf shapes of the MoE path
     (E = 64, capacity 481, bf16: the pipelined instance, and the grid one
-    beside it), an fp32 case and one with its base pointers off alignment
+    beside it) and of the jamba cut (E = 4, capacity 1281 for 2048 tokens
+    top-2), an fp32 case and one with its base pointers off alignment
     (both take the grid instance and refuse the pipelined one), one at a
     long capacity, and the dense-scatter form's dW, exactly zero outside the
     selected blocks. The bf16 main-path times go into the sums."""
     from repro_torch.core.sparse_update import gather_param_blocks, smm
     from repro_torch.kernels import ops, ref
+    jamba = _moe_leaves(model=jamba_cut(), tokens=JAMBA_TOKENS,
+                        group=("sub1", "moe"))
     e, c, leaves = _moe_leaves()
-    cases = [(leaf, torch.bfloat16, 0, "pipelined") for leaf in leaves] + \
-        [("w_gate", torch.float32, 0, "grid"),
-         ("w_gate", torch.bfloat16, 1, "grid")]
-    for leaf, dtype, offset, main in cases:
+    cases = [("moe", leaf, torch.bfloat16, 0, "pipelined")
+             for leaf in leaves] + \
+        [("moe", "w_gate", torch.float32, 0, "grid"),
+         ("moe", "w_gate", torch.bfloat16, 1, "grid")] + \
+        [("jamba", leaf, torch.bfloat16, 0, "pipelined")
+         for leaf in jamba[2]]
+    for path, leaf, dtype, offset, main in cases:
+        e, c, leaves = jamba if path == "jamba" else _moe_leaves()
         fan_in, out, spec = leaves[leaf]
         x, dy, idx = _batched_case(e, c, fan_in, out, spec, dtype, gen,
                                    offset)
-        tag = f"experts {leaf} {_dname(dtype)}" + (
+        tag = f"{path} experts {leaf} {_dname(dtype)}" + (
             " base pointers off alignment" if offset else "")
         res, plain, tol = _dw_case(tag, x, dy, idx, spec, main)
         dy_sel = ref.gather_dy_blocks(dy.reshape(e * c, out), idx,
@@ -906,7 +1022,7 @@ def check_batched_dw(gen, sums: dict):
                   f"plain_ms={plain:.4f} library_ms={lib:.4f} "
                   f"bound_ms={b_ms:.4f} ({b_by}) max_abs_err={err:.3e} "
                   f"tol={tol:.3e}", flush=True)
-        if dtype == torch.bfloat16 and not offset:
+        if path == "moe" and dtype == torch.bfloat16 and not offset:
             ms, err, _ = res[main]
             for key, val in (("ms", ms), ("plain_ms", plain),
                              ("library_ms", lib), ("flops", flops),
@@ -915,6 +1031,7 @@ def check_batched_dw(gen, sums: dict):
             sums["max_abs_err"] = max(sums["max_abs_err"], err)
         del x, dy, dy_sel
 
+    e, c, leaves = _moe_leaves()
     fan_in, out, spec = leaves["w_gate"]
     x, dy, idx = _batched_case(8, C_LONG, fan_in, out, spec, torch.bfloat16,
                                gen)
@@ -1274,74 +1391,18 @@ def phase_kernels(results: dict):
 
 
 def phase_main_path(results: dict):
-    from repro_torch.core.selection import build_plan, selected_fraction
-    from repro_torch.kernels import ops
-    from repro_torch.launch import train
-
-    args = train.build_argparser().parse_args(MAIN_ARGV)
-    tc = train.train_config(args)
-    plan = build_plan(tc.model, tc.sparse,
-                      tc.shape.global_batch * tc.shape.seq_len)
-    spec = plan.spec["blocks"]["mlp"]["w_gate"]
-    print(f"[main] llama3-8b full width, {tc.model.num_layers} layers "
-          f"(no depth cut), {tc.model.dtype}, batch {args.batch} x seq "
-          f"{args.seq}, {args.optimizer}, selected share of params per step "
-          f"{selected_fraction(plan, tc.model):.6f}", flush=True)
-
-    per_step = []
-    last = {"counts": {k: 0 for k in ops.LAUNCHES}, "w_gate": None}
-
-    def on_step(step, state, metrics):
-        counts = ops.launch_counts()
-        delta = {k: counts[k] - last["counts"][k] for k in counts}
-        leaf = state["params_trainable"]["segments"]["blocks"]["mlp"]["w_gate"]
-        if last["w_gate"] is not None:
-            # this step's selection, against the leaf before this step
-            mask = _selected_mask(
-                leaf, state["sel_idx"]["blocks"]["mlp"]["w_gate"], spec)
-            check(torch.equal(leaf[~mask], last["w_gate"][~mask]),
-                  f"step {step}: an unselected block of w_gate changed")
-            check(not torch.equal(leaf[mask], last["w_gate"][mask]),
-                  f"step {step}: the selected blocks of w_gate did not move")
-        last["counts"], last["w_gate"] = counts, leaf.clone()
-        row = {"step": step, "loss": float(metrics["loss"]),
-               "step_ms": metrics["step_ms"],
-               "max_memory_allocated": torch.cuda.max_memory_allocated(),
-               "launches": delta}
-        per_step.append(row)
-        print(f"[main] step {step} loss={row['loss']:.6f} "
-              f"step_ms={row['step_ms']:.1f} "
-              f"max_memory_allocated={row['max_memory_allocated']} "
-              f"launches={delta}", flush=True)
-
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    out = train.main(MAIN_ARGV, on_step=on_step)
-    totals = ops.launch_counts()
-
-    check(len(per_step) == 6, f"ran {len(per_step)} steps, want 6")
-    for row in per_step:
-        dw, opt = (row["launches"]["block_sparse_dw"],
-                   row["launches"]["fused_block_opt"])
-        check(dw == K_LAYERS * 7,
-              f"step {row['step']}: {dw} dW launches, want {K_LAYERS}x7")
-        check(row["launches"]["batched_dw"] == 0,
-              f"step {row['step']}: the expert dW ran on the LM path")
-        check(opt == 7, f"step {row['step']}: {opt} optimizer launches, "
-                        f"want 7")
-        check(bool(torch.isfinite(torch.tensor(row["loss"]))),
-              f"step {row['step']}: loss {row['loss']} is not finite")
+    """The LM path: 6 compact AdamW steps of full-width llama3-8b through
+    the launcher (K x 7 dW and 7 optimizer launches a step, as its plan
+    derives them), the unselected blocks of mlp/w_gate unchanged every
+    step."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3-8b")
+    print(f"[main] llama3-8b full width, {cfg.num_layers} layers (no depth "
+          f"cut), {cfg.dtype}", flush=True)
+    tc, out, totals = _train_path("main", MAIN_ARGV, "blocks/mlp/w_gate")
     for name, (_, _, _, path) in SOURCES.items():
         if path == "lm":
-            check(totals[name] > 0, f"{name} was never launched on the LM "
-                                    f"path")
             results["launches"][name] = totals[name]
-    check(ops.DW_INSTANCES == {"grid": 0,
-                               "pipelined": totals["block_sparse_dw"]},
-          f"LM run: dW instances {ops.DW_INSTANCES}, want every bf16 launch "
-          f"on the pipelined one")
-    print(f"[main] launches over 6 steps: {totals}; block_sparse_dw by "
-          f"instance: {dict(ops.DW_INSTANCES)}", flush=True)
     return tc, out
 
 
@@ -1349,7 +1410,6 @@ def profile_step(tag: str, run):
     """`run()` once under torch.profiler, then synced: device time by
     kernel, the share of the wall time the device sits idle, and the port's
     kernels' share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1360,10 +1420,8 @@ def profile_step(tag: str, run):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    # kernel rows only: a CPU op's row repeats its kernels' device time
-    rows = sorted(((_dev_us(e), e.key, e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and _dev_us(e) > 0),
-                  reverse=True)
+    rows = sorted(((_dev_us(e), e.key, e.count) for e in _rows(prof)
+                   if _dev_us(e) > 0), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     check(busy_ms > 0, "the profiler saw no device time")
     # each row to the first port kernel name it holds (the batched dW's
@@ -1386,11 +1444,12 @@ def profile_step(tag: str, run):
     for us, key, count in rows[:15]:
         print(f"[profile] {us / 1e3:9.2f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
               f"x{count:<5d} {key[:90]}", flush=True)
+    return busy_ms
 
 
 def phase_profile(tc, out, tag: str = "one fixed-phase step"):
     """One more step of a run's state (the late fixed phase) under
-    torch.profiler."""
+    torch.profiler; returns its device busy ms."""
     from repro_torch.data import lm_batches
     from repro_torch.train import make_train_step
 
@@ -1398,51 +1457,81 @@ def phase_profile(tc, out, tag: str = "one fixed-phase step"):
     batch = next(lm_batches(tc.shape.global_batch, tc.shape.seq_len,
                             tc.model.vocab_size, seed=tc.seed, start_step=6))
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-    profile_step(tag, lambda: step_fn(out["state"], batch))
+    return profile_step(tag, lambda: step_fn(out["state"], batch))
 
 
-def phase_compact_vs_dense(cfg, tag: str = "compact-vs-dense"):
-    """`cfg` from seed 1, K trainable layers: 2 fixed-phase SGD steps of
-    the compact path and of the dense-scatter path from one start; losses
-    and every trainable leaf bitwise equal."""
+def phase_compact_vs_dense(cfg, tag: str = "compact-vs-dense",
+                           k: int = K_LAYERS, batch: int = 4,
+                           seq: int = 1024, one_at_a_time: bool = False):
+    """`cfg` from seed 1, `k` trainable scan steps: 2 fixed-phase SGD steps
+    of the compact path and of the dense-scatter path from one start;
+    losses and every trainable leaf bitwise equal. one_at_a_time: the
+    compact run first, its trainable leaves kept on the host, then the
+    dense-scatter run from a fresh init of the same seed (for a model
+    whose params, a copy of the trainable ones and the dense-scatter
+    path's full-shape gradients do not fit the card together)."""
     from repro_torch.configs import (OptimizerConfig, ShapeConfig,
                                      SparseUpdateConfig, TrainConfig)
     from repro_torch.core.sparse_update import tree_leaves, tree_map
     from repro_torch.data import lm_batches
     from repro_torch.train import make_train_state, make_train_step
 
-    tc = TrainConfig(model=cfg, shape=ShapeConfig("smoke", 1024, 4, "train"),
+    tc = TrainConfig(model=cfg, shape=ShapeConfig("smoke", seq, batch,
+                                                  "train"),
                      sparse=SparseUpdateConfig(update_ratio=0.2,
-                                               num_update_layers=K_LAYERS,
+                                               num_update_layers=k,
                                                channel_block=128,
                                                phase_fixed_early=10),
                      optimizer=OptimizerConfig(kind="sgd", learning_rate=0.1),
                      seed=1)
+    batches = [{key: torch.from_numpy(v).cuda() for key, v in b.items()}
+               for _, b in zip(range(2), lm_batches(batch, seq,
+                                                    cfg.vocab_size, seed=1))]
+
+    def run(state, plan, compact):
+        step = make_train_step(tc, plan, compact_grads=compact)
+        losses = []
+        for b in batches:
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        return state, losses
+
     state_c, plan = make_train_state(tc, device="cuda")
-    # the compact step updates its trainable tensors in place: the
-    # dense-scatter run starts from its own copy
-    state_d = dict(state_c)
-    state_d["params_trainable"] = tree_map(torch.clone,
-                                           state_c["params_trainable"])
-    data = lm_batches(4, 1024, cfg.vocab_size, seed=1)
-    step_c = make_train_step(tc, plan, compact_grads=True)
-    step_d = make_train_step(tc, plan, compact_grads=False)
-    for i in range(2):
-        batch = {k: torch.from_numpy(v).cuda() for k, v in next(data).items()}
-        state_c, m_c = step_c(state_c, batch)
-        state_d, m_d = step_d(state_d, batch)
-        print(f"[{tag}] step {i + 1} loss compact="
-              f"{float(m_c['loss']):.6f} dense_scatter="
-              f"{float(m_d['loss']):.6f}", flush=True)
-        check(float(m_c["loss"]) == float(m_d["loss"]),
-              f"{tag} step {i + 1}: losses differ")
-    a = tree_leaves(state_c["params_trainable"])
-    b = tree_leaves(state_d["params_trainable"])
-    unequal = sum(not torch.equal(x, y) for x, y in zip(a, b))
-    check(unequal == 0, f"{tag}: {unequal} of {len(a)} trainable leaves "
-                        f"differ")
-    print(f"[{tag}] {cfg.name} {cfg.num_layers} layers, sgd, 2 fixed-phase "
-          f"steps: all {len(a)} trainable leaves bitwise equal", flush=True)
+    if one_at_a_time:
+        state_c, loss_c = run(state_c, plan, True)
+        kept = [t.cpu() for t in tree_leaves(state_c["params_trainable"])]
+        del state_c
+        gc.collect()
+        torch.cuda.empty_cache()
+        state_d, plan = make_train_state(tc, device="cuda")
+        state_d, loss_d = run(state_d, plan, False)
+        b = tree_leaves(state_d["params_trainable"])
+        unequal = sum(not torch.equal(x.cuda(), y) for x, y in zip(kept, b))
+        n = len(kept)
+        del kept, b, state_d
+    else:
+        # the compact step updates its trainable tensors in place: the
+        # dense-scatter run starts from its own copy
+        state_d = dict(state_c)
+        state_d["params_trainable"] = tree_map(torch.clone,
+                                               state_c["params_trainable"])
+        state_c, loss_c = run(state_c, plan, True)
+        state_d, loss_d = run(state_d, plan, False)
+        a = tree_leaves(state_c["params_trainable"])
+        b = tree_leaves(state_d["params_trainable"])
+        unequal = sum(not torch.equal(x, y) for x, y in zip(a, b))
+        n = len(a)
+        del a, b, state_c, state_d
+    for i, (lc, ld) in enumerate(zip(loss_c, loss_d)):
+        print(f"[{tag}] step {i + 1} loss compact={lc:.6f} "
+              f"dense_scatter={ld:.6f}", flush=True)
+        check(lc == ld, f"{tag} step {i + 1}: losses differ")
+    check(unequal == 0, f"{tag}: {unequal} of {n} trainable leaves differ")
+    print(f"[{tag}] {cfg.name} {cfg.num_layers} layers, K={k}, batch "
+          f"{batch} x seq {seq}, sgd, 2 fixed-phase steps: all {n} trainable "
+          f"leaves bitwise equal", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _blocks_of(w, idx, spec):
@@ -1676,31 +1765,23 @@ EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
 
 def phase_moe_path(results: dict):
     """The MoE path: 6 compact AdamW steps of full-width deepseek-moe-16b
-    through the launcher, counts zeroed just before and read just after."""
-    from repro_torch.core.selection import build_plan, selected_fraction
-    from repro_torch.kernels import ops
-    from repro_torch.launch import train
+    through the launcher (K x 7 dW, K x 3 expert dW and 10 optimizer
+    launches a step, as its plan derives them: the router takes the plain
+    optimizer), the expert leaves kept at the end of the first fixed
+    phase, and the share of routed choices the capacity dropped."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
 
-    args = train.build_argparser().parse_args(MOE_ARGV)
-    tc = train.train_config(args)
-    cfg = tc.model
-    plan = build_plan(cfg, tc.sparse,
-                      tc.shape.global_batch * tc.shape.seq_len)
+    cfg = get_config("deepseek-moe-16b")
     print(f"[moe] deepseek-moe-16b full width, {cfg.num_layers} layers (no "
           f"depth cut), {cfg.moe.num_experts} routed experts top-"
           f"{cfg.moe.top_k} + {cfg.moe.num_shared_experts} shared, "
-          f"{cfg.dtype}, batch {args.batch} x seq {args.seq}, "
-          f"{args.optimizer}, trainable {plan.seg_trainable}, selected share "
-          f"of params per step {selected_fraction(plan, cfg):.6f}",
-          flush=True)
-    per_step = []
-    last = {"counts": {k: 0 for k in ops.LAUNCHES}}
+          f"{cfg.dtype}", flush=True)
     snap = {}
 
-    def on_step(step, state, metrics):
-        counts = ops.launch_counts()
-        delta = {k: counts[k] - last["counts"][k] for k in counts}
-        last["counts"] = counts
+    def at_first_phase_end(step, state):
         if step == MOE_J:
             # the expert leaves at the end of the first fixed phase, with
             # its selection: held against the init after the run
@@ -1708,71 +1789,24 @@ def phase_moe_path(results: dict):
             idx = state["sel_idx"]["blocks"]["moe"]
             snap.update({n: (moe[n].clone(), idx[n].clone())
                          for n in EXPERT_LEAVES})
-        row = {"step": step, "loss": float(metrics["loss"]),
-               "load_balance": float(metrics["load_balance"]),
-               "router_z": float(metrics["router_z"]),
-               "step_ms": metrics["step_ms"],
-               "max_memory_allocated": torch.cuda.max_memory_allocated(),
-               "launches": delta}
-        per_step.append(row)
-        print(f"[moe] step {step} loss={row['loss']:.6f} "
-              f"load_balance={row['load_balance']:.4f} "
-              f"router_z={row['router_z']:.4f} step_ms={row['step_ms']:.1f} "
-              f"max_memory_allocated={row['max_memory_allocated']} "
-              f"launches={delta}", flush=True)
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    out = train.main(MOE_ARGV, on_step=on_step)
-    totals = ops.launch_counts()
-
-    check(len(per_step) == 6, f"ran {len(per_step)} MoE steps, want 6")
-    for row in per_step:
-        for name, n in MOE_PER_STEP.items():
-            check(row["launches"][name] == n,
-                  f"MoE step {row['step']}: {row['launches'][name]} {name} "
-                  f"launches, want {n}")
-        check(bool(torch.isfinite(torch.tensor(row["loss"]))),
-              f"MoE step {row['step']}: loss {row['loss']} is not finite")
-    for name, n in MOE_PER_STEP.items():
-        check(totals[name] == 6 * n, f"MoE run: {totals[name]} {name} "
-                                     f"launches, want 6 x {n}")
+    tc, out, totals = _train_path("moe", MOE_ARGV, "blocks/attn/wo",
+                                  extra=at_first_phase_end)
     results["launches"]["batched_dw"] = totals["batched_dw"]
 
     # the share of routed choices the capacity dropped, over every MoE
     # layer of one forward of the trained model on the next batch
-    from repro_torch.data import lm_batches
-    from repro_torch.models import moe as MOE
-    from repro_torch.models import transformer as T
     state = out["state"]
-    batch = next(lm_batches(args.batch, args.seq, cfg.vocab_size,
-                            seed=args.seed, start_step=6))
+    batch = next(lm_batches(tc.shape.global_batch, tc.shape.seq_len,
+                            cfg.vocab_size, seed=tc.seed, start_step=6))
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
     with torch.no_grad(), MOE.record_routing() as routed:
         T.forward(cfg, (state["params_frozen"], state["params_trainable"]),
                   batch)
     dropped = [float(d) / n for d, n in routed]
-    steady = [r["step_ms"] for r in per_step[1:]]
-    check(ops.DW_INSTANCES == {"grid": 0,
-                               "pipelined": totals["block_sparse_dw"]}
-          and ops.BATCHED_DW_INSTANCES == {"grid": 0,
-                                           "pipelined": totals["batched_dw"]},
-          f"MoE run: dW instances {ops.DW_INSTANCES}, batched "
-          f"{ops.BATCHED_DW_INSTANCES}, want every bf16 launch on the "
-          f"pipelined one")
-    print(f"[moe] launches over 6 steps: {totals}; dW by instance: "
-          f"{dict(ops.DW_INSTANCES)}, batched_dw by instance: "
-          f"{dict(ops.BATCHED_DW_INSTANCES)}", flush=True)
-    print(f"[moe] step_ms steps 2-6: {[round(t, 1) for t in steady]} "
-          f"median={statistics.median(steady):.1f} tokens_per_s="
-          f"{M_TOKENS / statistics.median(steady) * 1e3:.0f} step1_ms="
-          f"{per_step[0]['step_ms']:.1f} peak_bytes="
-          f"{torch.cuda.max_memory_allocated()} selected_fraction="
-          f"{selected_fraction(plan, cfg):.6f} dropped_share="
-          f"{sum(dropped) / len(dropped):.4f} (per MoE layer min "
-          f"{min(dropped):.4f} max {max(dropped):.4f}, {len(dropped)} "
-          f"layers)", flush=True)
+    print(f"[moe] dropped_share={sum(dropped) / len(dropped):.4f} (per MoE "
+          f"layer min {min(dropped):.4f} max {max(dropped):.4f}, "
+          f"{len(dropped)} layers)", flush=True)
     return tc, out, snap
 
 
@@ -1781,133 +1815,52 @@ def phase_moe_frozen(tc, out, snap):
     dense first layer, the 25 frozen MoE layers) bitwise equal to a fresh
     init from the run's seed, and every expert leaf's unselected blocks at
     the end of the first fixed phase bitwise their init, its selected
-    blocks moved. The optimizer state goes first: the run's params and a
-    fresh init fit the card together (2 x 32.8 GB)."""
-    from repro_torch.core.sparse_update import tree_leaves
-    from repro_torch.models import transformer as T
-    from repro_torch.train import split_params
-
-    state, plan = out["state"], out["plan"]
-    state["opt"] = None
-    torch.cuda.empty_cache()
-    init = T.init_params(tc.model, tc.seed, "cuda")
-    frozen0, trainable0 = split_params(init, plan)
-    a, b = tree_leaves(frozen0), tree_leaves(state["params_frozen"])
-    check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
-          "MoE: a frozen param changed")
-    check("first" in state["params_frozen"]["segments"]
-          and "first" not in state["params_trainable"]["segments"],
+    blocks moved."""
+    plan = out["plan"]
+    check("first" in out["state"]["params_frozen"]["segments"]
+          and "first" not in out["state"]["params_trainable"]["segments"],
           "MoE: the dense first layer is not frozen")
-    moe0 = trainable0["segments"]["blocks"]["moe"]
-    for name, (w, idx) in snap.items():
-        spec = plan.spec["blocks"]["moe"][name]
-        mask = _selected_mask(moe0[name], idx, spec)
-        check(torch.equal(w[~mask], moe0[name][~mask]),
-              f"MoE: an unselected block of {name} changed in the first "
-              f"fixed phase")
-        check(not torch.equal(w[mask], moe0[name][mask]),
-              f"MoE: the selected blocks of {name} did not move")
-    print(f"[moe] frozen params bitwise equal to a fresh init ({len(a)} "
-          f"leaves: embedding, head, final norm, the dense first layer, "
+
+    def experts_unselected_unchanged(trainable0):
+        moe0 = trainable0["segments"]["blocks"]["moe"]
+        for name, (w, idx) in snap.items():
+            spec = plan.spec["blocks"]["moe"][name]
+            mask = _selected_mask(moe0[name], idx, spec)
+            check(torch.equal(w[~mask], moe0[name][~mask]),
+                  f"MoE: an unselected block of {name} changed in the first "
+                  f"fixed phase")
+            check(not torch.equal(w[mask], moe0[name][mask]),
+                  f"MoE: the selected blocks of {name} did not move")
+
+    n = _check_frozen(tc, out, "MoE", experts_unselected_unchanged)
+    print(f"[moe] frozen params bitwise equal to a fresh init ({n} leaves: "
+          f"embedding, head, final norm, the dense first layer, "
           f"{tc.model.num_layers - 1 - K_LAYERS} frozen MoE layers); every "
           f"expert leaf's unselected blocks bitwise their init through the "
           f"first fixed phase ({MOE_J} steps)", flush=True)
 
 
-def rwkv_per_step(cfg) -> dict:
-    """Launches a step of the rwkv path: the WKV forward once a layer (the
-    frozen ones under no_grad) and once more for each trainable layer,
-    which `torch.utils.checkpoint` recomputes in the backward; the WKV
-    backward once per trainable layer; the dW once per selectable leaf
-    (time wr wk wv wg wo, channel wk wv wr) and trainable layer; the fused
-    optimizer once per selectable stacked leaf (u, mu, w0, wA, wB and the
-    norms take the plain dense rule)."""
-    return {"wkv6": cfg.num_layers + K_LAYERS, "wkv6_bwd": K_LAYERS,
-            "block_sparse_dw": K_LAYERS * 8, "fused_block_opt": 8,
-            "batched_dw": 0}
-
-
 def phase_rwkv_path(results: dict):
     """The rwkv path: 6 compact AdamW steps of full-width rwkv6-3b through
-    the launcher, counts zeroed just before and read just after."""
-    from repro_torch.core.selection import build_plan, selected_fraction
-    from repro_torch.kernels import ops
-    from repro_torch.launch import train
-
-    args = train.build_argparser().parse_args(RWKV_ARGV)
-    tc = train.train_config(args)
-    cfg = tc.model
-    plan = build_plan(cfg, tc.sparse,
-                      tc.shape.global_batch * tc.shape.seq_len)
-    spec = plan.spec["blocks"]["time"]["wo"]
-    want = rwkv_per_step(cfg)
+    the launcher. Launches a step: the dW and optimizer as its plan derives
+    them (K x 8 and 8: time wr wk wv wg wo, channel wk wv wr; u, mu, w0,
+    wA, wB and the norms take the plain dense rule), the WKV forward once a
+    layer (the frozen ones under no_grad) and once more for each trainable
+    layer, which `torch.utils.checkpoint` recomputes in the backward, and
+    the WKV backward once per trainable layer."""
+    from repro_torch.configs import get_config
+    cfg = get_config("rwkv6-3b")
     print(f"[rwkv] rwkv6-3b full width, {cfg.num_layers} layers (no depth "
           f"cut), d_model {cfg.d_model}, {cfg.d_model // cfg.rwkv.head_dim} "
-          f"heads of {cfg.rwkv.head_dim}, d_ff {cfg.d_ff}, {cfg.dtype}, batch "
-          f"{args.batch} x seq {args.seq}, {args.optimizer}, trainable "
-          f"{plan.seg_trainable}, selected share of params per step "
-          f"{selected_fraction(plan, cfg):.6f}; launches a step {want}",
+          f"heads of {cfg.rwkv.head_dim}, d_ff {cfg.d_ff}, {cfg.dtype}",
           flush=True)
-    per_step = []
-    last = {"counts": {k: 0 for k in ops.LAUNCHES}, "wo": None}
-
-    def on_step(step, state, metrics):
-        counts = ops.launch_counts()
-        delta = {k: counts[k] - last["counts"][k] for k in counts}
-        leaf = state["params_trainable"]["segments"]["blocks"]["time"]["wo"]
-        if last["wo"] is not None:
-            mask = _selected_mask(
-                leaf, state["sel_idx"]["blocks"]["time"]["wo"], spec)
-            check(torch.equal(leaf[~mask], last["wo"][~mask]),
-                  f"rwkv step {step}: an unselected block of time/wo "
-                  f"changed")
-            check(not torch.equal(leaf[mask], last["wo"][mask]),
-                  f"rwkv step {step}: the selected blocks of time/wo did "
-                  f"not move")
-        last["counts"], last["wo"] = counts, leaf.clone()
-        row = {"step": step, "loss": float(metrics["loss"]),
-               "step_ms": metrics["step_ms"],
-               "max_memory_allocated": torch.cuda.max_memory_allocated(),
-               "launches": delta}
-        per_step.append(row)
-        print(f"[rwkv] step {step} loss={row['loss']:.6f} "
-              f"step_ms={row['step_ms']:.1f} "
-              f"max_memory_allocated={row['max_memory_allocated']} "
-              f"launches={delta}", flush=True)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    out = train.main(RWKV_ARGV, on_step=on_step)
-    totals = ops.launch_counts()
-
-    check(len(per_step) == 6, f"ran {len(per_step)} rwkv steps, want 6")
-    for row in per_step:
-        for name, n in want.items():
-            check(row["launches"][name] == n,
-                  f"rwkv step {row['step']}: {row['launches'][name]} {name} "
-                  f"launches, want {n}")
-        check(bool(torch.isfinite(torch.tensor(row["loss"]))),
-              f"rwkv step {row['step']}: loss {row['loss']} is not finite")
-    for name, n in want.items():
-        check(totals[name] == 6 * n, f"rwkv run: {totals[name]} {name} "
-                                     f"launches, want 6 x {n}")
+    tc, out, totals = _train_path(
+        "rwkv", RWKV_ARGV, "blocks/time/wo",
+        extra_launches={"wkv6": cfg.num_layers + K_LAYERS,
+                        "wkv6_bwd": K_LAYERS})
     for name, (_, _, _, path) in SOURCES.items():
         if path == "rwkv":
             results["launches"][name] = totals[name]
-    steady = [r["step_ms"] for r in per_step[1:]]
-    check(ops.DW_INSTANCES == {"grid": 0,
-                               "pipelined": totals["block_sparse_dw"]},
-          f"rwkv run: dW instances {ops.DW_INSTANCES}, want every bf16 "
-          f"launch on the pipelined one")
-    print(f"[rwkv] launches over 6 steps: {totals}; dW by instance: "
-          f"{dict(ops.DW_INSTANCES)}", flush=True)
-    print(f"[rwkv] step_ms steps 2-6: {[round(t, 1) for t in steady]} "
-          f"median={statistics.median(steady):.1f} tokens_per_s="
-          f"{M_TOKENS / statistics.median(steady) * 1e3:.0f} step1_ms="
-          f"{per_step[0]['step_ms']:.1f} peak_bytes="
-          f"{torch.cuda.max_memory_allocated()} losses="
-          f"{[round(r['loss'], 6) for r in per_step]}", flush=True)
     return tc, out
 
 
@@ -1915,21 +1868,355 @@ def phase_rwkv_frozen(tc, out):
     """After the run: the frozen params (embedding, ln0, head, final norm,
     the 30 frozen layers) bitwise equal to a fresh init from the run's
     seed."""
+    check("ln0" in out["state"]["params_frozen"], "rwkv: ln0 is not frozen")
+    n = _check_frozen(tc, out, "rwkv")
+    print(f"[rwkv] frozen params bitwise equal to a fresh init ({n} "
+          f"leaves: embedding, ln0, head, final norm, "
+          f"{tc.model.num_layers - K_LAYERS} frozen layers)", flush=True)
+
+
+def plan_per_step(cfg, plan) -> dict:
+    """Launches a step of a compact path, derived from its plan: the dW
+    once per selectable leaf and trainable scan step (`batched_dw` for a
+    stacked expert leaf [steps, E, fan_in, out], `block_sparse_dw` for the
+    rest; a super-block's sub-layers are leaves of their own), and the fused
+    optimizer once per selectable stacked leaf (norms, routers and the
+    mamba leaves outside the selection take the plain dense rule). No other
+    kernel of the port runs on an attention / mamba / MoE path."""
+    from repro_torch.core.sparse_update import SelSpec
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import abstract_params
+    want = {k: 0 for k in ops.LAUNCHES}
+    shapes = abstract_params(cfg)["segments"]
+
+    def walk(spec, shape, steps):
+        if isinstance(spec, SelSpec):
+            want["batched_dw" if shape.dim() == 4
+                 else "block_sparse_dw"] += steps
+            want["fused_block_opt"] += 1
+            return
+        for name in spec:
+            walk(spec[name], shape[name], steps)
+
+    for seg, steps in plan.seg_trainable.items():
+        if steps:
+            walk(plan.spec[seg], shapes[seg], steps)
+    return want
+
+
+def _train_path(tag: str, argv, watch: str, model=None, extra=None,
+                extra_launches=None):
+    """6 compact steps through the launcher (`model` replaces the arch's
+    config), counts zeroed just before and read just after: every step
+    launches exactly `plan_per_step` plus `extra_launches` (the path's
+    other kernels), every bf16 dW on the pipelined instance, the loss
+    finite, and the unselected blocks of the `watch` leaf (a path below
+    the segments) unchanged every step, its selected blocks moved.
+    extra(step, state) runs after each step's checks. Returns (tc, out,
+    totals)."""
+    from repro_torch.core.selection import build_plan, selected_fraction
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    args = train.build_argparser().parse_args(argv)
+    tc = train.train_config(args, model)
+    cfg = tc.model
+    plan = build_plan(cfg, tc.sparse,
+                      tc.shape.global_batch * tc.shape.seq_len)
+    spec = _leaf(plan.spec, watch)
+    want = plan_per_step(cfg, plan)
+    want.update(extra_launches or {})
+    print(f"[{tag}] trainable {plan.seg_trainable}, {args.optimizer} lr "
+          f"{args.lr}, batch {args.batch} x seq {args.seq}, selected share "
+          f"of params per step {selected_fraction(plan, cfg):.6f}; launches "
+          f"a step, derived from the plan: {want}", flush=True)
+    per_step = []
+    last = {"counts": {k: 0 for k in ops.LAUNCHES}, "leaf": None}
+
+    def on_step(step, state, metrics):
+        counts = ops.launch_counts()
+        delta = {k: counts[k] - last["counts"][k] for k in counts}
+        leaf = _leaf(state["params_trainable"]["segments"], watch)
+        if last["leaf"] is not None:
+            mask = _selected_mask(leaf, _leaf(state["sel_idx"], watch), spec)
+            check(torch.equal(leaf[~mask], last["leaf"][~mask]),
+                  f"{tag} step {step}: an unselected block of {watch} "
+                  f"changed")
+            check(not torch.equal(leaf[mask], last["leaf"][mask]),
+                  f"{tag} step {step}: the selected blocks of {watch} did "
+                  f"not move")
+        last["counts"], last["leaf"] = counts, leaf.clone()
+        if extra is not None:
+            extra(step, state)
+        row = {"step": step, "loss": float(metrics["loss"]),
+               "step_ms": metrics["step_ms"],
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "launches": delta}
+        per_step.append(row)
+        print(f"[{tag}] step {step} loss={row['loss']:.6f} "
+              f"load_balance={float(metrics['load_balance']):.4f} "
+              f"router_z={float(metrics['router_z']):.4f} "
+              f"step_ms={row['step_ms']:.1f} "
+              f"max_memory_allocated={row['max_memory_allocated']} "
+              f"launches={delta}", flush=True)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = train.main(argv, on_step=on_step, model=model)
+    totals = ops.launch_counts()
+    last["leaf"] = None
+
+    check(len(per_step) == 6, f"ran {len(per_step)} {tag} steps, want 6")
+    for row in per_step:
+        check(row["launches"] == want,
+              f"{tag} step {row['step']}: launches {row['launches']}, want "
+              f"{want}")
+        check(bool(torch.isfinite(torch.tensor(row["loss"]))),
+              f"{tag} step {row['step']}: loss {row['loss']} is not finite")
+    check(totals == {k: 6 * n for k, n in want.items()},
+          f"{tag} run: launches {totals}, want 6 x {want}")
+    check(ops.DW_INSTANCES == {"grid": 0,
+                               "pipelined": totals["block_sparse_dw"]}
+          and ops.BATCHED_DW_INSTANCES == {"grid": 0,
+                                           "pipelined": totals["batched_dw"]},
+          f"{tag} run: dW instances {ops.DW_INSTANCES}, batched "
+          f"{ops.BATCHED_DW_INSTANCES}, want every bf16 launch on the "
+          f"pipelined one")
+    steady = [r["step_ms"] for r in per_step[1:]]
+    tokens = args.batch * args.seq
+    print(f"[{tag}] launches over 6 steps: {totals}; dW by instance: "
+          f"{dict(ops.DW_INSTANCES)}, batched_dw by instance: "
+          f"{dict(ops.BATCHED_DW_INSTANCES)}", flush=True)
+    print(f"[{tag}] step_ms steps 2-6: {[round(t, 1) for t in steady]} "
+          f"median={statistics.median(steady):.1f} tokens_per_s="
+          f"{tokens / statistics.median(steady) * 1e3:.0f} step1_ms="
+          f"{per_step[0]['step_ms']:.1f} peak_bytes="
+          f"{torch.cuda.max_memory_allocated()} losses="
+          f"{[round(r['loss'], 6) for r in per_step]}", flush=True)
+    return tc, out, totals
+
+
+def _check_frozen(tc, out, tag: str, trainable_too=None):
+    """After a run: its frozen params bitwise equal to a fresh init from
+    the run's seed. The run's trainable params and optimizer state go
+    first, so the card holds the model about once. trainable_too(init
+    trainable tree), when given, runs on the fresh init's trainable part
+    before it is freed. Returns the number of frozen leaves."""
     from repro_torch.core.sparse_update import tree_leaves
     from repro_torch.models import transformer as T
     from repro_torch.train import split_params
 
     state, plan = out["state"], out["plan"]
+    frozen = state["params_frozen"]
+    out.clear()
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
     init = T.init_params(tc.model, tc.seed, "cuda")
-    frozen0, _ = split_params(init, plan)
-    a, b = tree_leaves(frozen0), tree_leaves(state["params_frozen"])
+    frozen0, trainable0 = split_params(init, plan)
+    a, b = tree_leaves(frozen0), tree_leaves(frozen)
     check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
-          "rwkv: a frozen param changed")
-    check("ln0" in state["params_frozen"], "rwkv: ln0 is not frozen")
-    print(f"[rwkv] frozen params bitwise equal to a fresh init ({len(a)} "
-          f"leaves: embedding, ln0, head, final norm, "
-          f"{tc.model.num_layers - K_LAYERS} frozen layers)", flush=True)
-    del init, frozen0
+          f"{tag}: a frozen param changed")
+    if trainable_too is not None:
+        trainable_too(trainable0)
+    n = len(a)
+    del init, frozen0, trainable0, frozen, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return n
+
+
+def phase_gemma_path(results: dict):
+    """The gemma path: 6 compact AdamW steps of full-width gemma3-4b (34
+    layers, no depth cut) through the launcher, one profiled step, the
+    frozen params against a fresh init."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("gemma3-4b")
+    layout = T.segment_layout(cfg)
+    print(f"[gemma] gemma3-4b full width, {cfg.num_layers} layers (no depth "
+          f"cut: {[tuple(s) for s in layout]}), {cfg.dtype}, d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"tied embeddings {cfg.tie_embeddings}, {cfg.attn_pattern} with "
+          f"window {cfg.sliding_window}, K = {GEMMA_K} scan steps",
+          flush=True)
+    tc, out, totals = _train_path("gemma", GEMMA_ARGV, "blocks/sub5/attn/wo")
+    for name in ("block_sparse_dw", "fused_block_opt"):
+        results["launches"][name] += totals[name]
+    busy = phase_profile(tc, out, "one fixed-phase gemma step")
+    n = _check_frozen(tc, out, "gemma")
+    print(f"[gemma] frozen params bitwise equal to a fresh init ({n} leaves: "
+          f"the tied embedding, the final norm, 4 frozen super-blocks); "
+          f"profiled step busy {busy:.1f} ms", flush=True)
+
+
+def _loop_chunk(a, h0, dt, xc, b_ssm, c):
+    """The chunk's recurrence one step at a time (the design the port did
+    not take): the same arithmetic as `models.mamba._ssm_chunk` on
+    [B, d_inner, d_state] slices, Q launches deep."""
+    from repro_torch.models import mamba as M
+    h, ys = h0, []
+    for t in range(dt.shape[1]):
+        dA, dBx = M._discretize(a, dt[:, t], xc[:, t], b_ssm[:, t])
+        h = dA * h + dBx
+        ys.append(torch.einsum("bdn,bn->bd", h, c[:, t]))
+    return h, torch.stack(ys, dim=1)
+
+
+def mamba_scan_cost(cfg, batch: int, seq: int) -> dict:
+    """One mamba layer's selective scan at a path's shapes, run as the train
+    step runs it: inside the super-block's checkpoint and its own
+    per-chunk checkpoints, so each chunk runs forward three times (the
+    step's forward, the super-block's recompute, the chunk's own) and
+    backward once. For the shipped chunk form (a log-depth scan over the
+    chunk's 64 steps) and, beside it, the chunk as a 64-step loop: device
+    ms and kernel launches from torch.profiler, and the host's ms (synced)
+    for one layer."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models import mamba as M
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    di, ns = M.d_inner(cfg), cfg.ssm.d_state
+    leaf = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    a = -torch.arange(1, ns + 1, dtype=torch.float32,
+                      device="cuda").repeat(di, 1)
+    dt = M.softplus(leaf(batch, seq, di) - 4.0)
+    args = [t.requires_grad_(True) for t in
+            (a, dt, leaf(batch, seq, di), leaf(batch, seq, ns),
+             leaf(batch, seq, ns))]
+    h0 = torch.zeros((batch, di, ns), device="cuda")
+    gy = leaf(batch, seq, di)
+
+    def once():
+        y = checkpoint(lambda *t: M.selective_scan(*t, h0)[0], *args,
+                       use_reentrant=False)
+        y.backward(gy)
+
+    out = {}
+    shipped = M._ssm_chunk
+    for form, chunk in (("log-depth", shipped), ("loop", _loop_chunk)):
+        M._ssm_chunk = chunk
+        try:
+            once()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            once()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                once()
+                torch.cuda.synchronize()
+        finally:
+            M._ssm_chunk = shipped
+        rows = _rows(prof)
+        out[form] = {"device_ms": sum(_dev_us(e) for e in rows) / 1e3,
+                     "kernels": sum(e.count for e in rows),
+                     "host_ms": host_ms}
+    return out
+
+
+def phase_jamba_path(results: dict):
+    """The jamba path at published widths, cut to one super-block and 4
+    experts: 6 compact SGD steps through the launcher (`model=` the cut),
+    the share of routed choices dropped, one profiled step with the mamba
+    scan's share of device time, the frozen params and every expert leaf's
+    unselected blocks through the first fixed phase against a fresh
+    init."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import mamba as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    full, cfg = get_config("jamba-1.5-large-398b"), jamba_cut()
+    n_params = sum(t.numel() for t in _leaves(T.init_params(cfg, 0, "meta")))
+    print(f"[jamba] jamba-1.5-large-398b at published widths (d_model "
+          f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, d_inner "
+          f"{M.d_inner(cfg)}, d_state {cfg.ssm.d_state}, d_conv "
+          f"{cfg.ssm.d_conv}, dt_rank {M.dt_rank(cfg)}, top-"
+          f"{cfg.moe.top_k}); CUT: {full.num_layers} -> {cfg.num_layers} "
+          f"layers (one super-block: attention at index "
+          f"{cfg.attn_every // 2}, 7 mamba, MoE at the odd indices) and "
+          f"{full.moe.num_experts} -> {cfg.moe.num_experts} experts; "
+          f"{n_params} params, {2 * n_params} bytes in {cfg.dtype}",
+          flush=True)
+    snap = {}
+    moe_subs = [f"sub{i}" for i in range(cfg.attn_every) if i % 2]
+
+    def at_first_phase_end(step, state):
+        if step == JAMBA_J:
+            # the expert leaves at the end of the first fixed phase, with
+            # its selection, kept on the host: held against a fresh init
+            # after the run
+            for sub in moe_subs:
+                moe = state["params_trainable"]["segments"]["blocks"][sub][
+                    "moe"]
+                idx = state["sel_idx"]["blocks"][sub]["moe"]
+                for n in EXPERT_LEAVES:
+                    snap[f"{sub}/moe/{n}"] = (moe[n].cpu(), idx[n].clone())
+
+    tc, out, totals = _train_path("jamba", JAMBA_ARGV,
+                                  "blocks/sub0/mamba/out_proj", model=cfg,
+                                  extra=at_first_phase_end)
+    for name in ("block_sparse_dw", "batched_dw", "fused_block_opt"):
+        results["launches"][name] += totals[name]
+
+    # the share of routed choices the capacity dropped, over the 4 MoE
+    # layers of one forward of the trained model on the next batch
+    state = out["state"]
+    batch = next(lm_batches(tc.shape.global_batch, tc.shape.seq_len,
+                            cfg.vocab_size, seed=tc.seed, start_step=6))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    with torch.no_grad(), MOE.record_routing() as routed:
+        T.forward(cfg, (state["params_frozen"], state["params_trainable"]),
+                  batch)
+    dropped = [float(d) / n for d, n in routed]
+    print(f"[jamba] dropped share of routed choices "
+          f"{sum(dropped) / len(dropped):.4f} (per MoE layer "
+          f"{[round(x, 4) for x in dropped]})", flush=True)
+    del state, batch
+    busy = phase_profile(tc, out, "one fixed-phase jamba step")
+    cost = mamba_scan_cost(cfg, tc.shape.global_batch, tc.shape.seq_len)
+    scan = cost["log-depth"]
+    n_mamba = cfg.attn_every - 1
+    print(f"[jamba] mamba scan (plain PyTorch, chunks of {M.CHUNK}, the "
+          f"step's checkpoints): one layer {scan['device_ms']:.1f} ms device "
+          f"time, {scan['kernels']} kernels, host {scan['host_ms']:.1f} ms; "
+          f"x {n_mamba} mamba layers = {n_mamba * scan['device_ms']:.1f} ms "
+          f"and {n_mamba * scan['kernels']} kernels a step, "
+          f"{n_mamba * scan['device_ms'] / busy:.4f} of the profiled step's "
+          f"device busy {busy:.1f} ms. The chunk as a {M.CHUNK}-step loop "
+          f"instead, one layer: {cost['loop']['device_ms']:.1f} ms device "
+          f"time, {cost['loop']['kernels']} kernels, host "
+          f"{cost['loop']['host_ms']:.1f} ms", flush=True)
+
+    plan = out["plan"]
+
+    def experts_unselected_unchanged(trainable0):
+        for path, (w, idx) in snap.items():
+            spec = _leaf(plan.spec["blocks"], path)
+            w0 = _leaf(trainable0["segments"]["blocks"], path)
+            w = w.cuda()
+            mask = _selected_mask(w0, idx, spec)
+            check(torch.equal(w[~mask], w0[~mask]),
+                  f"jamba: an unselected block of {path} changed in the "
+                  f"first fixed phase")
+            check(not torch.equal(w[mask], w0[mask]),
+                  f"jamba: the selected blocks of {path} did not move")
+            del w, mask
+
+    n = _check_frozen(tc, out, "jamba", experts_unselected_unchanged)
+    print(f"[jamba] frozen params bitwise equal to a fresh init ({n} leaves: "
+          f"embedding, head, final norm); the {len(snap)} expert leaves' "
+          f"unselected blocks bitwise their init through the first fixed "
+          f"phase ({JAMBA_J} steps), their selected blocks moved", flush=True)
+    snap.clear()
 
 
 # the serving path: full-width llama3-8b, 4 slots, pages of 16 tokens, 8
@@ -2130,13 +2417,20 @@ def _bf16_ulp(x):
 
 
 def profile_wave_scatter(wave):
-    """One bf16 online wave under torch.profiler: its scatter kernels'
-    device time and launches. Then the wave's 7 scatter calls, recorded
-    as it made them, replayed the way the wave computed them before the
-    out-of-place mode (a copy of the leaf, then the in-place kernel) and
-    as it computes them now (one out-of-place launch), device time each."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """The bf16 online wave's scatter launches under torch.profiler. A
+    window that opens on the wave (CUDA activity only, as this phase first
+    ran it) has missed some of its 7 launches; so the wave runs again with
+    each scatter call inside a `record_function` range (a range with no
+    device time names a launch the profiler missed; each launch's CUDA
+    error is checked by its wrapper, and the wave is synced), and then
+    under a schedule that discards one wave of warm-up and records the two
+    after it, where all 14 must appear. Then the wave's 7 scatter calls,
+    recorded as it made them, replayed the way the wave computed them
+    before the out-of-place mode (a copy of the leaf, then the in-place
+    kernel) and as it computes them now (one out-of-place launch), device
+    time each."""
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
     from repro_torch.kernels import ops
 
     calls = []
@@ -2144,8 +2438,13 @@ def profile_wave_scatter(wave):
 
     def record(w, vals, idx, spec, out=None):
         calls.append((w, vals, idx, spec))
-        return launch(w, vals, idx, spec, out=out)
+        with record_function(f"scatter call {(len(calls) - 1) % 7}"):
+            return launch(w, vals, idx, spec, out=out)
 
+    def scatter_rows(prof):
+        return [e for e in _rows(prof) if "scatter_columns_kernel" in e.key]
+
+    both = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     ops.block_scatter_update = record
     before = ops.launch_counts()["block_scatter_update"]
     try:
@@ -2153,30 +2452,61 @@ def profile_wave_scatter(wave):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             wave()
             torch.cuda.synchronize()
+        first = list(calls)
+        with profile(activities=both) as ranged:
+            wave()
+            torch.cuda.synchronize()
+        with profile(activities=both,
+                     schedule=schedule(wait=0, warmup=1, active=2,
+                                       repeat=1)) as warm:
+            for _ in range(3):
+                wave()
+                torch.cuda.synchronize()
+                warm.step()
     finally:
         ops.block_scatter_update = launch
     launches = ops.launch_counts()["block_scatter_update"] - before
-    check(len(calls) == 7 and launches == 7,
-          f"the profiled wave made {len(calls)} scatter calls and "
-          f"{launches} scatter launches, want 7")
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    busy = sum(_dev_us(e) for e in rows) / 1e3
-    scatter = [e for e in rows if "scatter_columns_kernel" in e.key]
-    ms = sum(_dev_us(e) for e in scatter) / 1e3
-    seen = sum(e.count for e in scatter)
-    outs = [torch.empty_like(w) for w, _, _, _ in calls]
+    check(len(first) == 7 and len(calls) == 35 and launches == 35,
+          f"the profiled waves made {len(calls)} scatter calls and "
+          f"{launches} scatter launches, want 7 a wave (5 waves)")
+    busy = sum(_dev_us(e) for e in _rows(prof)) / 1e3
+    ms = sum(_dev_us(e) for e in scatter_rows(prof)) / 1e3
+    seen = {tag: sum(e.count for e in scatter_rows(p))
+            for tag, p in (("first", prof), ("ranged", ranged),
+                           ("warm", warm))}
+    total = lambda e: getattr(e, "device_time_total",
+                              getattr(e, "cuda_time_total", 0.0))
+    per_call = {e.key: total(e) for e in ranged.key_averages()
+                if e.key.startswith("scatter call ")}
+    missing = sorted(k for k in (f"scatter call {i}" for i in range(7))
+                     if per_call.get(k, 0.0) <= 0.0)
+    kernels = {tag: sum(e.count for e in _rows(p))
+               for tag, p in (("first", prof), ("ranged", ranged),
+                              ("warm", warm))}
+    print(f"[serve wave] scatter launches the profiler recorded: a window "
+          f"opening on the wave (CUDA activity only) {seen['first']} of 7; "
+          f"with CPU activity and a range per call {seen['ranged']} of 7 "
+          f"(calls without device time: {missing or 'none'}); after one "
+          f"wave of warm-up, {seen['warm']} of the next 2 waves' 14. Kernels "
+          f"of any kind recorded a wave: {kernels['first']}, "
+          f"{kernels['ranged']}, {kernels['warm'] / 2:.1f}", flush=True)
+    check(seen["warm"] == 14,
+          f"the profiler recorded {seen['warm']} of 2 waves' 14 scatter "
+          f"launches after a warm-up wave")
+    first = first[:7]
+    outs = [torch.empty_like(w) for w, _, _, _ in first]
     old = device_ms(lambda: [launch(w.clone(), v, i, s)
-                             for w, v, i, s in calls], reps=5)
+                             for w, v, i, s in first], reps=5,
+                    kernel=("scatter_columns_kernel", 7))
     now = device_ms(lambda: [launch(w, v, i, s, out=o)
-                             for (w, v, i, s), o in zip(calls, outs)],
-                    reps=5)
+                             for (w, v, i, s), o in zip(first, outs)],
+                    reps=5, kernel=("scatter_columns_kernel", 7))
     print(f"[serve wave] one bf16 wave under torch.profiler: device busy "
-          f"{busy:.3f} ms; the profiler recorded {seen} of its 7 scatter "
-          f"launches, {ms:.4f} ms; the same 7 calls replayed (L2 warm, "
-          f"device time): before, clone + in-place kernel {old:.4f} ms; "
-          f"now, one out-of-place launch each {now:.4f} ms", flush=True)
-    del calls, outs
+          f"{busy:.3f} ms; its scatter launches {ms:.4f} ms; the same 7 "
+          f"calls replayed (L2 warm, device time): before, clone + in-place "
+          f"kernel {old:.4f} ms; now, one out-of-place launch each "
+          f"{now:.4f} ms", flush=True)
+    del calls, first, outs
 
 
 def phase_wave_bf16(cfg, eng):
@@ -2359,7 +2689,9 @@ def kernels_line(results: dict) -> dict:
     runs) over the wave's 7 leaves. Launches: the LM path's run (6 steps),
     the MoE path's run (6 steps; batched_dw), the rwkv path's run (6 steps;
     wkv6, wkv6_bwd), the CNN path's run (12 steps of `dynamic`) and
-    serving run B (8 waves; block_scatter_update)."""
+    serving run B (8 waves; block_scatter_update), plus the gemma path's
+    (6 steps; block_sparse_dw, fused_block_opt) and the jamba path's (6
+    steps; block_sparse_dw, batched_dw, fused_block_opt)."""
     dtypes = {"block_sparse_dw": "bfloat16", "batched_dw": "bfloat16"}
     rows = []
     for name, (route, source, replaces, _) in SOURCES.items():
@@ -2434,6 +2766,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[chip_smoke] rwkv phases done at {time.perf_counter() - t0:.0f} s",
           flush=True)
+    phase_gemma_path(results)
+    phase_compact_vs_dense(dataclasses.replace(
+        get_config("gemma3-4b"), num_layers=10), "gemma-compact-vs-dense",
+        k=GEMMA_K, batch=2, seq=2048)
+    print(f"[chip_smoke] gemma phases done at {time.perf_counter() - t0:.0f}"
+          f" s", flush=True)
+    phase_jamba_path(results)
+    phase_compact_vs_dense(jamba_cut(experts=2, period=4),
+                           "jamba-compact-vs-dense", k=1, batch=2, seq=1024,
+                           one_at_a_time=True)
+    print(f"[chip_smoke] jamba phases done at {time.perf_counter() - t0:.0f}"
+          f" s", flush=True)
     init = phase_cnn(results)
     print(f"[chip_smoke] CNN path done at {time.perf_counter() - t0:.0f} s",
           flush=True)

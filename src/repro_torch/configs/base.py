@@ -90,6 +90,8 @@ _MODULES = {
     "llama3-8b": "llama3_8b",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "rwkv6-3b": "rwkv6_3b",
+    "gemma3-4b": "gemma3_4b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 

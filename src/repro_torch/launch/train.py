@@ -54,8 +54,15 @@ def build_argparser():
     return ap
 
 
-def train_config(args) -> TrainConfig:
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+def train_config(args, model=None) -> TrainConfig:
+    """The run's TrainConfig. model: a ModelConfig that replaces the
+    arch's (a stated cut of a model too large for one card); None takes
+    `--arch` (and `--smoke`)."""
+    if model is not None:
+        cfg = model
+    else:
+        cfg = get_smoke_config(args.arch) if args.smoke \
+            else get_config(args.arch)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     sparse = SparseUpdateConfig(
         enabled=not args.dense,
@@ -78,11 +85,12 @@ def train_config(args) -> TrainConfig:
         compact_grads=args.compact_grads and not args.dense)
 
 
-def main(argv=None, on_step=None):
+def main(argv=None, on_step=None, model=None):
     """Parse `argv`, train, and return {"state", "plan", "losses"}.
 
     on_step(step, state, metrics), when given, runs after every step with
-    the new state and the step's metrics (incl. "step_ms")."""
+    the new state and the step's metrics (incl. "step_ms"). model: a
+    ModelConfig that replaces the arch's (see `train_config`)."""
     ap = build_argparser()
     args = ap.parse_args(argv)
     if args.ckpt_dir:
@@ -91,7 +99,7 @@ def main(argv=None, on_step=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("--device cuda: no CUDA device; pass --device cpu to run "
                  "on the CPU")
-    tc = train_config(args)
+    tc = train_config(args, model)
     cfg = tc.model
     state, plan = make_train_state(tc, device=device)
     if not args.dense:

@@ -34,10 +34,10 @@ from repro_torch.models.common import last_valid
 _RING = "ring (sliding-window) caches: ROADMAP queue A item 12"
 _LATER = {
     "moe": "MoE decoding: ROADMAP queue A items 12-13",
-    "gemma_super": "the gemma super-block and its ring caches: ROADMAP "
-                   "queue A items 10 and 12",
-    "jamba_super": "the jamba super-block (mamba state): ROADMAP queue A "
-                   "item 10",
+    "gemma_super": "gemma decoding (the super-block's ring caches): "
+                   "ROADMAP queue A item 12",
+    "jamba_super": "jamba decoding (mamba state caches, MoE): ROADMAP "
+                   "queue A item 12",
     "rwkv": "rwkv state caches: ROADMAP queue A item 12",
 }
 

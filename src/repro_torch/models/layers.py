@@ -111,7 +111,8 @@ def _qkv(p, cfg, x, positions, sel=None, delta=None):
     k = col_matmul(x, p["wk"], sel, "wk", delta).reshape(b, s, -1, hd)
     v = col_matmul(x, p["wv"], sel, "wv", delta).reshape(b, s, -1, hd)
     if getattr(cfg, "mrope", False):
-        raise NotImplementedError("M-RoPE comes with the qwen2-vl slice")
+        raise NotImplementedError(
+            "M-RoPE (qwen2-vl): ROADMAP queue A item 10a (not ported yet)")
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -228,7 +229,8 @@ def _grouped_scores(q, k_cat, v_cat, mask):
 def _serve_positions(cfg, start, s: int):
     """Token positions of a chunk: [B, S]."""
     if getattr(cfg, "mrope", False):
-        raise NotImplementedError("M-RoPE comes with the qwen2-vl slice")
+        raise NotImplementedError(
+            "M-RoPE (qwen2-vl): ROADMAP queue A item 10a (not ported yet)")
     return start[:, None] + torch.arange(s, dtype=torch.int32,
                                          device=start.device)[None, :]
 

@@ -1,19 +1,21 @@
-"""Decoder-only LM: the dense family (llama3 and its kin), the MoE family
-(deepseek-moe: a dense first layer, then MoE layers) and RWKV-6 (rwkv6:
-time mix + channel mix blocks behind a layernorm `ln0` on the embedding);
-the other families of the reference package come with their slices.
+"""Decoder-only LM: the dense family (llama3 and its kin), gemma3's
+local:global super-blocks, the MoE family (deepseek-moe: a dense first
+layer, then MoE layers), jamba's hybrid mamba + attention + MoE
+super-blocks and RWKV-6 (rwkv6: time mix + channel mix blocks behind a
+layernorm `ln0` on the embedding).
 
 Layout: layers are grouped into SEGMENTS of stacked params [steps, ...],
 keyed as in the reference, so a parameter tree bridged from there means the
-same model here. A segment runs as a Python loop over its stacked layers,
-carrying the MoE layers' auxiliary losses [load_balance, router_z] beside
-the hidden state.
+same model here. Heterogeneous periods (gemma 5:1, jamba 1:7) stack
+*super-blocks*, whose step runs the period's layers (`sub{i}`) in order. A
+segment runs as a Python loop over its stacked steps, carrying the MoE
+layers' auxiliary losses [load_balance, router_z] beside the hidden state.
 
 Training params arrive as a (frozen, trainable) pair of same-structure trees
-(split along the stacked-layer axis by the sparse-update plan). The frozen
+(split along the stacked-step axis by the sparse-update plan). The frozen
 prefix runs under `torch.no_grad()` unless something before it trains, so no
 activation of it is kept for backward: the paper's activation-memory
-saving. Trainable layers are recomputed in backward (`torch.utils.checkpoint`,
+saving. Trainable steps are recomputed in backward (`torch.utils.checkpoint`,
 non-reentrant) when `remat` is on, as the reference's `jax.checkpoint`.
 
 `sel` carries the channel-block selection (see core.sparse_update).
@@ -30,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_update import tree_leaves, tree_map
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R
 from repro_torch.models.common import dense_init, embed_init
@@ -50,8 +53,9 @@ def dtype_of(cfg) -> torch.dtype:
 
 class SegmentDef(NamedTuple):
     name: str
-    steps: int          # stacked layers
-    kind: str           # dense | moe | rwkv
+    steps: int          # stacked steps
+    kind: str           # dense | moe | gemma_super | jamba_super | rwkv
+    layers_per_step: int = 1
 
 
 # ---------------------------------------------------------------------------
@@ -59,26 +63,47 @@ class SegmentDef(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def segment_layout(cfg: ModelConfig) -> list[SegmentDef]:
-    """Stacked dense blocks; for MoE, a dense `first` layer (layout
-    all_but_first) and the MoE `blocks`; for RWKV-6, stacked rwkv blocks.
-    The reference's other layouts (the gemma local:global and the jamba
-    hybrid super-blocks) come with their slice."""
-    if cfg.family == "ssm" and cfg.rwkv is not None:
-        return [SegmentDef("blocks", cfg.num_layers, "rwkv")]
-    moe = cfg.family == "moe" and cfg.moe is not None
-    if ((cfg.family not in ("dense", "audio", "vlm") and not moe)
-            or cfg.attn_pattern != "full" or cfg.embed_inputs
-            or (moe and cfg.moe.layout not in ("all", "all_but_first"))):
+    """The reference's layout: RWKV-6 blocks; jamba super-blocks of
+    `attn_every` layers; gemma super-blocks of L local + G global layers
+    and a `tail` of local dense layers; for MoE a dense `first` layer
+    (layout all_but_first) and the MoE `blocks`; else dense blocks. Inputs
+    given as embeddings and M-RoPE come with the audio / vlm archs."""
+    if cfg.embed_inputs or cfg.mrope:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs the dense, MoE and RWKV-6 families so "
-            f"far (family {cfg.family}, attn_pattern {cfg.attn_pattern}); "
-            f"gemma3, mamba and jamba: ROADMAP queue A item 10")
-    if moe and cfg.moe.layout == "all_but_first":
+            f"{cfg.name}: embedding inputs and M-RoPE (musicgen, qwen2-vl): "
+            f"ROADMAP queue A item 10a (not ported yet)")
+    if cfg.family == "ssm":
+        return [SegmentDef("blocks", cfg.num_layers, "rwkv")]
+    if cfg.family == "hybrid":
+        if cfg.attn_every <= 0 or cfg.num_layers % cfg.attn_every:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not "
+                             f"whole super-blocks of {cfg.attn_every}")
+        return [SegmentDef("blocks", cfg.num_layers // cfg.attn_every,
+                           "jamba_super", cfg.attn_every)]
+    if cfg.attn_pattern.startswith("local_global"):
+        _, l, g = cfg.attn_pattern.split(":")
+        period = int(l) + int(g)
+        n_super = cfg.num_layers // period
+        tail = cfg.num_layers - n_super * period
+        segs = [SegmentDef("blocks", n_super, "gemma_super", period)]
+        if tail:
+            segs.append(SegmentDef("tail", tail, "dense"))
+        return segs
+    if cfg.moe is not None and cfg.moe.layout == "all_but_first":
         return [SegmentDef("first", 1, "dense"),
                 SegmentDef("blocks", cfg.num_layers - 1, "moe")]
-    if moe:
+    if cfg.moe is not None:
         return [SegmentDef("blocks", cfg.num_layers, "moe")]
     return [SegmentDef("blocks", cfg.num_layers, "dense")]
+
+
+def _moe_at(cfg, layer_in_period: int) -> bool:
+    """For jamba: is the FFN at this in-block index MoE?"""
+    if cfg.moe is None:
+        return False
+    if cfg.moe.layout == "every_2":
+        return layer_in_period % 2 == 1
+    return True
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +126,34 @@ def _init_moe_block(gen, cfg, dtype, device):
         "mlp_ln": L.init_norm(cfg.d_model, cfg.norm_kind, dtype, device),
         "moe": MOE.init_moe(gen, cfg, dtype, device),
     }
+
+
+def _init_gemma_super(gen, cfg, dtype, device, period: int):
+    return {f"sub{i}": _init_dense_block(gen, cfg, dtype, device)
+            for i in range(period)}
+
+
+def _init_jamba_super(gen, cfg, dtype, device):
+    """One super-block: `attn_every` sub-layers; index attn_every // 2 is
+    attention, the rest mamba; the FFN alternates dense / MoE."""
+    out = {}
+    period = cfg.attn_every
+    attn_pos = period // 2
+    for i in range(period):
+        sub = {"mixer_ln": L.init_norm(cfg.d_model, cfg.norm_kind, dtype,
+                                       device),
+               "ffn_ln": L.init_norm(cfg.d_model, cfg.norm_kind, dtype,
+                                     device)}
+        if i == attn_pos:
+            sub["attn"] = L.init_attention(gen, cfg, dtype, device)
+        else:
+            sub["mamba"] = M.init_mamba(gen, cfg, dtype, device)
+        if _moe_at(cfg, i):
+            sub["moe"] = MOE.init_moe(gen, cfg, dtype, device)
+        else:
+            sub["mlp"] = L.init_mlp(gen, cfg, dtype, device=device)
+        out[f"sub{i}"] = sub
+    return out
 
 
 def _init_rwkv_block(gen, cfg, dtype, device):
@@ -149,6 +202,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
         for i in range(seg.steps):
             if seg.kind == "moe":
                 block = _init_moe_block(g, cfg, dtype, device)
+            elif seg.kind == "gemma_super":
+                block = _init_gemma_super(g, cfg, dtype, device,
+                                          seg.layers_per_step)
+            elif seg.kind == "jamba_super":
+                block = _init_jamba_super(g, cfg, dtype, device)
             elif seg.kind == "rwkv":
                 block = _init_rwkv_block(g, cfg, dtype, device)
             else:
@@ -173,6 +231,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
 # block application
 # ---------------------------------------------------------------------------
 
+def _window_for(cfg, kind: str, sub: int) -> int:
+    """The attention window of a layer: gemma's local layers (the first L
+    of a super-block, and the tail) see `sliding_window` tokens, every
+    other layer the whole sequence (0)."""
+    if kind == "gemma_super":
+        _, l, _g = cfg.attn_pattern.split(":")
+        return cfg.sliding_window if sub < int(l) else 0
+    if kind == "dense" and cfg.attn_pattern.startswith("local_global"):
+        return cfg.sliding_window   # gemma tail layers are local
+    return 0
+
+
 def _sub_sel(sel, name):
     """Subset a selection tuple — (idx, spec) or (idx, spec, wsel) — to one
     child subtree."""
@@ -184,13 +254,18 @@ def _sub_sel(sel, name):
     return tuple(comp[name] for comp in sel)
 
 
-def _apply_dense_block(cfg, p, x, positions, sel):
+def _apply_dense_block(cfg, p, x, positions, sel, window: int = 0):
     """-> (x, None): a dense layer has no auxiliary losses."""
     h = L.apply_norm(p["attn_ln"], x)
-    x = x + L.attention(p["attn"], cfg, h, positions,
+    x = x + L.attention(p["attn"], cfg, h, positions, window=window,
                         sel=_sub_sel(sel, "attn"))
     h = L.apply_norm(p["mlp_ln"], x)
     return x + L.apply_mlp(p["mlp"], cfg, h, sel=_sub_sel(sel, "mlp")), None
+
+
+def _apply_dense_step(cfg, p, x, positions, sel):
+    return _apply_dense_block(cfg, p, x, positions, sel,
+                              _window_for(cfg, "dense", 0))
 
 
 def _apply_moe_block(cfg, p, x, positions, sel):
@@ -201,6 +276,47 @@ def _apply_moe_block(cfg, p, x, positions, sel):
     h = L.apply_norm(p["mlp_ln"], x)
     y, aux = MOE.apply_moe(p["moe"], cfg, h, sel=_sub_sel(sel, "moe"))
     return x + y, torch.stack([aux["load_balance"], aux["router_z"]])
+
+
+def _apply_gemma_super(cfg, p, x, positions, sel):
+    """The period's dense layers in order, local then global -> (x,
+    None)."""
+    for i in range(len(p)):
+        x, _ = _apply_dense_block(cfg, p[f"sub{i}"], x, positions,
+                                  _sub_sel(sel, f"sub{i}"),
+                                  _window_for(cfg, "gemma_super", i))
+    return x, None
+
+
+def _apply_jamba_super(cfg, p, x, positions, sel):
+    """The period's sub-layers in order: a mixer (attention at index
+    attn_every // 2, mamba elsewhere) and an FFN (MoE at the odd indices,
+    dense elsewhere) -> (x, the MoE layers' [load_balance, router_z]
+    summed)."""
+    period = cfg.attn_every
+    attn_pos = period // 2
+    aux = None
+    for i in range(period):
+        sub = p[f"sub{i}"]
+        ssel = _sub_sel(sel, f"sub{i}")
+        h = L.apply_norm(sub["mixer_ln"], x)
+        if i == attn_pos:
+            x = x + L.attention(sub["attn"], cfg, h, positions,
+                                sel=_sub_sel(ssel, "attn"))
+        else:
+            y, _ = M.apply_mamba(sub["mamba"], cfg, h,
+                                 sel=_sub_sel(ssel, "mamba"))
+            x = x + y
+        h = L.apply_norm(sub["ffn_ln"], x)
+        if _moe_at(cfg, i):
+            y, a = MOE.apply_moe(sub["moe"], cfg, h,
+                                 sel=_sub_sel(ssel, "moe"))
+            a = torch.stack([a["load_balance"], a["router_z"]])
+            aux = a if aux is None else aux + a
+        else:
+            y = L.apply_mlp(sub["mlp"], cfg, h, sel=_sub_sel(ssel, "mlp"))
+        x = x + y
+    return x, aux
 
 
 def _apply_rwkv_block(cfg, p, x, positions, sel):
@@ -214,8 +330,9 @@ def _apply_rwkv_block(cfg, p, x, positions, sel):
     return x + y, None
 
 
-_APPLY = {"dense": _apply_dense_block, "moe": _apply_moe_block,
-          "rwkv": _apply_rwkv_block}
+_APPLY = {"dense": _apply_dense_step, "moe": _apply_moe_block,
+          "gemma_super": _apply_gemma_super,
+          "jamba_super": _apply_jamba_super, "rwkv": _apply_rwkv_block}
 
 
 def _unstack(tree, steps: int) -> list:

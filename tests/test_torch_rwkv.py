@@ -131,10 +131,18 @@ def test_serving_forms_refuse_with_their_roadmap_item():
 
 
 def test_other_recurrent_and_hybrid_families_still_refuse():
-    for name in ("gemma3", "jamba"):
-        cfg = dataclasses.replace(
-            get_smoke_config("llama3-8b"), name=name,
-            **({"attn_pattern": "local_global:5:1"} if name == "gemma3"
-               else {"family": "hybrid", "attn_every": 2}))
-        with pytest.raises(NotImplementedError, match="item 10"):
+    """gemma3 and jamba train now (tests/test_torch_gemma.py,
+    test_torch_jamba.py); their serving caches are still refused, naming
+    item 12, and the layout refuses embedding inputs and M-RoPE, naming
+    item 10a."""
+    from repro_torch.models import decoding as PD
+    for arch in ("gemma3-4b", "jamba-1.5-large-398b"):
+        cfg = get_smoke_config(arch)
+        assert PT.segment_layout(cfg)[0].kind in ("gemma_super",
+                                                  "jamba_super")
+        with pytest.raises(NotImplementedError, match="item 12"):
+            PD.init_cache(cfg, 1, 16, device="meta")
+    for kw in ({"embed_inputs": True}, {"mrope": True}):
+        cfg = dataclasses.replace(get_smoke_config("llama3-8b"), **kw)
+        with pytest.raises(NotImplementedError, match="item 10a"):
             PT.segment_layout(cfg)
