@@ -12,10 +12,12 @@ Phases (any failure exits non-zero and prints no result):
    (M = 4096 tokens, full llama3-8b widths; every activation shape of the
    full-width MobileNetV2 at batch 32), with their times, bounds and the
    library call's time; the dW on both instances at every bf16 leaf of
-   one trainable llama3-8b, deepseek-moe-16b, rwkv6-3b and gemma3-4b
-   layer and of one layer of the jamba cut (M = 2048; its experts E = 4,
-   capacity 1281), at M = 32768, capacity 17 and 8192, two shards with
-   the last block
+   one trainable llama3-8b, deepseek-moe-16b, rwkv6-3b, gemma3-4b,
+   nemotron-4-15b, command-r-35b and llama4-scout-17b-a16e layer (its
+   experts E = 16, capacity 321), of llama3-8b at train_4k (M = 8192) and
+   of one layer of the jamba cut (M = 2048; its experts E = 4, capacity
+   1281), at M = 32768, capacity 17 and 8192, two shards with the last
+   block
    selected, with exact layout probes (one-hot x, ramp dy) for both tile
    widths, two calls bitwise equal, and the calls that take the grid
    instance (fp32, block 8, block 96, misaligned, ragged K or N, capacity
@@ -72,14 +74,16 @@ Phases (any failure exits non-zero and prints no result):
 12d. the gemma path: the compact train step on full-width gemma3-4b (34
    layers, no depth cut: 5 super-blocks of 5 local + 1 global layers and
    a tail of 4 local ones; bf16, tied embeddings, vocab 262144, head_dim
-   320, window 1024), batch 2 x seq 2048, K = 5 scan steps (the tail and
+   320, window 1024), batch 1 x seq 4096 (the flash path; the same 4096
+   tokens a step as batch 2 x 2048), K = 5 scan steps (the tail and
    the last super-block), AdamW, 6 steps through
    `repro_torch.launch.train`, counts zeroed just before and read just
    after: exactly the launches its plan derives (60 block_sparse_dw and
    42 fused_block_opt) every step, no grid dW, the unselected blocks of
-   the global layer's wo unchanged every step; one profiled step; the
-   frozen params bitwise against a fresh init; compact against
-   dense-scatter (SGD, 2 steps) bitwise at full width cut to 10 layers;
+   the global layer's wo unchanged every step; one profiled step with the
+   flash path's share; the frozen params bitwise against a fresh init;
+   compact against dense-scatter (SGD, 2 steps) bitwise at full width cut
+   to 10 layers;
 12e. the jamba path: jamba-1.5-large-398b at published widths (d_model
    8192, d_ff 24576, vocab 65536, d_inner 16384, d_state 16) CUT to one
    super-block (72 -> 8 layers: 7 mamba, attention at index 4, MoE on the
@@ -118,7 +122,41 @@ Phases (any failure exits non-zero and prints no result):
 15. oracle parity at full widths cut to 4 layers, f32: the engine's greedy
    tokens against the contiguous prefill + decode_step oracle, plain and,
    after one wave, personalized (the delta dense-scattered into the
-   oracle's params), with every step's top-2 logit gap probed.
+   oracle's params), with every step's top-2 logit gap probed;
+16. flash attention (the path past 2048 tokens) against the dense path at
+   layer level: llama3-8b's attention (32 / 8 heads of 128, batch 2 x
+   4096) and gemma3-4b's local layers (8 / 4 heads of 320, window 1024,
+   batch 1 x 4096), bf16 and fp32, the output and the gradients of
+   (out²).sum(), and the custom backward against autograd through the
+   forward (naive_vjp), each within its stated bound; forward + backward
+   timed beside the dense path and F.scaled_dot_product_attention (a
+   yardstick only), with each one's peak bytes;
+17. the LM path at the reference's train_4k shape: full-width llama3-8b,
+   batch 2 x seq 4096 (the cell's global batch of 256 is a pod's), AdamW,
+   6 steps, launches as the plan derives them, one profiled step with the
+   flash path's share of device time, the frozen params bitwise against a
+   fresh init, compact against dense-scatter bitwise at full depth;
+18. prefill of 32768 tokens (prefill_32k, batch 32 cut to 1) through
+   `models.decoding.prefill` on full-width llama3-8b: wall and synced ms,
+   tokens/s, peak bytes, finite last-token logits, cache pos and shapes;
+   and a 4096-token prefill against the same model's forced through the
+   dense path, within a stated bf16 bound;
+19. the reference's other text-only archs at train_4k, batch 1 x seq
+   4096, K = 2, 6 steps through the launcher, each with the LM path's
+   checks (launches as its plan derives them, one profiled step with the
+   flash path's share, frozen params against a fresh init, compact
+   against dense-scatter bitwise): nemotron-4-15b at full depth (32
+   layers; layernorm, squared ReLU) with AdamW; command-r-35b (layernorm,
+   tied embeddings) cut 40 -> 24 layers, AdamW; llama4-scout-17b-a16e
+   (MoE in every layer, 16 experts top-1 + 1 shared) cut 48 -> 8 layers
+   with all 16 experts, SGD lr 0.1, its dropped share and every expert
+   leaf's unselected blocks through the first fixed phase against the
+   init, its compact against dense-scatter cut further to 4 layers; the
+   cuts pass to the launcher as `model=`.
+
+The long-sequence phases 16-19 run last, so that the profiler windows
+of the earlier phases open where they did before them (a window can lose
+kernels, more often late in the process; PERF.md §6).
 
 Phase 3 also holds the expert-batched dW (`batched_dw`) against its plain
 version at the three expert leaf shapes of the MoE path (64 experts,
@@ -136,6 +174,7 @@ The last lines are one JSON object with every kernel's numbers, and then
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -166,13 +205,19 @@ MOE_ARGV = ["--arch", "deepseek-moe-16b"] + MAIN_ARGV[2:]
 RWKV_ARGV = ["--arch", "rwkv6-3b"] + MAIN_ARGV[2:]
 MOE_J = 2                  # the first fixed phase of the MoE run
 C_LONG = 8192              # the batched dW at a long capacity
-# the gemma path: full-width gemma3-4b (34 layers), batch 2 x seq 2048 (the
-# 1024-token window restricts the local layers), K = 5 scan steps (the
-# 4-layer tail and the last super-block, which holds a global layer)
+# the LM at the reference's train_4k shape (seq 4096, past the dense path's
+# 2048: the flash path): its global batch of 256 is a pod's, cut to 2
+TRAIN4K_ARGV = ["--arch", "llama3-8b", "--steps", "6", "--batch", "2",
+                "--seq", "4096"] + MAIN_ARGV[8:]
+PREFILL_TOKENS = 32768     # the reference's prefill_32k, batch 32 cut to 1
+# the gemma path: full-width gemma3-4b (34 layers), batch 1 x seq 4096 (the
+# flash path; the 1024-token window restricts the local layers to 3 of 8
+# diagonals), K = 5 scan steps (the 4-layer tail and the last super-block,
+# which holds a global layer)
 GEMMA_K = 5
-GEMMA_TOKENS = 2 * 2048
-GEMMA_ARGV = ["--arch", "gemma3-4b", "--steps", "6", "--batch", "2",
-              "--seq", "2048", "--compact-grads",
+GEMMA_TOKENS = 1 * 4096
+GEMMA_ARGV = ["--arch", "gemma3-4b", "--steps", "6", "--batch", "1",
+              "--seq", "4096", "--compact-grads",
               "--update-layers", str(GEMMA_K), "--update-ratio", "0.2",
               "--channel-block", "128", "--optimizer", "adamw",
               "--phase-j", "2", "--phase-k", "2", "--log-every", "1",
@@ -190,6 +235,26 @@ JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--steps", "6", "--batch",
               "--optimizer", "sgd", "--lr", "0.1", "--phase-j",
               str(JAMBA_J), "--phase-k", "2", "--log-every", "1",
               "--seed", "0"]
+# the reference's other text-only archs at its train_4k shape, batch 1,
+# K = 2: nemotron-4-15b at full depth; command-r-35b cut 40 -> 24 layers
+# (the uncut 60.6 GB of bf16 params, the tied head's 8.4 GB fp32 copy in
+# the loss and AdamW's state leave no room for a step's activations);
+# llama4-scout-17b-a16e cut 48 -> 8 layers with all 16 experts (~108 B
+# params uncut) and SGD, the paper's optimizer (AdamW's fp32 state on one
+# 2.2 B-param layer alone is ~17.6 GB). The cuts pass to the launcher as
+# `model=`; the config files keep the published depths.
+TEXT_ARGV = ["--steps", "6", "--batch", "1", "--seq", "4096"] + MAIN_ARGV[8:]
+NEMOTRON_ARGV = ["--arch", "nemotron-4-15b"] + TEXT_ARGV
+COMMAND_R_LAYERS = 24
+COMMAND_R_ARGV = ["--arch", "command-r-35b"] + TEXT_ARGV
+SCOUT_LAYERS = 8
+SCOUT_J = 2                # the first fixed phase of the llama4-scout run
+SCOUT_ARGV = ["--arch", "llama4-scout-17b-a16e", "--steps", "6", "--batch",
+              "1", "--seq", "4096", "--compact-grads", "--update-layers",
+              str(K_LAYERS), "--update-ratio", "0.2", "--channel-block",
+              "128", "--optimizer", "sgd", "--lr", "0.1", "--phase-j",
+              str(SCOUT_J), "--phase-k", "2", "--log-every", "1", "--seed",
+              "0"]
 SERVE_RATIO = 0.25         # the serving launcher's per-user update ratio
 # name -> (route, source, the TPU kernel it replaces, the path that launches
 # it). block_sparse_dw also replaces block_sparse_dw_pipelined_kernel
@@ -279,6 +344,12 @@ def _rows(prof) -> list:
             if e.device_type == DeviceType.CUDA]
 
 
+# windows that lose kernels come at random, more often late in a long
+# process (PERF.md §6-7): a window that lost one is profiled again, up to
+# this many windows in all
+PROFILE_ATTEMPTS = 8
+
+
 def device_ms(fn, reps: int = 20, warmup: int = 2, flush=None,
               kernel=None) -> float:
     """The card's time per call: the device time of every kernel `fn`
@@ -290,13 +361,14 @@ def device_ms(fn, reps: int = 20, warmup: int = 2, flush=None,
     call reads its inputs from device memory, as the byte bound assumes.
     kernel: (name, launches per call) of a port kernel `fn` launches; the
     window must hold all reps x launches of it, else it is profiled again
-    (at most 3 times): a profiler window on the card can lose kernels
-    (PERF.md §6), and one that did would time fewer calls than reps."""
+    (at most PROFILE_ATTEMPTS times): a profiler window on the card can
+    lose kernels (PERF.md §6), and one that did would time fewer calls
+    than reps."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 if flush is not None:
@@ -313,7 +385,8 @@ def device_ms(fn, reps: int = 20, warmup: int = 2, flush=None,
         print(f"[profile] the window recorded {seen} of {reps * per_call} "
               f"{name} launches: profiled again", flush=True)
     else:
-        raise SmokeError(f"three profiler windows lost {name} launches")
+        raise SmokeError(f"{PROFILE_ATTEMPTS} profiler windows lost {name} "
+                         f"launches")
     us = sum(_dev_us(e) for e in rows
              if not (flush is not None and "FillFunctor" in e.key))
     return us / reps / 1e3
@@ -455,15 +528,18 @@ def _new_sums() -> dict:
             "bytes": 0.0, "max_abs_err": 0.0}
 
 
-def _dw_case(tag, x, dy, idx, spec, want_inst: str, reps: int = 20):
+def _dw_case(tag, x, dy, idx, spec, want_inst: str, reps: int = 20,
+             profiled: bool = True):
     """One dW call shape: the instance the wrapper picks must be
     `want_inst`; each instance that can take the call against the plain
     version (fp32 sums over M in another order: 1e-4 of the largest output),
     the picked one twice, bitwise equal. Times are the card's (profiler
     device time over `reps` calls): CUDA events around back-to-back calls
     also count the gaps between launches, ~5 us a call, a seventh of the
-    smallest leaves' time; the events' time is returned beside. Returns
-    ({instance: (ms, err, events_ms)}, plain_ms, tol)."""
+    smallest leaves' time; the events' time is returned beside.
+    profiled=False: CUDA events only (ms is events_ms), one profiler
+    window fewer per call. Returns ({instance: (ms, err, events_ms)},
+    plain_ms, tol)."""
     from repro_torch.kernels import ops, ref
     batched = x.dim() == 3
     fn = ops.block_sparse_dw_batched if batched else ops.block_sparse_dw
@@ -486,8 +562,9 @@ def _dw_case(tag, x, dy, idx, spec, want_inst: str, reps: int = 20):
                   f"dW {inst} {tag}: two calls differ")
         call = functools.partial(fn, x, dy, idx, spec,
                                  pipelined=inst == "pipelined")
-        res[inst] = (device_ms(call, reps=reps, kernel=("dw_", 1)), err,
-                     cuda_ms(call, reps=reps))
+        ev = cuda_ms(call, reps=reps)
+        res[inst] = (device_ms(call, reps=reps, kernel=("dw_", 1))
+                     if profiled else ev, err, ev)
         del got
     if picked == "grid":
         try:
@@ -497,7 +574,9 @@ def _dw_case(tag, x, dy, idx, spec, want_inst: str, reps: int = 20):
         else:
             raise SmokeError(f"dW {tag}: the pipelined instance took a call "
                              f"it cannot run")
-    plain = device_ms(lambda: plain_fn(x, dy, idx, spec.block), reps=reps)
+    plain_call = lambda: plain_fn(x, dy, idx, spec.block)
+    plain = device_ms(plain_call, reps=reps) if profiled \
+        else cuda_ms(plain_call, reps=reps)
     del want
     return res, plain, tol
 
@@ -513,16 +592,25 @@ def _dw_bound(m, fan_in, spec, experts: int, dtype):
     return (flops, nbytes) + bound_ms(flops, nbytes, _dname(dtype))
 
 
+# the dW paths timed with CUDA events only (check_dw)
+EVENTS_ONLY = ("lm-train4k", "nemotron", "command-r", "scout")
+
+
 def check_dw(leaves: dict, gen, sums: dict):
     """The dense dW at every leaf shape of one trainable layer of the LM
     (llama3-8b, bf16 and fp32), MoE (deepseek-moe-16b: 4 attention and 3
-    shared-expert leaves), rwkv (rwkv6-3b: 8 leaves) and gemma (gemma3-4b:
-    wq, wk, wv, wo, w_up, w_down) paths at M = 4096, and of the jamba cut
-    (mamba in_proj / out_proj, 4 attention and 3 dense FFN leaves) at its
-    M = 2048:
+    shared-expert leaves), rwkv (rwkv6-3b: 8 leaves), gemma (gemma3-4b:
+    wq, wk, wv, wo, w_up, w_down), nemotron-4-15b (6 leaves),
+    command-r-35b (7) and llama4-scout (4 attention and 3 shared-expert
+    leaves) paths at M = 4096, of the LM at train_4k (M = 8192) and of the
+    jamba cut (mamba in_proj / out_proj, 4 attention and 3 dense FFN
+    leaves) at its M = 2048:
     bf16 takes the pipelined (TMA + wgmma) instance, fp32 the grid one
     (exact products), each held against the plain version. The LM's bf16
-    times go into the sums; each path's sums are printed."""
+    times go into the sums; each path's sums are printed. The train_4k and
+    text-arch leaves are timed with CUDA events only: a profiler window on
+    this card can lose kernels (PERF.md §7), and every window more is one
+    more chance of a spurious failure."""
     from repro_torch.kernels import ref
     bf16 = (torch.bfloat16,)
     paths = (("lm", leaves, (torch.bfloat16, torch.float32), M_TOKENS),
@@ -531,7 +619,11 @@ def check_dw(leaves: dict, gen, sums: dict):
              ("gemma", _dense_leaves("gemma3-4b", seg="tail"), bf16,
               GEMMA_TOKENS),
              ("jamba", _dense_leaves("", model=jamba_cut()), bf16,
-              JAMBA_TOKENS))
+              JAMBA_TOKENS),
+             ("lm-train4k", leaves, bf16, 2 * 4096),
+             ("nemotron", _dense_leaves("nemotron-4-15b"), bf16, 4096),
+             ("command-r", _dense_leaves("command-r-35b"), bf16, 4096),
+             ("scout", _dense_leaves("llama4-scout-17b-a16e"), bf16, 4096))
     for path, path_leaves, dtypes, m in paths:
         for dtype in dtypes:
             tot = {"ms": 0.0, "events_ms": 0.0, "library_ms": 0.0,
@@ -543,11 +635,14 @@ def check_dw(leaves: dict, gen, sums: dict):
                                  device="cuda").to(dtype)
                 idx = _rand_idx((spec.n_shards,), spec, gen)
                 main = "pipelined" if dtype == torch.bfloat16 else "grid"
+                profiled = path not in EVENTS_ONLY
                 res, plain, tol = _dw_case(f"{path} {leaf} {_dname(dtype)}",
-                                           x, dy, idx, spec, main)
+                                           x, dy, idx, spec, main,
+                                           profiled=profiled)
                 dy_sel = ref.gather_dy_blocks(dy, idx, spec.block).reshape(
                     m, -1).contiguous()
-                lib = device_ms(lambda: torch.matmul(x.t(), dy_sel))
+                lib = (device_ms if profiled else cuda_ms)(
+                    lambda: torch.matmul(x.t(), dy_sel))
                 flops, nbytes, b_ms, b_by = _dw_bound(m, fan_in, spec, 1,
                                                       dtype)
                 for inst, (ms, err, ev) in res.items():
@@ -985,8 +1080,9 @@ def _batched_case(e, c, fan_in, out, spec, dtype, gen, offset: int = 0):
 def check_batched_dw(gen, sums: dict):
     """The expert-batched dW at the three expert leaf shapes of the MoE path
     (E = 64, capacity 481, bf16: the pipelined instance, and the grid one
-    beside it) and of the jamba cut (E = 4, capacity 1281 for 2048 tokens
-    top-2), an fp32 case and one with its base pointers off alignment
+    beside it), of the jamba cut (E = 4, capacity 1281 for 2048 tokens
+    top-2) and of llama4-scout (E = 16, capacity 321 for 4096 tokens
+    top-1), an fp32 case and one with its base pointers off alignment
     (both take the grid instance and refuse the pipelined one), one at a
     long capacity, and the dense-scatter form's dW, exactly zero outside the
     selected blocks. The bf16 main-path times go into the sums."""
@@ -994,25 +1090,29 @@ def check_batched_dw(gen, sums: dict):
     from repro_torch.kernels import ops, ref
     jamba = _moe_leaves(model=jamba_cut(), tokens=JAMBA_TOKENS,
                         group=("sub1", "moe"))
-    e, c, leaves = _moe_leaves()
+    scout = _moe_leaves("llama4-scout-17b-a16e", tokens=4096)
+    paths = {"moe": _moe_leaves(), "jamba": jamba, "scout": scout}
     cases = [("moe", leaf, torch.bfloat16, 0, "pipelined")
-             for leaf in leaves] + \
+             for leaf in paths["moe"][2]] + \
         [("moe", "w_gate", torch.float32, 0, "grid"),
          ("moe", "w_gate", torch.bfloat16, 1, "grid")] + \
-        [("jamba", leaf, torch.bfloat16, 0, "pipelined")
-         for leaf in jamba[2]]
+        [(path, leaf, torch.bfloat16, 0, "pipelined")
+         for path in ("jamba", "scout") for leaf in paths[path][2]]
     for path, leaf, dtype, offset, main in cases:
-        e, c, leaves = jamba if path == "jamba" else _moe_leaves()
+        e, c, leaves = paths[path]
         fan_in, out, spec = leaves[leaf]
         x, dy, idx = _batched_case(e, c, fan_in, out, spec, dtype, gen,
                                    offset)
         tag = f"{path} experts {leaf} {_dname(dtype)}" + (
             " base pointers off alignment" if offset else "")
-        res, plain, tol = _dw_case(tag, x, dy, idx, spec, main)
+        profiled = path not in EVENTS_ONLY
+        res, plain, tol = _dw_case(tag, x, dy, idx, spec, main,
+                                   profiled=profiled)
         dy_sel = ref.gather_dy_blocks(dy.reshape(e * c, out), idx,
                                       spec.block).reshape(e, c, -1)
         dy_sel = dy_sel.contiguous()
-        lib = device_ms(lambda: torch.bmm(x.transpose(1, 2), dy_sel))
+        lib = (device_ms if profiled else cuda_ms)(
+            lambda: torch.bmm(x.transpose(1, 2), dy_sel))
         flops, nbytes, b_ms, b_by = _dw_bound(c, fan_in, spec, e, dtype)
         for inst, (ms, err, ev) in res.items():
             print(f"[kernel] batched_dw {inst} {tag} E={e} C={c} K={fan_in} "
@@ -1406,22 +1506,64 @@ def phase_main_path(results: dict):
     return tc, out
 
 
-def profile_step(tag: str, run):
+FLASH_RANGE = "flash_attention"
+
+
+@contextlib.contextmanager
+def flash_ranges():
+    """Within the block every `layers._sdpa_flash` call runs inside the
+    profiler range "flash_attention"; its backward is the autograd node
+    `_FlashAttnBackward`, a range of its own."""
+    from repro_torch.models import layers as L
+    inner = L._sdpa_flash
+
+    def ranged(*args, **kw):
+        with torch.profiler.record_function(FLASH_RANGE):
+            return inner(*args, **kw)
+
+    L._sdpa_flash = ranged
+    try:
+        yield
+    finally:
+        L._sdpa_flash = inner
+
+
+def attention_ms(prof) -> float:
+    """Device ms of the flash path in a profile taken under
+    `flash_ranges`: every kernel inside a "flash_attention" range (forward
+    and checkpoint recompute) and inside the `_FlashAttnBackward` node (the
+    largest of its nested ranges, which hold the same kernels)."""
+    from torch.autograd import DeviceType
+    incl = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            incl[e.key] = getattr(e, "device_time_total",
+                                  getattr(e, "cuda_time_total", 0.0))
+    bwd = max((us for key, us in incl.items()
+               if "_FlashAttnBackward" in key), default=0.0)
+    return (incl.get(FLASH_RANGE, 0.0) + bwd) / 1e3
+
+
+def profile_step(tag: str, run, attention: bool = False):
     """`run()` once under torch.profiler, then synced: device time by
     kernel, the share of the wall time the device sits idle, and the port's
-    kernels' share."""
+    kernels' share; with `attention`, the flash path's device time and
+    share too."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    ranges = flash_ranges() if attention else contextlib.nullcontext()
+    with ranges, profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
+    # a record_function range shows as a device row of its own (its span
+    # on the card): not a kernel
     rows = sorted(((_dev_us(e), e.key, e.count) for e in _rows(prof)
-                   if _dev_us(e) > 0), reverse=True)
+                   if _dev_us(e) > 0 and e.key != FLASH_RANGE), reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     check(busy_ms > 0, "the profiler saw no device time")
     # each row to the first port kernel name it holds (the batched dW's
@@ -1439,17 +1581,24 @@ def profile_step(tag: str, run):
           f"{ours / busy_ms:.4f} by_kernel_ms="
           f"{ {k: round(v, 3) for k, v in by_kernel.items()} } "
           f"by_kernel_share="
-          f"{ {k: round(v / busy_ms, 4) for k, v in by_kernel.items()} }",
-          flush=True)
+          f"{ {k: round(v / busy_ms, 4) for k, v in by_kernel.items()} } "
+          f"[{card_line()}]", flush=True)
+    if attention:
+        att = attention_ms(prof)
+        print(f"[profile] {tag}: flash attention (forward, recompute and "
+              f"backward) device_ms={att:.1f} share_of_busy="
+              f"{att / busy_ms:.4f}", flush=True)
     for us, key, count in rows[:15]:
         print(f"[profile] {us / 1e3:9.2f} ms {100 * us / 1e3 / busy_ms:5.1f}% "
               f"x{count:<5d} {key[:90]}", flush=True)
     return busy_ms
 
 
-def phase_profile(tc, out, tag: str = "one fixed-phase step"):
+def phase_profile(tc, out, tag: str = "one fixed-phase step",
+                  attention: bool = False):
     """One more step of a run's state (the late fixed phase) under
-    torch.profiler; returns its device busy ms."""
+    torch.profiler (`attention`: with the flash path's share); returns its
+    device busy ms."""
     from repro_torch.data import lm_batches
     from repro_torch.train import make_train_step
 
@@ -1457,7 +1606,8 @@ def phase_profile(tc, out, tag: str = "one fixed-phase step"):
     batch = next(lm_batches(tc.shape.global_batch, tc.shape.seq_len,
                             tc.model.vocab_size, seed=tc.seed, start_step=6))
     batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
-    return profile_step(tag, lambda: step_fn(out["state"], batch))
+    return profile_step(tag, lambda: step_fn(out["state"], batch),
+                        attention)
 
 
 def phase_compact_vs_dense(cfg, tag: str = "compact-vs-dense",
@@ -1530,6 +1680,253 @@ def phase_compact_vs_dense(cfg, tag: str = "compact-vs-dense",
     print(f"[{tag}] {cfg.name} {cfg.num_layers} layers, K={k}, batch "
           f"{batch} x seq {seq}, sgd, 2 fixed-phase steps: all {n} trainable "
           f"leaves bitwise equal", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# past 2048 tokens: the flash path (ROADMAP item 7a)
+# ---------------------------------------------------------------------------
+
+def _attention_shape(arch: str, batch: int, seq: int) -> tuple:
+    """(batch, seq, query heads, KV heads, head dim, window) of `arch`'s
+    attention; the window of gemma's local layers."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return (batch, seq, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.sliding_window)
+
+
+def _sdpa_yardstick(q, k, v, window: int):
+    """F.scaled_dot_product_attention on the same function (the library's
+    own choice of kernel), the KV heads expanded: causal, or under a window
+    with its boolean mask. A yardstick only: no path of the port calls
+    it."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    hq, s = q.shape[2], q.shape[1]
+    qt, kt, vt = (t.transpose(1, 2) for t in
+                  (q, L._expand_kv(k, hq), L._expand_kv(v, hq)))
+    if window:
+        i = torch.arange(s, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[:, None] - i[None, :] < window)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    else:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    return out.transpose(1, 2)
+
+
+def _peak_bytes(fn) -> int:
+    """Device bytes `fn()` allocates at its peak beyond what was allocated
+    before it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _flash_case(arch: str, shape: tuple, dtype, gen, card: str):
+    """One attention shape in one dtype: the flash path's output and the
+    gradients of (out²).sum() for q, k and v against the dense path and
+    against its own forward differentiated by autograd (naive_vjp), then
+    forward + backward timed beside the dense path and
+    F.scaled_dot_product_attention, with each one's peak bytes.
+
+    fp32: the reference test's tolerances, 1e-4 / 1e-5 on the output and
+    1e-3 / 1e-4 on the gradients, against dense and naive alike.
+    bf16: the output within 2^-7 of max|v| of the dense path's (each path
+    rounds the probabilities to bf16, 2^-9 relative, at another point, and
+    the output once more: 2 x 2^-9 max|v| + 2 x 2^-9 max|out|); the
+    gradients no further from the fp32 flash gradients on the same bf16
+    values than twice the dense path's, plus half a bf16 ulp of the largest
+    (2^-9 of it); against naive, the same output and gradients within 2^-6
+    of the largest (p and ds round to bf16 only in the custom backward)."""
+    from repro_torch.models import layers as L
+    b, s, hq, hkv, d, window = shape
+    base = [torch.randn((b, s, h, d), generator=gen,
+                        device="cuda").to(dtype) for h in (hq, hkv, hkv)]
+
+    def fwd_bwd(fn, inputs=base):
+        ins = [t.clone().requires_grad_(True) for t in inputs]
+        out = fn(*ins)
+        (out.float() ** 2).sum().backward()
+        return out.detach(), [t.grad for t in ins]
+
+    fns = {"flash": lambda q, k, v: L._sdpa_flash(q, k, v, window),
+           "naive": lambda q, k, v: L._sdpa_flash(q, k, v, window,
+                                                  naive_vjp=True),
+           "dense": lambda q, k, v: L._sdpa_dense(q, k, v, window),
+           "sdpa": lambda q, k, v: _sdpa_yardstick(q, k, v, window)}
+    res = {name: fwd_bwd(fn) for name, fn in fns.items()}
+    err = lambda a, b: float((a.float() - b.float()).abs().max())
+    (fo, fg), (no, ng), (do, dg) = res["flash"], res["naive"], res["dense"]
+    tag = f"{arch} {_dname(dtype)} {b} x {s}, {hq} / {hkv} heads of {d}, " \
+          f"window {window}"
+    check(torch.equal(fo, no), f"flash {tag}: the custom forward differs "
+                               f"from the naive one")
+    out_err = err(fo, do)
+    g_dense = [err(a, c) for a, c in zip(fg, dg)]
+    g_naive = [err(a, c) for a, c in zip(fg, ng)]
+    if dtype == torch.float32:
+        check(torch.allclose(fo, do, rtol=1e-4, atol=1e-5),
+              f"flash {tag}: output differs from dense by {out_err}")
+        for name, ref_g in (("dense", dg), ("naive", ng)):
+            for a, c, n in zip(fg, ref_g, "qkv"):
+                check(torch.allclose(a, c, rtol=1e-3, atol=1e-4),
+                      f"flash {tag}: d{n} differs from {name} by {err(a, c)}")
+        bounds = "fp32 1e-4/1e-5 out, 1e-3/1e-4 grads"
+    else:
+        out_tol = 2.0 ** -7 * float(base[2].float().abs().max())
+        check(out_err <= out_tol,
+              f"flash {tag}: output differs from dense by {out_err} > "
+              f"{out_tol}")
+        _, g32 = fwd_bwd(fns["flash"], [t.float() for t in base])
+        for a, c, ref, n in zip(fg, dg, g32, "qkv"):
+            tol = 2 * err(c, ref) + 2.0 ** -9 * float(ref.abs().max())
+            check(err(a, ref) <= tol,
+                  f"flash {tag}: d{n} is {err(a, ref)} from fp32, more than "
+                  f"{tol} (twice the dense path's {err(c, ref)} + 2^-9 of "
+                  f"the largest)")
+            tol_n = 2.0 ** -6 * float(ng["qkv".index(n)].float().abs().max())
+            check(err(a, ng["qkv".index(n)]) <= tol_n,
+                  f"flash {tag}: d{n} differs from naive by more than "
+                  f"{tol_n}")
+        del g32
+        bounds = "bf16 out 2^-7 max|v|, grads 2 x dense's + 2^-9 from fp32"
+    del res, fo, fg, no, ng, do, dg
+    times = {name: cuda_ms(lambda fn=fns[name]: fwd_bwd(fn), reps=3,
+                           warmup=1) for name in ("flash", "dense", "sdpa")}
+    peaks = {name: _peak_bytes(lambda fn=fns[name]: fwd_bwd(fn))
+             for name in ("flash", "naive", "dense", "sdpa")}
+    print(f"[flash] {tag}: forward equal to naive; max abs err vs dense out "
+          f"{out_err:.3e} dq/dk/dv {[f'{e:.3e}' for e in g_dense]}, vs naive "
+          f"{[f'{e:.3e}' for e in g_naive]} ({bounds}); forward + backward "
+          f"ms: flash {times['flash']:.3f} dense {times['dense']:.3f} "
+          f"F.scaled_dot_product_attention (yardstick) {times['sdpa']:.3f}; "
+          f"peak bytes: flash {peaks['flash']} naive {peaks['naive']} dense "
+          f"{peaks['dense']} sdpa {peaks['sdpa']} [{card}]", flush=True)
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_flash():
+    """The flash path against the dense one on the card at layer level:
+    llama3-8b's attention (32 / 8 heads of 128, batch 2 x 4096) and
+    gemma3-4b's local layers (8 / 4 heads of 320, window 1024, batch 1 x
+    4096), bf16 and fp32."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    card = card_line()
+    for arch, batch in (("llama3-8b", 2), ("gemma3-4b", 1)):
+        for dtype in (torch.bfloat16, torch.float32):
+            _flash_case(arch, _attention_shape(arch, batch, 4096), dtype, gen,
+                        card)
+
+
+def _add_launches(results: dict, totals: dict) -> None:
+    for name, n in totals.items():
+        results["launches"][name] = results["launches"].get(name, 0) + n
+
+
+def phase_train4k(results: dict):
+    """The LM path at the reference's train_4k shape: 6 compact AdamW steps
+    of full-width llama3-8b, batch 2 x seq 4096, through the launcher
+    (launches as the plan derives them), one profiled step with the flash
+    path's share, the frozen params against a fresh init."""
+    from repro_torch.configs import get_config
+    cfg = get_config("llama3-8b")
+    print(f"[train4k] llama3-8b full width, {cfg.num_layers} layers (no "
+          f"depth cut), batch 2 x seq 4096 (the train_4k cell; its global "
+          f"batch of 256 is a pod's, cut to 2), attention on the flash path "
+          f"[{card_line()}]", flush=True)
+    tc, out, totals = _train_path("train4k", TRAIN4K_ARGV, "blocks/mlp/w_gate")
+    _add_launches(results, totals)
+    busy = phase_profile(tc, out, "one fixed-phase train_4k step",
+                         attention=True)
+    n = _check_frozen(tc, out, "train4k")
+    print(f"[train4k] frozen params bitwise equal to a fresh init ({n} "
+          f"leaves); profiled step busy {busy:.1f} ms", flush=True)
+
+
+def phase_prefill():
+    """llama3-8b at full width through `models.decoding.prefill`: one
+    prompt of 32768 tokens (the prefill_32k cell; its batch of 32 cut to
+    1), padded to 32768, with its wall and synced ms, tokens/s and peak
+    bytes; the last-token logits finite, the cache's pos 32768 and its k,
+    v shaped [layers, 1, 32768, KV heads, head dim]. Then a 4096-token
+    prefill against the same model's prefill forced through the dense path:
+    the last-token logits within 2^-5 of the largest (each of 32 layers
+    rounds its attention output to bf16 at another point on each path,
+    2^-9 relative, which the residual stream carries on: sqrt(32) x 2 x
+    2^-9 = 2^-5.5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decoding as D
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    card = card_line()
+    cfg = get_config("llama3-8b")
+    params = T.init_params(cfg, 0, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def run(tokens, pad_to):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = D.prefill(cfg, params, {"tokens": tokens},
+                                  pad_to=pad_to)
+        wall = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return logits, cache, wall, (time.perf_counter() - t0) * 1e3
+
+    with torch.no_grad():
+        toks = torch.randint(0, cfg.vocab_size, (1, 4096), generator=gen,
+                             device="cuda")
+        flash, _, _, flash_ms = run(toks, 4096)
+        threshold = L.FLASH_THRESHOLD
+        L.FLASH_THRESHOLD = 4096
+        try:
+            dense, _, _, dense_ms = run(toks, 4096)
+        finally:
+            L.FLASH_THRESHOLD = threshold
+        diff = float((flash - dense).abs().max())
+        tol = 2.0 ** -5 * float(dense.abs().max())
+        check(bool(torch.isfinite(flash).all()) and diff <= tol,
+              f"prefill 4096: flash logits differ from dense by {diff} > "
+              f"{tol}")
+        print(f"[prefill] llama3-8b 1 x 4096: last-token logits flash vs "
+              f"dense max abs diff {diff:.4e} (bound {tol:.4e}, max |logit| "
+              f"{float(dense.abs().max()):.4f}); synced ms flash "
+              f"{flash_ms:.1f} dense {dense_ms:.1f} [{card}]", flush=True)
+        del flash, dense, toks
+
+        toks = torch.randint(0, cfg.vocab_size, (1, PREFILL_TOKENS),
+                             generator=gen, device="cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        logits, cache, wall_ms, synced_ms = run(toks, PREFILL_TOKENS)
+        peak = torch.cuda.max_memory_allocated()
+    c = cache["blocks"]
+    want = (cfg.num_layers, 1, PREFILL_TOKENS, cfg.num_kv_heads,
+            cfg.resolved_head_dim)
+    check(tuple(logits.shape) == (1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "prefill 32k: the last-token logits are not finite")
+    check(bool((c["pos"] == PREFILL_TOKENS).all()),
+          f"prefill 32k: cache pos {c['pos'].flatten().tolist()[:4]}")
+    check(tuple(c["k"].shape) == want == tuple(c["v"].shape),
+          f"prefill 32k: cache k {tuple(c['k'].shape)}, want {want}")
+    print(f"[prefill] llama3-8b full width ({cfg.num_layers} layers), 1 x "
+          f"{PREFILL_TOKENS} tokens (prefill_32k, batch 32 cut to 1), pad_to "
+          f"{PREFILL_TOKENS}: wall_ms={wall_ms:.1f} synced_ms={synced_ms:.1f} "
+          f"tokens_per_s={PREFILL_TOKENS / synced_ms * 1e3:.0f} "
+          f"peak_bytes={peak}; logits finite, cache pos {PREFILL_TOKENS}, "
+          f"k / v {want} [{card}]", flush=True)
+    del logits, cache, c, params, toks
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1995,16 +2392,31 @@ def _train_path(tag: str, argv, watch: str, model=None, extra=None,
           f"{tokens / statistics.median(steady) * 1e3:.0f} step1_ms="
           f"{per_step[0]['step_ms']:.1f} peak_bytes="
           f"{torch.cuda.max_memory_allocated()} losses="
-          f"{[round(r['loss'], 6) for r in per_step]}", flush=True)
+          f"{[round(r['loss'], 6) for r in per_step]} [{card_line()}]",
+          flush=True)
     return tc, out, totals
+
+
+def _same(x, y) -> bool:
+    """torch.equal in slices of the leading axis of at most ~2^27 elements
+    (y may lie on the host): no comparison temporary is large."""
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return False
+    if x.dim() == 0:
+        return torch.equal(x, y.to(x.device))
+    rows = max(1, 2**27 // max(1, x[0].numel()))
+    return all(torch.equal(a, b.to(a.device))
+               for a, b in zip(x.split(rows), y.split(rows)))
 
 
 def _check_frozen(tc, out, tag: str, trainable_too=None):
     """After a run: its frozen params bitwise equal to a fresh init from
     the run's seed. The run's trainable params and optimizer state go
-    first, so the card holds the model about once. trainable_too(init
-    trainable tree), when given, runs on the fresh init's trainable part
-    before it is freed. Returns the number of frozen leaves."""
+    first. The frozen leaves are views of the run's stacked params, which
+    keep the trainable layers' memory too: where a second copy of the
+    model does not fit beside them, they wait on the host. trainable_too(
+    init trainable tree), when given, runs on the fresh init's trainable
+    part before it is freed. Returns the number of frozen leaves."""
     from repro_torch.core.sparse_update import tree_leaves
     from repro_torch.models import transformer as T
     from repro_torch.train import split_params
@@ -2015,10 +2427,16 @@ def _check_frozen(tc, out, tag: str, trainable_too=None):
     del state
     gc.collect()
     torch.cuda.empty_cache()
+    model_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(T.init_params(tc.model, 0, "meta")))
+    if torch.cuda.mem_get_info()[0] < model_bytes + 8 * 2**30:
+        frozen = _tree_to(frozen, "cpu")
+        gc.collect()
+        torch.cuda.empty_cache()
     init = T.init_params(tc.model, tc.seed, "cuda")
     frozen0, trainable0 = split_params(init, plan)
     a, b = tree_leaves(frozen0), tree_leaves(frozen)
-    check(len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b)),
+    check(len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b)),
           f"{tag}: a frozen param changed")
     if trainable_too is not None:
         trainable_too(trainable0)
@@ -2031,8 +2449,9 @@ def _check_frozen(tc, out, tag: str, trainable_too=None):
 
 def phase_gemma_path(results: dict):
     """The gemma path: 6 compact AdamW steps of full-width gemma3-4b (34
-    layers, no depth cut) through the launcher, one profiled step, the
-    frozen params against a fresh init."""
+    layers, no depth cut) at batch 1 x seq 4096 (the flash path) through
+    the launcher, one profiled step with the flash path's share, the frozen
+    params against a fresh init."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     cfg = get_config("gemma3-4b")
@@ -2042,12 +2461,13 @@ def phase_gemma_path(results: dict):
           f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV of "
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"tied embeddings {cfg.tie_embeddings}, {cfg.attn_pattern} with "
-          f"window {cfg.sliding_window}, K = {GEMMA_K} scan steps",
-          flush=True)
+          f"window {cfg.sliding_window}, K = {GEMMA_K} scan steps, batch 1 "
+          f"x seq 4096 [{card_line()}]", flush=True)
     tc, out, totals = _train_path("gemma", GEMMA_ARGV, "blocks/sub5/attn/wo")
     for name in ("block_sparse_dw", "fused_block_opt"):
         results["launches"][name] += totals[name]
-    busy = phase_profile(tc, out, "one fixed-phase gemma step")
+    busy = phase_profile(tc, out, "one fixed-phase gemma step",
+                         attention=True)
     n = _check_frozen(tc, out, "gemma")
     print(f"[gemma] frozen params bitwise equal to a fresh init ({n} leaves: "
           f"the tied embedding, the final norm, 4 frozen super-blocks); "
@@ -2216,6 +2636,119 @@ def phase_jamba_path(results: dict):
           f"embedding, head, final norm); the {len(snap)} expert leaves' "
           f"unselected blocks bitwise their init through the first fixed "
           f"phase ({JAMBA_J} steps), their selected blocks moved", flush=True)
+    snap.clear()
+
+
+def command_r_cut():
+    """command-r-35b at published widths cut to COMMAND_R_LAYERS of its 40
+    layers (see COMMAND_R_ARGV)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("command-r-35b"),
+                               num_layers=COMMAND_R_LAYERS)
+
+
+def scout_cut(layers: int = SCOUT_LAYERS):
+    """llama4-scout-17b-a16e at published widths, all 16 experts, cut to
+    `layers` of its 48 (see SCOUT_ARGV); fewer than SCOUT_LAYERS only for
+    the compact-against-dense-scatter check, whose fp32 update of the two
+    trainable layers' full-shape expert leaves (~20 GB of temporaries)
+    does not fit beside the 8-layer model."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                               num_layers=layers)
+
+
+def phase_text_arch(results: dict, tag: str, argv, watch: str, model=None,
+                    cut: str = "no depth cut"):
+    """One of the reference's other text-only archs at train_4k, batch 1:
+    6 compact steps through the launcher (`model`: a stated cut), launches
+    as the plan derives them, one profiled step with the flash path's
+    share, the frozen params against a fresh init. With MoE layers
+    (llama4-scout) also the share of routed choices dropped and every
+    expert leaf's unselected blocks through the first fixed phase against
+    the init."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+
+    full = get_config(argv[1])
+    cfg = model or full
+    n_params = sum(t.numel() for t in _leaves(T.init_params(cfg, 0, "meta")))
+    moe = cfg.moe
+    print(f"[{tag}] {full.name} at published widths (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+          f"{cfg.mlp_kind}, {cfg.norm_kind}, tied embeddings "
+          f"{cfg.tie_embeddings}"
+          + (f", {moe.num_experts} experts top-{moe.top_k} + "
+             f"{moe.num_shared_experts} shared" if moe else "")
+          + f"); {cfg.num_layers} of {full.num_layers} layers ({cut}); "
+          f"{n_params} params, {2 * n_params} bytes in {cfg.dtype} "
+          f"[{card_line()}]", flush=True)
+    snap = {}
+
+    def at_first_phase_end(step, state):
+        if moe is not None and step == SCOUT_J:
+            # the expert leaves at the end of the first fixed phase, with
+            # its selection, kept on the host: held against a fresh init
+            # after the run
+            leaves = state["params_trainable"]["segments"]["blocks"]["moe"]
+            idx = state["sel_idx"]["blocks"]["moe"]
+            snap.update({n: (leaves[n].cpu(), idx[n].clone())
+                         for n in EXPERT_LEAVES})
+
+    tc, out, totals = _train_path(tag, argv, watch, model=model,
+                                  extra=at_first_phase_end)
+    _add_launches(results, totals)
+    if moe is not None:
+        # the share of routed choices the capacity dropped, over every MoE
+        # layer of one forward of the trained model on the next batch
+        state = out["state"]
+        batch = next(lm_batches(tc.shape.global_batch, tc.shape.seq_len,
+                                cfg.vocab_size, seed=tc.seed, start_step=6))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+        with torch.no_grad(), MOE.record_routing() as routed:
+            T.forward(cfg, (state["params_frozen"],
+                            state["params_trainable"]), batch)
+        dropped = [float(d) / n for d, n in routed]
+        print(f"[{tag}] dropped share of routed choices "
+              f"{sum(dropped) / len(dropped):.4f} (per MoE layer "
+              f"{[round(x, 4) for x in dropped]})", flush=True)
+        del state, batch
+    busy = phase_profile(tc, out, f"one fixed-phase {tag} step",
+                         attention=True)
+    plan = out["plan"]
+
+    def experts_unselected_unchanged(trainable0):
+        # one trainable layer at a time, masked with torch.where: boolean
+        # indexing would build int64 indices, 8 bytes a dim an element
+        for name, (w, idx) in snap.items():
+            spec = plan.spec["blocks"]["moe"][name]
+            w0 = trainable0["segments"]["blocks"]["moe"][name]
+            mask = _selected_mask(w0, idx, spec)
+            moved = False
+            for layer in range(w0.shape[0]):
+                a, b, m = w[layer].cuda(), w0[layer], mask[layer]
+                check(torch.equal(torch.where(m, 0, a), torch.where(m, 0, b)),
+                      f"{tag}: an unselected block of moe/{name} changed in "
+                      f"the first fixed phase")
+                moved |= not torch.equal(torch.where(m, a, 0),
+                                         torch.where(m, b, 0))
+                del a
+            check(moved, f"{tag}: the selected blocks of moe/{name} did not "
+                         f"move")
+            del mask
+
+    n = _check_frozen(tc, out, tag,
+                      experts_unselected_unchanged if moe else None)
+    print(f"[{tag}] frozen params bitwise equal to a fresh init ({n} "
+          f"leaves: embedding, {'' if cfg.tie_embeddings else 'head, '}"
+          f"final norm, {cfg.num_layers - K_LAYERS} frozen layers)"
+          + (f"; the {len(snap)} expert leaves' unselected blocks bitwise "
+             f"their init through the first fixed phase ({SCOUT_J} steps), "
+             f"their selected blocks moved" if moe else "")
+          + f"; profiled step busy {busy:.1f} ms", flush=True)
     snap.clear()
 
 
@@ -2690,8 +3223,10 @@ def kernels_line(results: dict) -> dict:
     the MoE path's run (6 steps; batched_dw), the rwkv path's run (6 steps;
     wkv6, wkv6_bwd), the CNN path's run (12 steps of `dynamic`) and
     serving run B (8 waves; block_scatter_update), plus the gemma path's
-    (6 steps; block_sparse_dw, fused_block_opt) and the jamba path's (6
-    steps; block_sparse_dw, batched_dw, fused_block_opt)."""
+    (6 steps; block_sparse_dw, fused_block_opt), the jamba path's (6
+    steps; block_sparse_dw, batched_dw, fused_block_opt) and the train_4k,
+    nemotron, command-r and llama4-scout runs' (6 steps each; the scout's
+    batched_dw too)."""
     dtypes = {"block_sparse_dw": "bfloat16", "batched_dw": "bfloat16"}
     rows = []
     for name, (route, source, replaces, _) in SOURCES.items():
@@ -2769,7 +3304,7 @@ def main() -> int:
     phase_gemma_path(results)
     phase_compact_vs_dense(dataclasses.replace(
         get_config("gemma3-4b"), num_layers=10), "gemma-compact-vs-dense",
-        k=GEMMA_K, batch=2, seq=2048)
+        k=GEMMA_K, batch=1, seq=4096)
     print(f"[chip_smoke] gemma phases done at {time.perf_counter() - t0:.0f}"
           f" s", flush=True)
     phase_jamba_path(results)
@@ -2798,6 +3333,40 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_oracle()
+    print(f"[chip_smoke] serving phases done at "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    # the long-sequence paths last: the earlier phases' profiler windows
+    # then open at the same point of the process as before them
+    phase_flash()
+    print(f"[chip_smoke] flash against dense done at "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    phase_train4k(results)
+    phase_compact_vs_dense(get_config("llama3-8b"), "train4k-compact-vs-dense",
+                           batch=2, seq=4096)
+    print(f"[chip_smoke] train_4k phases done at "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    phase_prefill()
+    print(f"[chip_smoke] prefill phases done at "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    phase_text_arch(results, "nemotron", NEMOTRON_ARGV, "blocks/mlp/w_up")
+    phase_compact_vs_dense(get_config("nemotron-4-15b"),
+                           "nemotron-compact-vs-dense", batch=1, seq=4096)
+    phase_text_arch(results, "command-r", COMMAND_R_ARGV, "blocks/mlp/w_gate",
+                    model=command_r_cut(),
+                    cut=f"cut 40 -> {COMMAND_R_LAYERS}: the uncut bf16 "
+                        f"params, the tied head's fp32 copy and AdamW's "
+                        f"state leave no room for a step")
+    phase_compact_vs_dense(command_r_cut(), "command-r-compact-vs-dense",
+                           batch=1, seq=4096, one_at_a_time=True)
+    phase_text_arch(results, "scout", SCOUT_ARGV, "blocks/attn/wo",
+                    model=scout_cut(),
+                    cut=f"cut 48 -> {SCOUT_LAYERS}, all 16 experts: ~108 B "
+                        f"params uncut; SGD, AdamW's state on one layer "
+                        f"alone ~17.6 GB")
+    phase_compact_vs_dense(scout_cut(layers=4), "scout-compact-vs-dense",
+                           batch=1, seq=4096, one_at_a_time=True)
+    print(f"[chip_smoke] text-arch phases done at "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t0:.0f} s",
           flush=True)
     # again at the end, beside the numbers: a log cut to its tail keeps it

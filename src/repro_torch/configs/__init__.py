@@ -1,4 +1,7 @@
 from repro_torch.configs.base import (
+    ARCH_IDS,
+    LONG_CONTEXT_ARCHS,
+    SHAPES,
     ModelConfig,
     MoEConfig,
     OptimizerConfig,
@@ -7,12 +10,15 @@ from repro_torch.configs.base import (
     SparseUpdateConfig,
     SSMConfig,
     TrainConfig,
+    all_cells,
+    cell_is_skipped,
     get_config,
     get_smoke_config,
 )
 
 __all__ = [
-    "ModelConfig", "MoEConfig", "OptimizerConfig", "RWKVConfig",
-    "ShapeConfig", "SparseUpdateConfig", "SSMConfig", "TrainConfig",
-    "get_config", "get_smoke_config",
+    "ARCH_IDS", "LONG_CONTEXT_ARCHS", "SHAPES", "ModelConfig", "MoEConfig",
+    "OptimizerConfig", "RWKVConfig", "ShapeConfig", "SparseUpdateConfig",
+    "SSMConfig", "TrainConfig", "all_cells", "cell_is_skipped", "get_config",
+    "get_smoke_config",
 ]

@@ -4,7 +4,8 @@ and optimizer knobs.
 A copy of the reference package's `configs/base.py` (the port imports
 nothing of the reference). Field names and defaults are kept identical, so a
 config built here means the same model and the same training run as its
-counterpart there. Architectures are registered as their slices land.
+counterpart there, and the shape grid (`SHAPES`, `all_cells`) is the
+reference's. Architectures are registered as their slices land.
 """
 from __future__ import annotations
 
@@ -85,19 +86,50 @@ class ShapeConfig:
     kind: str                     # train | prefill | decode
 
 
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode"),
+}
+
+# archs allowed to run long_500k (sub-quadratic path exists)
+LONG_CONTEXT_ARCHS = ("rwkv6-3b", "jamba-1.5-large-398b", "gemma3-4b")
+
+# the reference's ten LM architectures (data: the port registers them in
+# _MODULES as their slices land)
+ARCH_IDS = (
+    "musicgen-medium",
+    "command-r-35b",
+    "llama3-8b",
+    "nemotron-4-15b",
+    "gemma3-4b",
+    "deepseek-moe-16b",
+    "llama4-scout-17b-a16e",
+    "jamba-1.5-large-398b",
+    "qwen2-vl-7b",
+    "rwkv6-3b",
+)
+
 # architectures the port runs so far
 _MODULES = {
+    "command-r-35b": "command_r_35b",
     "llama3-8b": "llama3_8b",
-    "deepseek-moe-16b": "deepseek_moe_16b",
-    "rwkv6-3b": "rwkv6_3b",
+    "nemotron-4-15b": "nemotron_4_15b",
     "gemma3-4b": "gemma3_4b",
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 
 def _arch_module(arch_id: str):
     if arch_id not in _MODULES:
-        raise KeyError(f"architecture {arch_id!r} is not ported yet; "
+        later = (": the audio / vlm archs (embedding inputs, M-RoPE) come "
+                 "with ROADMAP queue A item 10a" if arch_id in ARCH_IDS
+                 else "")
+        raise KeyError(f"architecture {arch_id!r} is not ported yet{later}; "
                        f"the port runs {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
 
@@ -108,6 +140,17 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_smoke_config(arch_id: str) -> ModelConfig:
     return _arch_module(arch_id).smoke_config()
+
+
+def cell_is_skipped(arch_id: str, shape_name: str) -> Optional[str]:
+    """Return a skip-reason string if (arch, shape) is not runnable."""
+    if shape_name == "long_500k" and arch_id not in LONG_CONTEXT_ARCHS:
+        return "pure full-attention arch: no sub-quadratic path for 500k decode"
+    return None
+
+
+def all_cells() -> list[tuple[str, str]]:
+    return [(a, s) for a in ARCH_IDS for s in SHAPES]
 
 
 # ---------------------------------------------------------------------------

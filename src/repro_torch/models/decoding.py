@@ -326,12 +326,12 @@ def _pad_cache(k, pad_to: int):
 
 def _prefill_attn(cfg, p, x, positions, pad_to: int):
     b, s, _ = x.shape
-    if s > L.FLASH_THRESHOLD:
-        raise NotImplementedError(
-            f"prefill of {s} > {L.FLASH_THRESHOLD} tokens needs the flash "
-            f"attention path: ROADMAP queue A item 7a (not ported yet)")
     q, k, v = L._qkv(p, cfg, x, positions)
-    out = L._sdpa_dense(q, k, v).reshape(b, s, -1)
+    if s > L.FLASH_THRESHOLD:
+        out = L._sdpa_flash(q, k, v)
+    else:
+        out = L._sdpa_dense(q, k, v)
+    out = out.reshape(b, s, -1)
     out = torch.matmul(out, p["wo"])
     dt = _cache_dtype(cfg)
     cache = {"k": _pad_cache(k, pad_to).to(dt),

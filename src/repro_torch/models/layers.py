@@ -1,6 +1,6 @@
 """Core layers: norms (incl. the CNN's GroupNorm), RoPE, GQA attention
-(dense causal / sliding window, cached decode, chunked paged serving), MLP
-variants.
+(dense causal / sliding window, diagonal-block flash past 2048 tokens,
+cached decode, chunked paged serving), MLP variants.
 
 Params are plain dicts of tensors with the reference package's key names.
 Matmuls that take part in the sparse update go through
@@ -20,8 +20,7 @@ import torch.nn.functional as F
 from repro_torch.core.sparse_update import smm
 from repro_torch.models.common import col_matmul, dense_init, row_matmul
 
-# sequences longer than this take the reference's flash path, which comes
-# with a later slice of the port
+# sequences longer than this take the flash path (`_sdpa_flash`)
 FLASH_THRESHOLD = 2048
 
 
@@ -148,17 +147,170 @@ def _sdpa_dense(q, k, v, window: int = 0):
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
+# ---------------------------------------------------------------------------
+# Diagonal-block flash attention (the reference's `_sdpa_flash`)
+#
+# The sequence is cut into n chunks of c; diagonal `diag` pairs query chunk
+# i with key chunk i - diag, so only blocks on or below the causal diagonal
+# are computed, and a sliding window cuts the diagonal range statically.
+# The forward keeps the online-softmax state (m, l, o) per query row in
+# fp32; the backward recomputes each diagonal's probabilities from q, k and
+# the log-sum-exp, so it saves O(S·d), never the [S, S] scores. Internal
+# layout [B, H, n, c, D], heads ahead of the blocks, so each diagonal's
+# products are batched matmuls over (B, H, blocks).
+# ---------------------------------------------------------------------------
+
+def _diag_mask(c: int, diag: int, window: int, device):
+    """[c, c] bool: query row r of chunk i may see key row t of chunk
+    i - diag."""
+    delta = (torch.arange(c, device=device)[:, None]
+             - torch.arange(c, device=device)[None, :] + diag * c)
+    mask = delta >= 0
+    if window:
+        mask &= delta < window
+    return mask
+
+
+def _max_diag(n: int, c: int, window: int) -> int:
+    """The diagonals that hold a visible key: all n, or under a window the
+    first ceil(window / c) + 1."""
+    return n if not window else min(n, (window + c - 1) // c + 1)
+
+
+def _blocks(t, c: int):
+    """[B, S, H, D] -> fp32 [B, H, S / c, c, D] (bf16 values are exact in
+    fp32, so products of these sum as the reference's
+    preferred_element_type=float32 does)."""
+    b, s, h, d = t.shape
+    return t.transpose(1, 2).to(torch.float32,
+                                memory_format=torch.contiguous_format
+                                ).view(b, h, s // c, c, d)
+
+
+def _unblock(t, dtype):
+    """fp32 [B, H, n, c, D] -> [B, S, H, D] in `dtype`."""
+    b, h, n, c, d = t.shape
+    return t.to(dtype).reshape(b, h, n * c, d).transpose(1, 2)
+
+
+def _put(acc, diag: int, new):
+    """acc[:, :, diag:] = new: in place where autograd does not watch (the
+    custom forward, prefill), out of place under the naive VJP."""
+    if torch.is_grad_enabled():
+        return torch.cat([acc[:, :, :diag], new], dim=2)
+    acc[:, :, diag:] = new
+    return acc
+
+
+def _flash_fwd_impl(q, k, v, window: int, c: int):
+    """Diagonal-block causal flash attention forward with an online
+    softmax. q, k, v: [B, S, H, D] (k, v already expanded to q's heads).
+    Returns (out [B, S, H, D] in q's dtype, lse [B, H, n, c] fp32; the
+    reference's lse is the same numbers as [B, n, c, H])."""
+    b, s, hq, dd = q.shape
+    n = s // c
+    qb, kb, vb = _blocks(q, c), _blocks(k, c), _blocks(v, c)
+    scale = 1.0 / math.sqrt(dd)
+    m = torch.full((b, hq, n, c), -1e30, dtype=torch.float32,
+                   device=q.device)                     # running max
+    l = torch.zeros((b, hq, n, c), dtype=torch.float32,
+                    device=q.device)                    # running denom
+    o = torch.zeros((b, hq, n, c, dd), dtype=torch.float32,
+                    device=q.device)                    # running numer
+    for diag in range(_max_diag(n, c, window)):
+        nb = n - diag                        # blocks on this diagonal
+        sc = torch.matmul(qb[:, :, diag:],
+                          kb[:, :, :nb].transpose(-1, -2)) * scale
+        sc = torch.where(_diag_mask(c, diag, window, q.device), sc, -1e30)
+        m_old = m[:, :, diag:]
+        m_new = torch.maximum(m_old, sc.amax(dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m_old - m_new)
+        l_new = l[:, :, diag:] * corr + p.sum(dim=-1)
+        pv = torch.matmul(p.to(q.dtype).float(), vb[:, :, :nb])
+        o_new = o[:, :, diag:] * corr[..., None] + pv
+        m, l, o = _put(m, diag, m_new), _put(l, diag, l_new), \
+            _put(o, diag, o_new)
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    lse = m + torch.log(torch.clamp(l, min=1e-30))
+    return _unblock(out, q.dtype), lse
+
+
+class _FlashAttn(torch.autograd.Function):
+    """Flash attention with the reference's recomputing VJP: the residuals
+    are q, k, v, out and the log-sum-exp; the backward rebuilds each
+    diagonal's normalized probabilities from (q, k, lse) and the softmax
+    term delta = sum(dout * out). Accumulators in fp32; the probabilities
+    and ds cast to q's dtype before their products, as the reference."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: int, c: int):
+        out, lse = _flash_fwd_impl(q, k, v, window, c)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.c = window, c
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        window, c = ctx.window, ctx.c
+        dt = q.dtype
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        qb, kb, vb = _blocks(q, c), _blocks(k, c), _blocks(v, c)
+        dob = _blocks(dout, c)
+        n = qb.shape[2]
+        delta = (dob * _blocks(out, c)).sum(dim=-1)     # [B, H, n, c]
+        dq, dk, dv = (torch.zeros_like(qb) for _ in range(3))
+        for diag in range(_max_diag(n, c, window)):
+            nb = n - diag
+            qs, ks, vs = qb[:, :, diag:], kb[:, :, :nb], vb[:, :, :nb]
+            dos = dob[:, :, diag:]
+            sc = torch.matmul(qs, ks.transpose(-1, -2)) * scale
+            sc = torch.where(_diag_mask(c, diag, window, q.device), sc,
+                             -1e30)
+            p = torch.exp(sc - lse[:, :, diag:, :, None])  # normalized
+            dv[:, :, :nb] += torch.matmul(p.to(dt).float().transpose(-1, -2),
+                                          dos)
+            dp = torch.matmul(dos, vs.transpose(-1, -2))
+            ds = (p * (dp - delta[:, :, diag:, :, None]) * scale).to(dt)
+            ds = ds.float()
+            dq[:, :, diag:] += torch.matmul(ds, ks)
+            dk[:, :, :nb] += torch.matmul(ds.transpose(-1, -2), qs)
+        return _unblock(dq, dt), _unblock(dk, dt), _unblock(dv, dt), \
+            None, None
+
+
+def _sdpa_flash(q, k, v, window: int = 0, q_chunk: int = 512,
+                kv_chunk: int = 512, naive_vjp: bool = False):
+    """Memory-efficient causal attention. q: [B,S,Hq,D], k, v: [B,S,Hkv,D].
+    naive_vjp=True differentiates the forward loop with plain autograd
+    (O(S^2) residuals): the plain version the custom backward is held
+    against."""
+    _, s, hq, _ = q.shape
+    if s <= q_chunk:
+        return _sdpa_dense(q, k, v, window)
+    if s % q_chunk or s % kv_chunk or q_chunk != kv_chunk:
+        raise ValueError(
+            f"flash path requires equal, dividing chunks: sequence {s}, "
+            f"q_chunk {q_chunk}, kv_chunk {kv_chunk}")
+    k = _expand_kv(k, hq)
+    v = _expand_kv(v, hq)
+    if naive_vjp:
+        return _flash_fwd_impl(q, k, v, window, q_chunk)[0]
+    return _FlashAttn.apply(q, k, v, window, q_chunk)
+
+
 def attention(p, cfg, x, positions, *, window: int = 0, sel=None,
               flash_threshold: int = FLASH_THRESHOLD):
-    """Full training/prefill attention over a whole sequence."""
+    """Full training/prefill attention over a whole sequence: dense up to
+    `flash_threshold` tokens, the flash path past it."""
     b, s, _ = x.shape
-    if s > flash_threshold:
-        raise NotImplementedError(
-            f"sequence length {s} > {flash_threshold} needs the flash "
-            f"attention path, which the port does not have yet")
     q, k, v = _qkv(p, cfg, x, positions, sel=sel)
-    out = _sdpa_dense(q, k, v, window).reshape(b, s, -1)
-    return smm(out, p["wo"], sel, "wo")
+    if s > flash_threshold:
+        out = _sdpa_flash(q, k, v, window)
+    else:
+        out = _sdpa_dense(q, k, v, window)
+    return smm(out.reshape(b, s, -1), p["wo"], sel, "wo")
 
 
 def decode_attention(p, cfg, x, positions, cache):

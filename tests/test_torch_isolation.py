@@ -45,7 +45,10 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
             "repro_torch.launch.serve", "repro_torch.models.rwkv6",
             "repro_torch.configs.rwkv6_3b", "repro_torch.models.mamba",
             "repro_torch.configs.gemma3_4b",
-            "repro_torch.configs.jamba_1_5_large_398b"} <= set(mods)
+            "repro_torch.configs.jamba_1_5_large_398b",
+            "repro_torch.configs.nemotron_4_15b",
+            "repro_torch.configs.command_r_35b",
+            "repro_torch.configs.llama4_scout_17b_a16e"} <= set(mods)
     assert len(mods) > 15
     code = (
         "import importlib, sys\n"

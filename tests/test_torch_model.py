@@ -178,9 +178,19 @@ def test_init_params_is_seeded_and_scaled():
 
 
 def test_attention_refuses_sequences_past_the_dense_path():
+    """Past 2048 tokens attention takes the flash path, whose chunks of 512
+    must divide the sequence: 2049 raises the chunk rule's ValueError, 2560
+    runs and agrees with the dense path (f32, 1e-5)."""
     cfg = get_smoke_config("llama3-8b")
     params = PT.init_params(cfg, seed=0, device="cpu")
     p = {k: v[0] for k, v in params["segments"]["blocks"]["attn"].items()}
     x = torch.zeros(1, 2049, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="flash"):
+    with pytest.raises(ValueError, match="equal, dividing chunks"):
         PL.attention(p, cfg, x, torch.arange(2049)[None])
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(1, 2560, cfg.d_model)).astype(np.float32))
+    pos = torch.arange(2560)[None]
+    got = PL.attention(p, cfg, x, pos)
+    want = PL.attention(p, cfg, x, pos, flash_threshold=4096)
+    assert got.shape == (1, 2560, cfg.d_model)
+    assert float((got - want).abs().max()) <= 1e-5
