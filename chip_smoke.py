@@ -152,9 +152,37 @@ Phases (any failure exits non-zero and prints no result):
    with all 16 experts, SGD lr 0.1, its dropped share and every expert
    leaf's unselected blocks through the first fixed phase against the
    init, its compact against dense-scatter cut further to 4 layers; the
-   cuts pass to the launcher as `model=`.
+   cuts pass to the launcher as `model=`;
+20. musicgen-medium (embedding inputs from a stub frontend, gelu,
+   layernorm) at train_4k, full depth (48 layers): batch 2 x seq 4096 of
+   standard-normal bf16 embeddings and uniform labels, drawn on the card
+   from a generator seeded by the step (`embed_batches`) and fed through
+   the launcher's `batches=` hook, K = 2, block 128, AdamW, 6 steps:
+   launches as the plan derives them, one profiled step with the flash
+   path's share, the frozen params against a fresh init, compact against
+   dense-scatter bitwise at full depth;
+21. qwen2-vl-7b (embedding inputs, M-RoPE) the same way, at full depth
+   (28 layers), its [3, B, S] positions a 32 x 32 patch grid (t 0; h, w
+   the grid's coordinates) and then text continuing from 32 in all three
+   components (`mrope_positions`): the three components differ;
+22. both archs served at full depth through the serve launcher's
+   `build_engine` (4 slots, pages of 16, 8 requests of 128 prompt
+   embeddings + 32 new tokens, prefix_mode off, greedy, fresh placeholder
+   embeddings a decode step): 8/8 completed, no port kernel launched;
+   then at full widths cut to 4 layers in f32 every request's tokens
+   against the contiguous prefill + decode_step oracle fed the same
+   prompt and decode embeddings, every sampled step's top-2 gap probed;
+23. checkpoint and resume: phase 20's argv with --ckpt-dir and
+   --ckpt-every 3 (the reference's file format; zlib level 0 where the
+   card's host has no `zstandard`), its losses bitwise phase 20's; the
+   step-6 file deleted and the same argv again: "resumed from step 3",
+   steps 4-6 bitwise the same losses, the final trainable params and
+   optimizer state bitwise the first run's; a save torn by a
+   `FaultSchedule` (`torn` rate 1) and the restore falling back to the
+   intact step; the codec, file bytes, save and restore seconds and the
+   host's peak RSS.
 
-The long-sequence phases 16-19 run last, so that the profiler windows
+The long-sequence phases 16-23 run last, so that the profiler windows
 of the earlier phases open where they did before them (a window can lose
 kernels, more often late in the process; PERF.md §6).
 
@@ -255,6 +283,15 @@ SCOUT_ARGV = ["--arch", "llama4-scout-17b-a16e", "--steps", "6", "--batch",
               "128", "--optimizer", "sgd", "--lr", "0.1", "--phase-j",
               str(SCOUT_J), "--phase-k", "2", "--log-every", "1", "--seed",
               "0"]
+# the audio and vlm archs at the reference's train_4k shape, full depth,
+# batch 2 x seq 4096 (the LM's train_4k cut), K = 2, AdamW; the launcher
+# takes their embedding inputs through `main(argv, batches=...)`
+# (embed_batches), qwen2-vl's positions a patch grid and then text
+# (mrope_positions)
+AV_ARGV = ["--steps", "6", "--batch", "2", "--seq", "4096"] + MAIN_ARGV[8:]
+MUSICGEN_ARGV = ["--arch", "musicgen-medium"] + AV_ARGV
+QWEN_ARGV = ["--arch", "qwen2-vl-7b"] + AV_ARGV
+MROPE_GRID = 32
 SERVE_RATIO = 0.25         # the serving launcher's per-user update ratio
 # name -> (route, source, the TPU kernel it replaces, the path that launches
 # it). block_sparse_dw also replaces block_sparse_dw_pipelined_kernel
@@ -593,7 +630,8 @@ def _dw_bound(m, fan_in, spec, experts: int, dtype):
 
 
 # the dW paths timed with CUDA events only (check_dw)
-EVENTS_ONLY = ("lm-train4k", "nemotron", "command-r", "scout")
+EVENTS_ONLY = ("lm-train4k", "nemotron", "command-r", "scout", "musicgen",
+               "qwen2-vl")
 
 
 def check_dw(leaves: dict, gen, sums: dict):
@@ -602,7 +640,8 @@ def check_dw(leaves: dict, gen, sums: dict):
     shared-expert leaves), rwkv (rwkv6-3b: 8 leaves), gemma (gemma3-4b:
     wq, wk, wv, wo, w_up, w_down), nemotron-4-15b (6 leaves),
     command-r-35b (7) and llama4-scout (4 attention and 3 shared-expert
-    leaves) paths at M = 4096, of the LM at train_4k (M = 8192) and of the
+    leaves) paths at M = 4096, of the LM, musicgen-medium (6 leaves) and
+    qwen2-vl-7b (7) at train_4k (M = 8192) and of the
     jamba cut (mamba in_proj / out_proj, 4 attention and 3 dense FFN
     leaves) at its M = 2048:
     bf16 takes the pipelined (TMA + wgmma) instance, fp32 the grid one
@@ -623,7 +662,9 @@ def check_dw(leaves: dict, gen, sums: dict):
              ("lm-train4k", leaves, bf16, 2 * 4096),
              ("nemotron", _dense_leaves("nemotron-4-15b"), bf16, 4096),
              ("command-r", _dense_leaves("command-r-35b"), bf16, 4096),
-             ("scout", _dense_leaves("llama4-scout-17b-a16e"), bf16, 4096))
+             ("scout", _dense_leaves("llama4-scout-17b-a16e"), bf16, 4096),
+             ("musicgen", _dense_leaves("musicgen-medium"), bf16, 2 * 4096),
+             ("qwen2-vl", _dense_leaves("qwen2-vl-7b"), bf16, 2 * 4096))
     for path, path_leaves, dtypes, m in paths:
         for dtype in dtypes:
             tot = {"ms": 0.0, "events_ms": 0.0, "library_ms": 0.0,
@@ -1595,27 +1636,35 @@ def profile_step(tag: str, run, attention: bool = False):
 
 
 def phase_profile(tc, out, tag: str = "one fixed-phase step",
-                  attention: bool = False):
+                  attention: bool = False, batches=None):
     """One more step of a run's state (the late fixed phase) under
-    torch.profiler (`attention`: with the flash path's share); returns its
-    device busy ms."""
+    torch.profiler (`attention`: with the flash path's share; `batches`:
+    the run's `batches=` stream, else its token stream); returns its device
+    busy ms."""
     from repro_torch.data import lm_batches
     from repro_torch.train import make_train_step
 
     step_fn = make_train_step(tc, out["plan"])
-    batch = next(lm_batches(tc.shape.global_batch, tc.shape.seq_len,
-                            tc.model.vocab_size, seed=tc.seed, start_step=6))
-    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    if batches is not None:
+        batch = next(batches(6))
+    else:
+        batch = next(lm_batches(tc.shape.global_batch, tc.shape.seq_len,
+                                tc.model.vocab_size, seed=tc.seed,
+                                start_step=6))
+        batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
     return profile_step(tag, lambda: step_fn(out["state"], batch),
                         attention)
 
 
 def phase_compact_vs_dense(cfg, tag: str = "compact-vs-dense",
                            k: int = K_LAYERS, batch: int = 4,
-                           seq: int = 1024, one_at_a_time: bool = False):
+                           seq: int = 1024, one_at_a_time: bool = False,
+                           batches=None):
     """`cfg` from seed 1, `k` trainable scan steps: 2 fixed-phase SGD steps
-    of the compact path and of the dense-scatter path from one start;
-    losses and every trainable leaf bitwise equal. one_at_a_time: the
+    of the compact path and of the dense-scatter path from one start (on
+    the first two batches of `batches`, a `batches=` stream, else of the
+    token stream); losses and every trainable leaf bitwise equal.
+    one_at_a_time: the
     compact run first, its trainable leaves kept on the host, then the
     dense-scatter run from a fresh init of the same seed (for a model
     whose params, a copy of the trainable ones and the dense-scatter
@@ -1634,9 +1683,12 @@ def phase_compact_vs_dense(cfg, tag: str = "compact-vs-dense",
                                                phase_fixed_early=10),
                      optimizer=OptimizerConfig(kind="sgd", learning_rate=0.1),
                      seed=1)
-    batches = [{key: torch.from_numpy(v).cuda() for key, v in b.items()}
-               for _, b in zip(range(2), lm_batches(batch, seq,
-                                                    cfg.vocab_size, seed=1))]
+    if batches is not None:
+        batches = [b for _, b in zip(range(2), batches(0))]
+    else:
+        batches = [{key: torch.from_numpy(v).cuda() for key, v in b.items()}
+                   for _, b in zip(range(2), lm_batches(
+                       batch, seq, cfg.vocab_size, seed=1))]
 
     def run(state, plan, compact):
         step = make_train_step(tc, plan, compact_grads=compact)
@@ -2302,9 +2354,10 @@ def plan_per_step(cfg, plan) -> dict:
 
 
 def _train_path(tag: str, argv, watch: str, model=None, extra=None,
-                extra_launches=None):
+                extra_launches=None, batches=None):
     """6 compact steps through the launcher (`model` replaces the arch's
-    config), counts zeroed just before and read just after: every step
+    config, `batches` its token stream), counts zeroed just before and
+    read just after: every step
     launches exactly `plan_per_step` plus `extra_launches` (the path's
     other kernels), every bf16 dW on the pipelined instance, the loss
     finite, and the unselected blocks of the `watch` leaf (a path below
@@ -2362,7 +2415,7 @@ def _train_path(tag: str, argv, watch: str, model=None, extra=None,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = train.main(argv, on_step=on_step, model=model)
+    out = train.main(argv, on_step=on_step, model=model, batches=batches)
     totals = ops.launch_counts()
     last["leaf"] = None
 
@@ -2799,6 +2852,12 @@ def _forced_oracle(cfg, params, toks, forced, max_len):
     return torch.stack(out)
 
 
+def _min_gap(seen) -> float:
+    """The smallest top-2 logit gap over the recorded logits rows."""
+    top = torch.topk(torch.cat(seen).float(), 2, dim=-1).values
+    return float((top[:, 0] - top[:, 1]).min())
+
+
 def _record_logits(engine):
     """Keep every sampled step's logits rows (on the card)."""
     seen, sample = [], engine._sample
@@ -2957,7 +3016,9 @@ def profile_wave_scatter(wave):
     device time names a launch the profiler missed; each launch's CUDA
     error is checked by its wrapper, and the wave is synced), and then
     under a schedule that discards one wave of warm-up and records the two
-    after it, where all 14 must appear. Then the wave's 7 scatter calls,
+    after it, where all 14 must appear (a window that loses some anyway is
+    profiled again, up to PROFILE_ATTEMPTS windows, as in `device_ms`).
+    Then the wave's 7 scatter calls,
     recorded as it made them, replayed the way the wave computed them
     before the out-of-place mode (a copy of the leaf, then the in-place
     kernel) and as it computes them now (one out-of-place launch), device
@@ -2989,19 +3050,24 @@ def profile_wave_scatter(wave):
         with profile(activities=both) as ranged:
             wave()
             torch.cuda.synchronize()
-        with profile(activities=both,
-                     schedule=schedule(wait=0, warmup=1, active=2,
-                                       repeat=1)) as warm:
-            for _ in range(3):
-                wave()
-                torch.cuda.synchronize()
-                warm.step()
+        for windows in range(1, PROFILE_ATTEMPTS + 1):
+            with profile(activities=both,
+                         schedule=schedule(wait=0, warmup=1, active=2,
+                                           repeat=1)) as warm:
+                for _ in range(3):
+                    wave()
+                    torch.cuda.synchronize()
+                    warm.step()
+            if sum(e.count for e in scatter_rows(warm)) == 14:
+                break
     finally:
         ops.block_scatter_update = launch
     launches = ops.launch_counts()["block_scatter_update"] - before
-    check(len(first) == 7 and len(calls) == 35 and launches == 35,
+    n_waves = 2 + 3 * windows
+    check(len(first) == 7 and len(calls) == 7 * n_waves
+          and launches == 7 * n_waves,
           f"the profiled waves made {len(calls)} scatter calls and "
-          f"{launches} scatter launches, want 7 a wave (5 waves)")
+          f"{launches} scatter launches, want 7 a wave ({n_waves} waves)")
     busy = sum(_dev_us(e) for e in _rows(prof)) / 1e3
     ms = sum(_dev_us(e) for e in scatter_rows(prof)) / 1e3
     seen = {tag: sum(e.count for e in scatter_rows(p))
@@ -3020,7 +3086,8 @@ def profile_wave_scatter(wave):
           f"opening on the wave (CUDA activity only) {seen['first']} of 7; "
           f"with CPU activity and a range per call {seen['ranged']} of 7 "
           f"(calls without device time: {missing or 'none'}); after one "
-          f"wave of warm-up, {seen['warm']} of the next 2 waves' 14. Kernels "
+          f"wave of warm-up, {seen['warm']} of the next 2 waves' 14 (window "
+          f"{windows} of at most {PROFILE_ATTEMPTS}). Kernels "
           f"of any kind recorded a wave: {kernels['first']}, "
           f"{kernels['ranged']}, {kernels['warm'] / 2:.1f}", flush=True)
     check(seen["warm"] == 14,
@@ -3151,16 +3218,12 @@ def phase_serve_oracle():
             out.append(int(logits.argmax(-1)[0]))
         return out
 
-    def min_gap(seen):
-        top = torch.topk(torch.cat(seen).float(), 2, dim=-1).values
-        return float((top[:, 0] - top[:, 1]).min())
-
     plain = ServeEngine(cfg, params, num_slots=2, max_len=max_len,
                         page_size=16)
     seen = _record_logits(plain)
     stats = plain.run([Request(i, gen, tokens=t)
                        for i, t in enumerate(prompts[:2])])
-    gap = min_gap(seen)
+    gap = _min_gap(seen)
     check(gap > 1e-4, f"oracle parity: a near-tie (top-2 gap {gap}) makes "
                       f"the token comparison unsound")
     for i in range(2):
@@ -3186,7 +3249,7 @@ def phase_serve_oracle():
         eng._plan.spec)
     pers = merge_params(eng._frozen, trainable)
     r2 = eng.run([Request(1, gen, tokens=prompts[2], user=9)]).results[1]
-    gap = min_gap(seen)
+    gap = _min_gap(seen)
     check(gap > 1e-4, f"personalized oracle parity: a near-tie (top-2 gap "
                       f"{gap})")
     check(r1.tokens == stats.results[0].tokens,
@@ -3198,6 +3261,379 @@ def phase_serve_oracle():
           f"{gen} new), zero-delta personalized == base, post-wave "
           f"personalized == dense-scatter oracle; min top-2 gap {gap:.3e}",
           flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the audio and vlm archs (embedding inputs, M-RoPE) and checkpointing
+# ---------------------------------------------------------------------------
+
+def mrope_positions(batch: int, seq: int):
+    """[3, batch, seq] M-RoPE positions on the card: a MROPE_GRID x
+    MROPE_GRID patch grid (t 0; h, w its row and column), then text whose
+    positions continue in all three components from the grid's largest + 1
+    (qwen2-vl's rule): the three components differ."""
+    n = MROPE_GRID * MROPE_GRID
+    i = torch.arange(seq, device="cuda")
+    grid = i < n
+    text = i - n + MROPE_GRID
+    thw = torch.stack([torch.where(grid, 0, text),
+                       torch.where(grid, i // MROPE_GRID, text),
+                       torch.where(grid, i % MROPE_GRID, text)])
+    return thw.to(torch.int32)[:, None].expand(3, batch, seq)
+
+
+def embed_batches(cfg, batch: int, seq: int, seed: int):
+    """A `batches=` stream for the launcher (start_step -> iterator): step
+    s's batch is drawn on the card from a generator seeded by (seed, s), so
+    a resumed run sees the batches the uninterrupted one saw: standard
+    normal embeddings in the model's dtype (the stub frontend's), uniform
+    labels and, for M-RoPE, `mrope_positions`."""
+    from repro_torch.models.transformer import dtype_of
+
+    def stream(start: int):
+        step = start
+        while True:
+            g = torch.Generator(device="cuda").manual_seed(
+                seed * 1_000_003 + step)
+            out = {"embeds": torch.randn((batch, seq, cfg.d_model),
+                                         generator=g, device="cuda",
+                                         dtype=dtype_of(cfg)),
+                   "labels": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                           generator=g, device="cuda",
+                                           dtype=torch.int32)}
+            if cfg.mrope:
+                out["positions"] = mrope_positions(batch, seq)
+            yield out
+            step += 1
+    return stream
+
+
+def phase_av_arch(results: dict, tag: str, argv, watch: str):
+    """musicgen-medium or qwen2-vl-7b at train_4k, full depth: 6 compact
+    AdamW steps through the launcher fed `embed_batches`, launches as the
+    plan derives them, one profiled step with the flash path's share, the
+    frozen params against a fresh init, then compact against dense-scatter
+    bitwise at full depth. Returns the run's losses."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(argv[1])
+    n_params = sum(t.numel() for t in _leaves(T.init_params(cfg, 0, "meta")))
+    inputs = (f"positions a {MROPE_GRID} x {MROPE_GRID} patch grid (t 0, h, "
+              f"w its coordinates) then text from {MROPE_GRID} in all three "
+              f"components" if cfg.mrope else "1-D positions")
+    print(f"[{tag}] {cfg.name} at published widths (d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV of "
+          f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} {cfg.mlp_kind}, "
+          f"{cfg.norm_kind}, vocab {cfg.vocab_size}, no token table: "
+          f"embedding inputs, M-RoPE {cfg.mrope}); {cfg.num_layers} layers "
+          f"(no depth cut); {n_params} params, {2 * n_params} bytes in "
+          f"{cfg.dtype}; batch 2 x seq 4096 of standard-normal embeddings, "
+          f"{inputs} [{card_line()}]", flush=True)
+    batches = embed_batches(cfg, 2, 4096, seed=0)
+    tc, out, totals = _train_path(tag, argv, watch, batches=batches)
+    _add_launches(results, totals)
+    losses = list(out["losses"])
+    busy = phase_profile(tc, out, f"one fixed-phase {tag} step",
+                         attention=True, batches=batches)
+    n = _check_frozen(tc, out, tag)
+    print(f"[{tag}] frozen params bitwise equal to a fresh init ({n} leaves: "
+          f"head, final norm, {cfg.num_layers - K_LAYERS} frozen layers); "
+          f"profiled step busy {busy:.1f} ms", flush=True)
+    phase_compact_vs_dense(cfg, f"{tag}-compact-vs-dense", batch=2,
+                           seq=4096, batches=embed_batches(cfg, 2, 4096, 1))
+    return losses
+
+
+def _capture_decode_embeds(engine):
+    """Record, per request id, the placeholder embedding each of its decode
+    steps fed (the engine draws a fresh [slots, 1, d] a step): returns
+    ({rid: [[d] tensors]}, undo). A request's first token is its prefill's;
+    each later one samples a decode step's logits at the request's slot."""
+    from repro_torch.serve import scheduler as S
+    fed, last = {}, {}
+    make_decode, make_chunk = engine._decode_batch, engine._chunk_batch
+    record = S.Scheduler.record_token
+
+    def decode_batch(*args):
+        batch = make_decode(*args)
+        last["embeds"] = batch["embeds"][:, 0].clone()
+        return batch
+
+    def chunk_batch(*args):
+        last.clear()
+        return make_chunk(*args)
+
+    def record_token(sched, slot, token):
+        if last:
+            fed.setdefault(slot.request.rid, []).append(
+                last["embeds"][slot.index])
+        return record(sched, slot, token)
+
+    def undo():
+        S.Scheduler.record_token = record
+        del engine._decode_batch, engine._chunk_batch
+
+    engine._decode_batch, engine._chunk_batch = decode_batch, chunk_batch
+    S.Scheduler.record_token = record_token
+    return fed, undo
+
+
+def _embed_oracle(cfg, params, prompt, fed, max_len: int) -> list:
+    """Greedy tokens of the contiguous prefill + decode_step path fed the
+    prompt's embeddings [plen, d] and then the decode embeddings `fed`, at
+    the positions the engine gives them ([3, 1, S] equal components for
+    M-RoPE)."""
+    from repro_torch.models import decoding as D
+
+    def pos(start, n):
+        p = torch.arange(start, start + n, device="cuda")[None]
+        return p.expand(3, 1, n) if cfg.mrope else p
+    plen = len(prompt)
+    logits, cache = D.prefill(cfg, params, {
+        "embeds": torch.as_tensor(prompt).cuda()[None],
+        "positions": pos(0, plen)}, pad_to=max_len)
+    out = [int(logits.argmax(-1)[0])]
+    for j, e in enumerate(fed):
+        logits, cache = D.decode_step(cfg, params, {
+            "embeds": e[None, None], "positions": pos(plen + j, 1)}, cache)
+        out.append(int(logits.argmax(-1)[0]))
+    return out
+
+
+def phase_serve_av():
+    """Both archs served at full depth through the serve launcher's
+    `build_engine`: 4 slots, pages of 16, 8 requests of 128 + 32 (prompt
+    embeddings from `make_random_requests`, fresh placeholder embeddings a
+    decode step), prefix_mode off, greedy; no port kernel launched. Then at
+    full widths cut to 4 layers in f32, 3 requests on 2 slots: every
+    request's tokens equal the contiguous oracle's fed the same prompt and
+    decode embeddings, every sampled step's top-2 gap probed."""
+    import argparse
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine, make_random_requests
+    ap = serve.add_serve_args(argparse.ArgumentParser())
+    for arch in ("musicgen-medium", "qwen2-vl-7b"):
+        tag = f"serve {arch}"
+        args = ap.parse_args(["--arch", arch] + SERVE_ARGV[2:]
+                             + ["--users", "0"])
+        cfg, eng = serve.build_engine(args)
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(eng.params))
+        print(f"[{tag}] {cfg.num_layers} layers (no depth cut), {cfg.dtype}, "
+              f"params {n_bytes} bytes, 4 slots, page 16, prefix_mode "
+              f"{eng.prefix_mode}, greedy, 8 requests x (128 prompt + 32 "
+              f"new), placeholder decode embeddings [{card_line()}]",
+              flush=True)
+        reqs = serve.build_requests(args, cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        stats = eng.run(reqs)
+        counts = ops.launch_counts()
+        _serve_summary(tag, stats)
+        check(stats.requests_completed == 8 and stats.requests_cancelled == 0
+              and stats.tokens_out == 8 * 32,
+              f"{tag}: {stats.requests_completed} completed, "
+              f"{stats.tokens_out} tokens")
+        check(all(0 <= t < cfg.vocab_size for r in stats.results.values()
+                  for t in r.tokens), f"{tag}: a token out of the vocab")
+        check(not any(counts.values()),
+              f"{tag}: a port kernel launched on plain serving: {counts}")
+        del eng, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    for arch in ("musicgen-medium", "qwen2-vl-7b"):
+        cfg = dataclasses.replace(get_config(arch), num_layers=4,
+                                  dtype="float32")
+        params = T.init_params(cfg, 0, "cuda")
+        plen, gen, max_len = 40, 8, 48
+        reqs = make_random_requests(cfg, 3, plen, gen, seed=3)
+        eng = ServeEngine(cfg, params, num_slots=2, max_len=max_len,
+                          page_size=16)
+        seen = _record_logits(eng)
+        fed, undo = _capture_decode_embeds(eng)
+        try:
+            stats = eng.run(reqs)
+        finally:
+            undo()
+        gap = _min_gap(seen)
+        check(gap > 1e-4, f"{arch} oracle parity: a near-tie (top-2 gap "
+                          f"{gap}) makes the token comparison unsound")
+        for r in reqs:
+            check(len(fed[r.rid]) == gen - 1,
+                  f"{arch} request {r.rid}: {len(fed[r.rid])} decode steps")
+            check(stats.results[r.rid].tokens == _embed_oracle(
+                      cfg, params, r.embeds, fed[r.rid], max_len),
+                  f"{arch} request {r.rid}: the engine's tokens differ from "
+                  f"the contiguous oracle's")
+        print(f"[serve oracle] {arch} widths cut to {cfg.num_layers} layers, "
+              f"f32, 3 requests on 2 slots: engine == contiguous oracle fed "
+              f"the same prompt and decode embeddings ({plen} prompt + {gen} "
+              f"new); min top-2 gap {gap:.3e}", flush=True)
+        del eng, params, seen, fed
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _rss_kib() -> int:
+    """This process's resident set (VmRSS) in KiB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1])
+    raise SmokeError("/proc/self/status has no VmRSS")
+
+
+class _RssPeak:
+    """The largest VmRSS seen between `start()` and `stop()`, sampled every
+    20 ms by a thread: the host's peak over one phase (/proc/self/status
+    may lack VmHWM, and the process-lifetime peak holds earlier phases')."""
+
+    def start(self):
+        import threading
+        self.before = self.peak = _rss_kib()
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+
+    def _sample(self):
+        while not self._done.wait(0.02):
+            self.peak = max(self.peak, _rss_kib())
+
+    def stop(self):
+        self._done.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, _rss_kib())
+
+
+class _Tee:
+    """stdout that keeps a copy of what is written."""
+
+    def __init__(self, out):
+        self.out, self.seen = out, []
+
+    def write(self, text):
+        self.seen.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_checkpoint(musicgen_losses: list):
+    """Checkpoint and resume: phase 20's argv with --ckpt-dir and
+    --ckpt-every 3 (saves at steps 3 and 6, the reference's file format),
+    its losses bitwise phase 20's; the step-6 file deleted and the same
+    argv again: it resumes from step 3, steps 4-6 give bitwise the same
+    losses and the final trainable params and optimizer state are bitwise
+    the first run's. Then a save made torn by a `FaultSchedule` (`torn`
+    rate 1): restore falls back to the intact step 6. Prints the codec, the
+    file bytes, save and restore seconds and the host's peak RSS during the
+    phase."""
+    import os
+    import shutil
+    import warnings
+    from repro_torch import bridge
+    from repro_torch.checkpoint import manager as CM
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.runtime import FaultSchedule
+
+    cfg = get_config("musicgen-medium")
+    ckdir = ROOT / "build" / "checkpoint_phase"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    argv = MUSICGEN_ARGV + ["--ckpt-dir", str(ckdir), "--ckpt-every", "3"]
+    batches = embed_batches(cfg, 2, 4096, seed=0)
+    times = {"save": [], "restore": []}
+    real = {k: getattr(CM.CheckpointManager, k) for k in times}
+
+    def timed(kind):
+        def call(self, *args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real[kind](self, *args, **kw)
+            finally:
+                times[kind].append(time.perf_counter() - t0)
+        return call
+
+    def leaves_of(state):
+        return _leaves(state["params_trainable"]) + _leaves(state["opt"])
+
+    print(f"[checkpoint] codec {CM.codec()} (zlib level "
+          f"{CM.ZLIB_LEVEL} when zstandard is missing), {cfg.name} full "
+          f"depth, argv {' '.join(argv[:2])} ... --ckpt-every 3; disk free "
+          f"{shutil.disk_usage(ROOT).free} bytes", flush=True)
+    for kind in times:
+        setattr(CM.CheckpointManager, kind, timed(kind))
+    rss = _RssPeak()
+    rss.start()
+    try:
+        out = train.main(argv, batches=batches)
+        files = sorted(os.listdir(ckdir))
+        check(files == ["step_000000003.ckpt", "step_000000006.ckpt"],
+              f"checkpoint run: files {files}")
+        sizes = [os.path.getsize(ckdir / f) for f in files]
+        losses_a = out["losses"]
+        check(losses_a == musicgen_losses,
+              f"checkpointing changed the run: losses {losses_a} against "
+              f"{musicgen_losses}")
+        kept = [t.cpu() for t in leaves_of(out["state"])]
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.remove(ckdir / files[-1])
+
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            out = train.main(argv, batches=batches)
+        check("resumed from step 3" in "".join(tee.seen)
+              and out["start"] == 3,
+              "the second run did not resume from step 3")
+        check(out["losses"] == losses_a[3:],
+              f"resumed losses {out['losses']} against {losses_a[3:]}")
+        got = leaves_of(out["state"])
+        check(len(got) == len(kept) and all(
+            torch.equal(a, b.cuda()) for a, b in zip(got, kept)),
+              "the resumed run's trainable params or optimizer state differ "
+              "from the uninterrupted run's")
+        del got, kept
+
+        torn = CM.CheckpointManager(str(ckdir), chaos=FaultSchedule(
+            0, rates={"torn": 1.0}))
+        torn.save(7, bridge.state_to_tree(out["state"]))
+        check(torn.torn_writes == 1, "the torn save was not torn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tree, meta = CM.CheckpointManager(str(ckdir)).restore(
+                target=bridge.state_to_tree(out["state"]))
+        check(meta["step"] == 6 and any("step 7" in str(w.message)
+                                        for w in caught),
+              f"restore past the torn step 7 gave step {meta['step']}")
+        check(all(torch.equal(a, b) for a, b in zip(
+            _leaves(tree), _leaves(bridge.state_to_tree(out["state"])))),
+              "the restored step 6 differs from the run's state")
+        del tree, out
+    finally:
+        rss.stop()
+        for kind, fn in real.items():
+            setattr(CM.CheckpointManager, kind, fn)
+        shutil.rmtree(ckdir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[checkpoint] resumed from step 3: steps 4-6 losses bitwise the "
+          f"uninterrupted run's, final trainable params and optimizer state "
+          f"bitwise equal; a torn step 7 fell back to step 6. codec "
+          f"{CM.codec()}, file bytes {sizes} (steps 3, 6), save_s "
+          f"{[round(t, 3) for t in times['save']]} (steps 3, 6, 6 resumed, "
+          f"7 torn), restore_s {[round(t, 3) for t in times['restore']]} "
+          f"(the resume, then past the torn file), host peak RSS during the "
+          f"phase {rss.peak} KiB (before it {rss.before} KiB) "
+          f"[{card_line()}]", flush=True)
 
 
 def _leaves(tree) -> list:
@@ -3225,8 +3661,8 @@ def kernels_line(results: dict) -> dict:
     serving run B (8 waves; block_scatter_update), plus the gemma path's
     (6 steps; block_sparse_dw, fused_block_opt), the jamba path's (6
     steps; block_sparse_dw, batched_dw, fused_block_opt) and the train_4k,
-    nemotron, command-r and llama4-scout runs' (6 steps each; the scout's
-    batched_dw too)."""
+    nemotron, command-r, llama4-scout, musicgen-medium and qwen2-vl-7b
+    runs' (6 steps each; the scout's batched_dw too)."""
     dtypes = {"block_sparse_dw": "bfloat16", "batched_dw": "bfloat16"}
     rows = []
     for name, (route, source, replaces, _) in SOURCES.items():
@@ -3366,6 +3802,17 @@ def main() -> int:
     phase_compact_vs_dense(scout_cut(layers=4), "scout-compact-vs-dense",
                            batch=1, seq=4096, one_at_a_time=True)
     print(f"[chip_smoke] text-arch phases done at "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    musicgen_losses = phase_av_arch(results, "musicgen", MUSICGEN_ARGV,
+                                    "blocks/mlp/w_up")
+    phase_av_arch(results, "qwen2-vl", QWEN_ARGV, "blocks/mlp/w_gate")
+    print(f"[chip_smoke] audio / vlm train phases done at "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    phase_serve_av()
+    print(f"[chip_smoke] audio / vlm serving phases done at "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    phase_checkpoint(musicgen_losses)
+    print(f"[chip_smoke] checkpoint phase done at "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t0:.0f} s",
           flush=True)

@@ -8,7 +8,10 @@ tensors, and back. bf16 travels bit for bit (as int16 bits).
 The train-state keys carried are `step`, `params_trainable`,
 `params_frozen`, `opt` and `sel_idx`. The reference's `rng` is a JAX PRNG
 key, which the port cannot replay; the port's `rng` is an int seed, given
-on the way in.
+on the way in (its dynamic-phase draws key on (seed, step, segment, leaf),
+`core.selection.draw_seed`). `state_to_tree` / `state_from_tree` give the
+port's train state the reference's checkpoint layout (`step` a 0-d int32,
+no `rng`), so a train state saved by either package restores in the other.
 
 Serve state (page pools, page tables, delta batches) is nested dicts of
 arrays too, so `to_torch` / `to_numpy` carry it; a user's `DeltaState`
@@ -67,6 +70,26 @@ def state_to_numpy(state) -> dict:
     out = {"step": np.asarray(state["step"], np.int32)}
     for key in STATE_KEYS[1:]:
         out[key] = to_numpy(state[key])
+    return out
+
+
+def state_to_tree(state) -> dict:
+    """The port's train state as a checkpoint tree in the reference's
+    layout: `step` a 0-d int32 tensor, the tensors as they are, no `rng`."""
+    out = {"step": torch.tensor(state["step"], dtype=torch.int32)}
+    for key in STATE_KEYS[1:]:
+        out[key] = state[key]
+    return out
+
+
+def state_from_tree(tree, seed: int = 0) -> dict:
+    """A checkpoint tree (`state_to_tree`'s layout, or a reference train
+    state restored onto it, whose JAX `rng` key is dropped) -> the port's
+    train state, `rng` = seed."""
+    out = {"step": int(tree["step"])}
+    for key in STATE_KEYS[1:]:
+        out[key] = tree.get(key)
+    out["rng"] = seed
     return out
 
 

@@ -5,7 +5,7 @@ A copy of the reference package's `configs/base.py` (the port imports
 nothing of the reference). Field names and defaults are kept identical, so a
 config built here means the same model and the same training run as its
 counterpart there, and the shape grid (`SHAPES`, `all_cells`) is the
-reference's. Architectures are registered as their slices land.
+reference's. All ten of its LM architectures are registered.
 """
 from __future__ import annotations
 
@@ -96,8 +96,7 @@ SHAPES: dict[str, ShapeConfig] = {
 # archs allowed to run long_500k (sub-quadratic path exists)
 LONG_CONTEXT_ARCHS = ("rwkv6-3b", "jamba-1.5-large-398b", "gemma3-4b")
 
-# the reference's ten LM architectures (data: the port registers them in
-# _MODULES as their slices land)
+# the reference's ten LM architectures
 ARCH_IDS = (
     "musicgen-medium",
     "command-r-35b",
@@ -111,8 +110,9 @@ ARCH_IDS = (
     "rwkv6-3b",
 )
 
-# architectures the port runs so far
+# the module of each architecture's config
 _MODULES = {
+    "musicgen-medium": "musicgen_medium",
     "command-r-35b": "command_r_35b",
     "llama3-8b": "llama3_8b",
     "nemotron-4-15b": "nemotron_4_15b",
@@ -120,17 +120,15 @@ _MODULES = {
     "deepseek-moe-16b": "deepseek_moe_16b",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
     "rwkv6-3b": "rwkv6_3b",
 }
 
 
 def _arch_module(arch_id: str):
     if arch_id not in _MODULES:
-        later = (": the audio / vlm archs (embedding inputs, M-RoPE) come "
-                 "with ROADMAP queue A item 10a" if arch_id in ARCH_IDS
-                 else "")
-        raise KeyError(f"architecture {arch_id!r} is not ported yet{later}; "
-                       f"the port runs {sorted(_MODULES)}")
+        raise KeyError(f"unknown architecture {arch_id!r}; the port runs "
+                       f"{sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
 
 

@@ -59,7 +59,12 @@ class DeltaState:
                    for a in tree_leaves(self.idx) + tree_leaves(self.vals))
 
     def to_tree(self) -> dict:
+        """Checkpoint tree (plain nested dicts)."""
         return {"idx": self.idx, "vals": self.vals}
+
+    @classmethod
+    def from_tree(cls, tree: dict) -> "DeltaState":
+        return cls(idx=tree["idx"], vals=tree["vals"])
 
 
 def decode_delta_spec(plan, trainable_segments) -> dict:

@@ -55,10 +55,6 @@ def _layer(tree, i: int):
     return tree_map(lambda a: a[i], tree)
 
 
-def _embed(cfg, params, tokens):
-    return F.embedding(tokens.long(), T._pick(params, None, "embed", "tok"))
-
-
 def _logits(cfg, params, x):
     """[..., d] -> [..., V] fp32 (the reference's preferred_element_type:
     bf16 products are exact in fp32, so upcasting first gives its sums)."""
@@ -223,12 +219,13 @@ def paged_step(cfg, params, batch, state, pools, page_table, *,
                page_size: int, deltas=None):
     """s >= 1 tokens per batch row against the paged serve caches.
 
-    batch: {"tokens" [B,S], "start" [B], "active" [B] bool, "length" [B]
-    (optional, default S)}. `start` is the per-row token count already
-    cached; rows with active=False keep all their state (their pool writes
-    are dropped inside the attention). `length` lets the engine pad every
-    prefill chunk to one page-sized shape; padded positions write nothing
-    and the logits are taken at each row's position length-1.
+    batch: {"tokens" [B,S] | "embeds" [B,S,d], "start" [B], "active" [B]
+    bool, "length" [B] (optional, default S)}. `start` is the per-row token
+    count already cached; rows with active=False keep all their state
+    (their pool writes are dropped inside the attention). `length` lets the
+    engine pad every prefill chunk to one page-sized shape; padded
+    positions write nothing and the logits are taken at each row's
+    position length-1.
 
     `deltas` (optional) is {seg_name: {"idx": ..., "val": ...}} of per-user
     compact weight deltas whose leaves are [steps, B, ...]; each batch row
@@ -239,7 +236,7 @@ def paged_step(cfg, params, batch, state, pools, page_table, *,
     """
     start, active = batch["start"], batch["active"]
     length = batch.get("length")
-    x = _embed(cfg, params, batch["tokens"])
+    x = T.embed_tokens(cfg, (params, None), batch)
     new_pools = {}
     for seg in T.segment_layout(cfg):
         stack = params["segments"][seg.name]
@@ -272,12 +269,13 @@ def _decode_block(cfg, kind: str, p, x, positions, cache):
 def decode_step(cfg, params, batch, cache):
     """One token for the whole batch.
 
-    batch: {"tokens" [B,1], "positions" [B,1]}.
+    batch: {"tokens" [B,1] | "embeds" [B,1,d], "positions" [B,1] ([3,B,1]
+    for M-RoPE)}.
     Returns (logits [B, V] fp32, new_cache)."""
     positions = batch.get("positions")
     if positions is None:
         raise ValueError("decode_step requires explicit positions")
-    x = _embed(cfg, params, batch["tokens"])
+    x = T.embed_tokens(cfg, (params, None), batch)
     new_cache = {}
     for seg in T.segment_layout(cfg):
         stack = params["segments"][seg.name]
@@ -296,9 +294,10 @@ def decode_step(cfg, params, batch, cache):
 # ---------------------------------------------------------------------------
 
 def prefill(cfg, params, batch, pad_to: int = 0):
-    """Run the full prompt, returning (last-token logits [B, V] fp32,
-    contiguous cache padded to `pad_to` positions)."""
-    x = _embed(cfg, params, batch["tokens"])
+    """Run the full prompt (`batch` as `transformer.forward`'s), returning
+    (last-token logits [B, V] fp32, contiguous cache padded to `pad_to`
+    positions)."""
+    x = T.embed_tokens(cfg, (params, None), batch)
     b, s = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:

@@ -88,6 +88,43 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def mrope_sections(head_dim: int) -> tuple[int, int, int]:
+    """Pair counts for (temporal, height, width); qwen2-vl uses 16 / 24 /
+    24 of 64 pairs for head_dim 128, i.e. fractions (1/4, 3/8, 3/8)."""
+    pairs = head_dim // 2
+    t = pairs // 4
+    h = (pairs - t) // 2
+    w = pairs - t - h
+    return t, h, w
+
+
+def apply_mrope(x, positions_thw, theta: float):
+    """M-RoPE (qwen2-vl): x [..., S, H, D], positions_thw [3, ..., S]. The
+    frequency pairs are split between the three position components, in
+    fp32 as `apply_rope`.
+
+    Positions without the leading component axis raise `ValueError`. The
+    reference falls back to [B, S] positions there and then indexes their
+    batch axis with the component ids 0 / 1 / 2 (ROADMAP queue C)."""
+    if positions_thw.dim() != x.dim() - 1 or positions_thw.shape[0] != 3:
+        raise ValueError(
+            f"M-RoPE takes positions [3, ..., S] (temporal, height, width) "
+            f"for x of shape {tuple(x.shape)}; got "
+            f"{tuple(positions_thw.shape)}")
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)                # [pairs]
+    # the position component of each frequency pair: [..., S, pairs]
+    lead = tuple(positions_thw.shape[1:])
+    pos = torch.cat([positions_thw[i][..., None].expand(lead + (n,))
+                     for i, n in enumerate(mrope_sections(d))], dim=-1)
+    angles = pos.float() * freqs
+    cos = torch.cos(angles)[..., :, None, :]
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -109,12 +146,9 @@ def _qkv(p, cfg, x, positions, sel=None, delta=None):
     q = col_matmul(x, p["wq"], sel, "wq", delta).reshape(b, s, -1, hd)
     k = col_matmul(x, p["wk"], sel, "wk", delta).reshape(b, s, -1, hd)
     v = col_matmul(x, p["wv"], sel, "wv", delta).reshape(b, s, -1, hd)
-    if getattr(cfg, "mrope", False):
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl): ROADMAP queue A item 10a (not ported yet)")
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    rope = apply_mrope if cfg.mrope else apply_rope
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
 
 
 def _expand_kv(k, hq: int):
@@ -379,12 +413,13 @@ def _grouped_scores(q, k_cat, v_cat, mask):
 
 
 def _serve_positions(cfg, start, s: int):
-    """Token positions of a chunk: [B, S]."""
-    if getattr(cfg, "mrope", False):
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl): ROADMAP queue A item 10a (not ported yet)")
-    return start[:, None] + torch.arange(s, dtype=torch.int32,
-                                         device=start.device)[None, :]
+    """Token positions of a chunk: [B, S] ([3, B, S], the three components
+    equal, for M-RoPE)."""
+    pos = start[:, None] + torch.arange(s, dtype=torch.int32,
+                                        device=start.device)[None, :]
+    if cfg.mrope:
+        pos = pos.expand((3,) + tuple(pos.shape))
+    return pos
 
 
 def chunk_paged_attention(p, cfg, x, start, active, pool, page_table, *,

@@ -1,8 +1,10 @@
 """Decoder-only LM: the dense family (llama3 and its kin), gemma3's
 local:global super-blocks, the MoE family (deepseek-moe: a dense first
 layer, then MoE layers), jamba's hybrid mamba + attention + MoE
-super-blocks and RWKV-6 (rwkv6: time mix + channel mix blocks behind a
-layernorm `ln0` on the embedding).
+super-blocks, RWKV-6 (rwkv6: time mix + channel mix blocks behind a
+layernorm `ln0` on the embedding) and the audio / vlm archs (musicgen,
+qwen2-vl: dense layers fed embeddings from a stub frontend; qwen2-vl
+rotates with M-RoPE).
 
 Layout: layers are grouped into SEGMENTS of stacked params [steps, ...],
 keyed as in the reference, so a parameter tree bridged from there means the
@@ -66,12 +68,9 @@ def segment_layout(cfg: ModelConfig) -> list[SegmentDef]:
     """The reference's layout: RWKV-6 blocks; jamba super-blocks of
     `attn_every` layers; gemma super-blocks of L local + G global layers
     and a `tail` of local dense layers; for MoE a dense `first` layer
-    (layout all_but_first) and the MoE `blocks`; else dense blocks. Inputs
-    given as embeddings and M-RoPE come with the audio / vlm archs."""
-    if cfg.embed_inputs or cfg.mrope:
-        raise NotImplementedError(
-            f"{cfg.name}: embedding inputs and M-RoPE (musicgen, qwen2-vl): "
-            f"ROADMAP queue A item 10a (not ported yet)")
+    (layout all_but_first) and the MoE `blocks`; else dense blocks (the
+    audio and vlm archs too: they differ in their inputs, not their
+    layers)."""
     if cfg.family == "ssm":
         return [SegmentDef("blocks", cfg.num_layers, "rwkv")]
     if cfg.family == "hybrid":
@@ -189,8 +188,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
 
     params: dict[str, Any] = {"segments": {}}
     g = generator(0)
-    params["embed"] = {"tok": embed_init(g, (cfg.vocab_size, cfg.d_model),
-                                         dtype, device)}
+    # an embedding-input arch has no token table unless its head is tied
+    if not cfg.embed_inputs or cfg.tie_embeddings:
+        params["embed"] = {"tok": embed_init(
+            g, (cfg.vocab_size, cfg.d_model), dtype, device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = {"w": dense_init(g, (cfg.d_model, cfg.vocab_size),
                                              dtype=dtype, device=device)}
@@ -395,16 +396,32 @@ def _pick(a, b, *path):
     return None
 
 
+def embed_tokens(cfg, params_pair, batch):
+    """The layer stack's input [B, S, d]: `batch["embeds"]` for an
+    embedding-input arch (the stub frontends of musicgen and qwen2-vl),
+    cast to the model's dtype; else the token table's rows of
+    `batch["tokens"]`. RWKV-6 adds its `ln0`. The reference feeds fp32
+    embeds to a bf16 model unchanged, and its activations then stay fp32;
+    the port computes in the model's dtype, as it does for tokens."""
+    frozen, trainable = params_pair
+    if cfg.embed_inputs:
+        x = batch["embeds"].to(dtype_of(cfg))
+    else:
+        emb = _pick(frozen, trainable, "embed", "tok")
+        x = F.embedding(batch["tokens"].long(), emb)
+    if cfg.family == "ssm":
+        x = L.apply_norm(_pick(frozen, trainable, "ln0"), x)
+    return x
+
+
 def forward(cfg, params_pair, batch, sel=None, remat: bool = True):
     """params_pair = (frozen_tree, trainable_tree); either may be None.
-    batch: {"tokens" [B,S], optional "positions"}. Returns (hidden [B,S,d],
+    batch: {"tokens" [B,S] | "embeds" [B,S,d], optional "positions" [B,S]
+    ([3,B,S] for M-RoPE, which has no default)}. Returns (hidden [B,S,d],
     aux [2] fp32: load_balance and router_z summed over the MoE layers,
     zeros for the dense family)."""
     frozen, trainable = params_pair
-    emb = _pick(frozen, trainable, "embed", "tok")
-    x = F.embedding(batch["tokens"].long(), emb)
-    if cfg.family == "ssm":
-        x = L.apply_norm(_pick(frozen, trainable, "ln0"), x)
+    x = embed_tokens(cfg, params_pair, batch)
     b, s = x.shape[0], x.shape[1]
     positions = batch.get("positions")
     if positions is None:

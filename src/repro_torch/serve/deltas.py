@@ -139,7 +139,7 @@ class DeltaStore:
         self._entries.move_to_end(user)
 
     def load(self, user, entry):
-        """Insert an entry unpinned (the checkpoint restore path, to come);
+        """Insert an entry unpinned (the checkpoint restore path);
         honors the capacity bound."""
         if user not in self._entries and len(self._entries) >= self.capacity \
                 and self.evict_lru() is None:

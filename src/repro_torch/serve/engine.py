@@ -33,8 +33,16 @@ persist, chaos injection, the request journal, the watchdog and load
 shedding (queue A item 13), sharded serving (item 14) and the
 flash-decoding softmax (item 12).
 
+Embedding-input archs (musicgen, qwen2-vl): a request carries its prompt
+as `embeds` [prompt_len, d_model], and each decode step feeds every slot a
+fresh standard-normal embedding, the reference's placeholder frontend
+(sampled tokens are returned, never fed back). They serve with
+`prefix_mode="off"` whatever is asked (no token identity to key reuse on)
+and without personalization (no token stream to train on).
+
 Sampling: greedy, or temperature sampling from the engine's own
-`torch.Generator`, seeded by `seed` and advanced by every draw.
+`torch.Generator`, seeded by `seed` and advanced by every draw (the decode
+embeddings of the placeholder frontend come from it too).
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ import torch
 
 from repro_torch.core.sparse_update import SelSpec, tree_leaves, tree_map
 from repro_torch.models import decoding as D
+from repro_torch.models.transformer import dtype_of
 from repro_torch.serve.deltas import DeltaStore, PersonalizationConfig
 from repro_torch.serve.paging import PagePool
 from repro_torch.serve.sampling import sample_token
@@ -144,6 +153,13 @@ class ServeEngine:
                  watchdog_s: Optional[float] = None, journal=None,
                  rules=None, flash_decode: Optional[bool] = None):
         assert num_slots >= 1 and max_len >= 2 and page_size >= 1
+        if cfg.embed_inputs:
+            # placeholder-embeds frontends have no token identity to key
+            # prefix reuse on
+            prefix_mode = "off"
+        if personalization is not None and cfg.embed_inputs:
+            raise ValueError("personalization trains on token streams; "
+                             "embed-input frontends have none")
         if prefix_mode != "off":
             _refuse(f"prefix_mode={prefix_mode!r} (radix / chain prefix "
                     f"caches)", _A13)
@@ -318,19 +334,33 @@ class ServeEngine:
         masks the padding inside the step (writes dropped, logits at
         length-1)."""
         ps = self.page_size
-        toks = np.asarray(req.tokens[start:start + size], np.int32)
-        if size < ps:
-            toks = np.pad(toks, (0, ps - size))
-        return {"start": self._tensor([start]),
-                "active": self._tensor([True], torch.bool),
-                "length": self._tensor([size]),
-                "tokens": self._tensor(toks)[None]}
+        batch = {"start": self._tensor([start]),
+                 "active": self._tensor([True], torch.bool),
+                 "length": self._tensor([size])}
+        if self.cfg.embed_inputs:
+            emb = np.asarray(req.embeds[start:start + size], np.float32)
+            if size < ps:
+                emb = np.pad(emb, ((0, ps - size), (0, 0)))
+            batch["embeds"] = self._tensor(emb, torch.float32)[None]
+        else:
+            toks = np.asarray(req.tokens[start:start + size], np.int32)
+            if size < ps:
+                toks = np.pad(toks, (0, ps - size))
+            batch["tokens"] = self._tensor(toks)[None]
+        return batch
 
     def _decode_batch(self, tokens_row, pos_row, active_row):
-        return {"start": self._tensor(pos_row),
-                "active": self._tensor(active_row, torch.bool),
-                "length": self._decode_length,
-                "tokens": self._tensor(tokens_row)[:, None]}
+        batch = {"start": self._tensor(pos_row),
+                 "active": self._tensor(active_row, torch.bool),
+                 "length": self._decode_length}
+        if self.cfg.embed_inputs:
+            # placeholder frontend: fresh embeds every step
+            batch["embeds"] = torch.randn(
+                (self.num_slots, 1, self.cfg.d_model), generator=self._gen,
+                device=self.device, dtype=dtype_of(self.cfg))
+        else:
+            batch["tokens"] = self._tensor(tokens_row)[:, None]
+        return batch
 
     # -- page bookkeeping --------------------------------------------------
 
@@ -391,8 +421,10 @@ class ServeEngine:
     def run(self, requests: list[Request],
             verbose: bool = False) -> ServeStats:
         for r in requests:
-            assert r.tokens is not None, (
-                f"request {r.rid}: the port serves token inputs only")
+            given = r.embeds if self.cfg.embed_inputs else r.tokens
+            assert given is not None, (
+                f"request {r.rid}: {self.cfg.name} takes "
+                f"{'embeds' if self.cfg.embed_inputs else 'tokens'}")
             assert r.max_new_tokens >= 1, (
                 f"request {r.rid}: max_new_tokens must be >= 1")
             assert r.prompt_len + r.max_new_tokens <= self.max_len, (
@@ -580,13 +612,18 @@ class ServeEngine:
 
 def make_random_requests(cfg, n: int, prompt_len: int, gen_len: int,
                          seed: int = 0, **req_kw) -> list[Request]:
-    """Uniform-random prompts: the synthetic serving workload (the same
-    prompts as the reference's for the same seed)."""
-    if cfg.embed_inputs:
-        raise NotImplementedError("embed-input frontends are not ported yet")
+    """Uniform-random prompts (token ids, or standard-normal embeds for
+    embed-input frontends): the synthetic serving workload, bitwise the
+    reference's for the same seed."""
     rng = np.random.default_rng(seed)
-    return [Request(rid, gen_len,
-                    tokens=rng.integers(0, cfg.vocab_size,
-                                        prompt_len).astype(np.int32),
-                    **req_kw)
-            for rid in range(n)]
+    reqs = []
+    for rid in range(n):
+        if cfg.embed_inputs:
+            emb = rng.standard_normal(
+                (prompt_len, cfg.d_model)).astype(np.float32)
+            reqs.append(Request(rid, gen_len, embeds=emb, **req_kw))
+        else:
+            toks = rng.integers(
+                0, cfg.vocab_size, prompt_len).astype(np.int32)
+            reqs.append(Request(rid, gen_len, tokens=toks, **req_kw))
+    return reqs

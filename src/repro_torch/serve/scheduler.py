@@ -38,8 +38,7 @@ class SlotState(enum.Enum):
 @dataclasses.dataclass
 class Request:
     """One generation request. `tokens` for token-input models, `embeds`
-    ([prompt_len, d_model]) for embed-input frontends (musicgen-style; the
-    port serves token inputs only so far).
+    ([prompt_len, d_model]) for embed-input frontends (musicgen-style).
 
     `stream` is the per-token callback ``fn(rid, token) -> bool | None``:
     called for every sampled token in order; returning False cancels the

@@ -1,5 +1,6 @@
 """The port stands alone: no module of `src/repro_torch/` nor `chip_smoke.py`
-imports JAX or the reference package, statically or at run time."""
+imports JAX or the reference package, statically or at run time, nor the
+`msgpack` package (the checkpoint format has its own codec)."""
 import os
 import re
 import subprocess
@@ -48,7 +49,13 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
             "repro_torch.configs.jamba_1_5_large_398b",
             "repro_torch.configs.nemotron_4_15b",
             "repro_torch.configs.command_r_35b",
-            "repro_torch.configs.llama4_scout_17b_a16e"} <= set(mods)
+            "repro_torch.configs.llama4_scout_17b_a16e",
+            "repro_torch.configs.musicgen_medium",
+            "repro_torch.configs.qwen2_vl_7b", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.manager",
+            "repro_torch.checkpoint.msgpack", "repro_torch.runtime",
+            "repro_torch.runtime.fault",
+            "repro_torch.runtime.chaos"} <= set(mods)
     assert len(mods) > 15
     code = (
         "import importlib, sys\n"
@@ -57,7 +64,8 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+        "                                    'msgpack'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -133,8 +133,9 @@ def test_serving_forms_refuse_with_their_roadmap_item():
 def test_other_recurrent_and_hybrid_families_still_refuse():
     """gemma3 and jamba train now (tests/test_torch_gemma.py,
     test_torch_jamba.py); their serving caches are still refused, naming
-    item 12, and the layout refuses embedding inputs and M-RoPE, naming
-    item 10a."""
+    item 12. Embedding inputs and M-RoPE (item 10a, ported) lay out as the
+    dense family, on the smoke and the full configs, and an embedding-input
+    model has no token table unless its head is tied."""
     from repro_torch.models import decoding as PD
     for arch in ("gemma3-4b", "jamba-1.5-large-398b"):
         cfg = get_smoke_config(arch)
@@ -142,7 +143,15 @@ def test_other_recurrent_and_hybrid_families_still_refuse():
                                                   "jamba_super")
         with pytest.raises(NotImplementedError, match="item 12"):
             PD.init_cache(cfg, 1, 16, device="meta")
-    for kw in ({"embed_inputs": True}, {"mrope": True}):
-        cfg = dataclasses.replace(get_smoke_config("llama3-8b"), **kw)
-        with pytest.raises(NotImplementedError, match="item 10a"):
-            PT.segment_layout(cfg)
+    base = get_smoke_config("llama3-8b")
+    for kw in ({"embed_inputs": True}, {"mrope": True},
+               {"embed_inputs": True, "tie_embeddings": True}):
+        cfg = dataclasses.replace(base, **kw)
+        assert [tuple(s) for s in PT.segment_layout(cfg)] == \
+            [("blocks", base.num_layers, "dense", 1)]
+        params = PT.init_params(cfg, 0, "meta")
+        assert ("embed" in params) == (not cfg.embed_inputs
+                                       or cfg.tie_embeddings)
+    for arch in ("musicgen-medium", "qwen2-vl-7b"):
+        for cfg in (get_smoke_config(arch), get_config(arch)):
+            assert [s.kind for s in PT.segment_layout(cfg)] == ["dense"]

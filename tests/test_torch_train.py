@@ -230,8 +230,36 @@ def test_cli_runs_smoke_steps_on_cpu(capsys):
     assert "DGSU plan" in text and "step     3" in text
 
 
-def test_cli_refuses_checkpointing():
+def test_cli_refuses_checkpointing(tmp_path, capsys):
+    """(The name is the test's from before checkpointing was ported.) The
+    launcher checkpoints and resumes: a run SIGTERMed after step 3 saves
+    an emergency checkpoint and stops; the same command again prints
+    "resumed from step 3" and runs steps 4-6, which give bitwise the losses,
+    trainable params and optimizer state of 6 straight steps (through the
+    dynamic phase, steps 2-3: its draws key on the step)."""
+    import os
+    import signal
     from repro_torch.launch import train
-    with pytest.raises(SystemExit):
-        train.main(["--arch", "llama3-8b", "--smoke", "--steps", "1",
-                    "--device", "cpu", "--ckpt-dir", "ckpt"])
+    argv = ["--arch", "llama3-8b", "--smoke", "--steps", "6", "--batch", "2",
+            "--seq", "16", "--update-layers", "2", "--compact-grads",
+            "--channel-block", "8", "--phase-j", "1", "--phase-k", "2",
+            "--optimizer", "adamw", "--log-every", "1", "--device", "cpu",
+            "--ckpt-every", "2"]
+    straight = train.main(argv + ["--ckpt-dir", str(tmp_path / "a")])
+
+    def stop_at_3(step, state, metrics):
+        if step == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+    ckpt = ["--ckpt-dir", str(tmp_path / "b")]
+    first = train.main(argv + ckpt, on_step=stop_at_3)
+    assert first["losses"] == straight["losses"][:3]
+    assert "emergency=True" in capsys.readouterr().out
+    resumed = train.main(argv + ckpt)
+    assert "resumed from step 3" in capsys.readouterr().out
+    assert resumed["start"] == 3 and resumed["state"]["step"] == 6
+    assert resumed["losses"] == straight["losses"][3:]
+    for key in ("params_trainable", "opt", "sel_idx"):
+        a = tree_leaves(resumed["state"][key])
+        b = tree_leaves(straight["state"][key])
+        assert len(a) == len(b) and all(torch.equal(x, y)
+                                        for x, y in zip(a, b))
