@@ -182,7 +182,39 @@ Phases (any failure exits non-zero and prints no result):
    intact step; the codec, file bytes, save and restore seconds and the
    host's peak RSS.
 
-The long-sequence phases 16-23 run last, so that the profiler windows
+24. gemma3-4b served at full width (34 layers: the 29 local ones from
+   per-slot rings of 1024 slots, the 5 global ones from pages of 64)
+   through the serve launcher's `build_engine`: 4 slots, prefix_mode
+   off, greedy, 4 requests of 1088 + 32 tokens (every ring wraps in
+   prefill) and 4 of 128 + 32; all complete, no port kernel launched;
+   then at published widths cut to one super-block (6 layers) in f32, 3
+   requests (the 1088-token prompt and two of 128) on 2 slots against
+   the contiguous prefill + decode_step oracle, every sampled step's
+   top-2 gap probed;
+25. rwkv6-3b served at full width (32 layers, state only: no pages), 4
+   slots, pages of 16, 8 requests of 128 + 32: exactly 32 wkv6 launches
+   (the forward's state form) a prefill chunk and a decode step, no
+   other port kernel; the oracle at 4 layers in f32;
+26. deepseek-moe-16b at full width and the jamba cut of phase 12e (one
+   super-block of 8 layers: 7 mamba layers with per-slot state, the
+   attention layer on pages; 4 of 16 experts) with one more request of
+   a 3-token prompt (shorter than d_conv - 1), the same traffic as phase
+   25; then the oracles in f32 (deepseek cut to 4 layers, the jamba cut
+   further to 4 layers and 2 experts), with the capacity factor at E / k
+   (no choice dropped on either side) and the router near-tie probe: a
+   difference where some routing's k-th and (k+1)-th probabilities lie
+   within 1e-5 is reported, not failed;
+27. flash-decoding: phase 13's run A (full-width llama3-8b, 8 x (128 +
+   32)) plain and with `--flash-decode` on one copy of the weights: the
+   plain run's tokens bitwise run A's, the flash run's equal except at a
+   printed near tie (the plain top-2 gap at the first differing token no
+   larger than twice the two runs' largest logit difference there); the
+   decode-step medians side by side.
+
+Each serving phase prints the decode-step median, prefill and decode
+tokens/s, the peak memory and the card's name and power limit, and frees
+its model before the next. The long-sequence phases 16-23, and the
+serving phases 24-27 after them, run last, so that the profiler windows
 of the earlier phases open where they did before them (a window can lose
 kernels, more often late in the process; PERF.md §6).
 
@@ -195,7 +227,10 @@ duplicate-index case, and the WKV recurrence forward
 and backward against its plain version and torch.autograd of it at the
 rwkv path's shapes (batch 4 x 1024 steps x 40 heads x 64, fp32), with w
 down to 1e-12, with T = 1001 and with T = 1 and T one step either side of
-the kernels' chunk of 16 steps, and two calls bitwise equal.
+the kernels' chunk of 16 steps, and two calls bitwise equal; and the
+forward's state form (serving: s0 in, s_last out) against the plain
+version with a nonzero s0 at B = 4 slots, 40 heads and T = 1, 16 and
+128, timed at T = 1 (B = 4) and T = 16 (B = 1).
 
 The last lines are one JSON object with every kernel's numbers, and then
 `{"ok": true, "device": {...}}`.
@@ -1506,6 +1541,70 @@ def check_wkv(gen, fwd: dict, bwd: dict):
     torch.cuda.empty_cache()
 
 
+# the serving path's WKV calls: 4 slots x 40 heads of 64, a decode step
+# (T = 1), a prefill chunk of one page (T = 16), and a longer run
+WKV_STATE_T = (1, 16, 128)
+
+
+def check_wkv_state(gen, out: dict):
+    """The forward's state form, the one serving launches: from a nonzero
+    s0, y and the state after the last step against `ref.wkv6_ref` with
+    the same s0, at B = 4 (slots), H = 40 and T = 1, 16 and 128 (y and
+    s_last within 1e-4 of the largest |value| of each plain tensor, as the
+    stateless form), then at T = 1 (B = 4) and T = 16 (B = 1) timed with
+    CUDA events (L2 flushed before each call) and by the profiler's device
+    time beside the plain version and the byte bound: r, k, v, w read and
+    y written once, s0 read and s_last written once."""
+    from repro_torch.kernels import ops, ref
+    h, d = WKV_SHAPE[2], WKV_SHAPE[3]
+    for t in WKV_STATE_T:
+        r, k, v, w, u = _wkv_inputs((4, t, h, d), gen, -1.0)
+        s0 = 0.3 * torch.randn((4, h, d, d), generator=gen, device="cuda")
+        y, s_last = ops.wkv6_fwd(r, k, v, w, u, s0=s0, want_state=True)
+        want_y, want_s = ref.wkv6_ref(r, k, v, w, u, s0=s0, want_state=True)
+        torch.cuda.synchronize()
+        errs = []
+        for name, got, want in (("y", y, want_y), ("s_last", s_last, want_s)):
+            check(bool(torch.isfinite(got).all()),
+                  f"wkv6 state T={t}: {name} not finite")
+            sc = float(want.abs().max())
+            e = float((got - want).abs().max())
+            check(e <= 1e-4 * max(sc, 1e-30),
+                  f"wkv6 state T={t}: {name} max abs err {e} against max "
+                  f"|{name}| {sc}")
+            errs.append(f"{name} {e:.3e}/{sc:.3e}")
+        out.setdefault("max_abs_err", 0.0)
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float((y - want_y).abs().max()),
+                                 float((s_last - want_s).abs().max()))
+        print(f"[kernel] wkv6 state form B=4 T={t} H={h} D={d}, s0 ~ "
+              f"0.3 N: err/max {', '.join(errs)}", flush=True)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    for b, t in ((4, 1), (1, 16)):
+        r, k, v, w, u = _wkv_inputs((b, t, h, d), gen, -6.0)
+        s0 = 0.3 * torch.randn((b, h, d, d), generator=gen, device="cuda")
+        fn = lambda: ops.wkv6_fwd(r, k, v, w, u, s0=s0, want_state=True)
+        ms = cuda_ms_flushed(fn, flush, reps=20)
+        dev = device_ms(fn, flush=flush,
+                        kernel=("wkv6_fwd_chunk_kernel", 1))
+        plain = cuda_ms_flushed(
+            lambda: ref.wkv6_ref(r, k, v, w, u, s0=s0, want_state=True),
+            flush, reps=5, warmup=1)
+        n = b * t * h * d
+        nbytes = 5 * n * 4 + 2 * b * h * d * d * 4 + u.numel() * 4
+        flops = WKV_OPS["wkv6"] * n * d
+        b_ms, b_by = bound_ms(flops, nbytes, "float32")
+        out[f"T={t}"] = dict(ms=ms, device_ms=dev, plain_ms=plain,
+                             bound_ms=b_ms, bytes=nbytes)
+        print(f"[kernel] wkv6 state form B={b} T={t} fp32: kernel_ms={ms:.4f}"
+              f" (events) device_ms={dev:.4f} plain_ms={plain:.4f} "
+              f"library_ms=none bound_ms={b_ms:.5f} ({b_by}: "
+              f"{nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP) "
+              f"[{card_line()}]", flush=True)
+    del flush
+    torch.cuda.empty_cache()
+
+
 def phase_kernels(results: dict):
     gen = torch.Generator(device="cuda").manual_seed(0)
     leaves = _main_path_leaves()
@@ -1528,6 +1627,8 @@ def phase_kernels(results: dict):
     results["wkv6"] = _new_sums()
     results["wkv6_bwd"] = _new_sums()
     check_wkv(gen, results["wkv6"], results["wkv6_bwd"])
+    results["wkv6_state"] = {}
+    check_wkv_state(gen, results["wkv6_state"])
     torch.cuda.empty_cache()
 
 
@@ -2910,6 +3011,9 @@ def phase_serve(results: dict):
     stats_a = eng_a.run(reqs)
     counts_a = ops.launch_counts()
     _serve_summary("serve A", stats_a)
+    results["serve_a"] = {
+        "tokens": {k: list(r.tokens) for k, r in stats_a.results.items()},
+        "median_ms": statistics.median(stats_a.decode_step_s) * 1e3}
     check(stats_a.requests_completed == 8 and stats_a.requests_cancelled == 0,
           f"run A: {stats_a.requests_completed} completed + "
           f"{stats_a.requests_cancelled} cancelled of 8")
@@ -3205,18 +3309,8 @@ def phase_serve_oracle():
     prompts = [torch.randint(0, cfg.vocab_size, (plen,), generator=draw,
                              dtype=torch.int32).numpy() for _ in range(3)]
 
-    def greedy_oracle(p, toks):
-        from repro_torch.models import decoding as D
-        logits, cache = D.prefill(cfg, p, {"tokens": torch.as_tensor(
-            toks).cuda()[None]}, pad_to=max_len)
-        out = [int(logits.argmax(-1)[0])]
-        for t in range(plen, plen + gen - 1):
-            logits, cache = D.decode_step(
-                cfg, p, {"tokens": torch.tensor([[out[-1]]], device="cuda"),
-                         "positions": torch.full((1, 1), t, device="cuda")},
-                cache)
-            out.append(int(logits.argmax(-1)[0]))
-        return out
+    greedy_oracle = lambda p, toks: _greedy_oracle(cfg, p, toks, gen,
+                                                    max_len)
 
     plain = ServeEngine(cfg, params, num_slots=2, max_len=max_len,
                         page_size=16)
@@ -3478,6 +3572,367 @@ def phase_serve_av():
         del eng, params, seen, fed
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# serving for every cache family (phases 24-27)
+# ---------------------------------------------------------------------------
+
+# sliding-window rings: 4 of 1088 + 32 (every 1024-slot ring wraps in
+# prefill) and 4 of 128 + 32, pages of 64
+GEMMA_SERVE = ("gemma3-4b", 64, [(4, 1088, 32), (4, 128, 32)])
+# recurrent state, MoE, hybrid: the LM serving cell's traffic, pages of 16
+FAMILY_SERVE = [(8, 128, 32)]
+
+
+def _family_requests(cfg, specs, seed: int = 0):
+    """[(n, prompt, new)] groups of random requests, rids in order."""
+    from repro_torch.serve import make_random_requests
+    reqs = []
+    for i, (n, plen, gen) in enumerate(specs):
+        for r in make_random_requests(cfg, n, plen, gen, seed=seed + i):
+            r.rid = len(reqs)
+            reqs.append(r)
+    return reqs
+
+
+def _serve_family(tag, arch, page_size, specs, results, model=None,
+                  watch=None, cut=""):
+    """One full-width (or stated-cut) serve run through the serve
+    launcher's `build_engine`: 4 slots, prefix_mode off, greedy; counts
+    zeroed just before the run and read just after. Every request
+    completes with in-vocab tokens; the launches are checked by the
+    caller's `watch(stats, counts)`. Frees the model. Returns the stats."""
+    import argparse
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    longest = max(plen + gen for _, plen, gen in specs)
+    args = serve.add_serve_args(argparse.ArgumentParser()).parse_args(
+        ["--arch", arch, "--batch", "4", "--page-size", str(page_size),
+         "--prompt-len", str(longest - specs[0][2]), "--gen-len",
+         str(specs[0][2]), "--prefix-mode", "off", "--seed", "0"])
+    cfg, eng = serve.build_engine(args, cfg=model)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(eng.params))
+    reqs = _family_requests(cfg, specs)
+    print(f"[{tag}] {cfg.name}: {cfg.num_layers} layers{cut}, {cfg.dtype}, "
+          f"params {n_bytes} bytes, 4 slots, page {page_size} "
+          f"({eng.num_pages} pages), prefix_mode off, greedy, requests "
+          f"{[(n, p, g) for n, p, g in specs]} (n, prompt, new) "
+          f"[{card_line()}]", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    stats = eng.run(reqs)
+    counts = ops.launch_counts()
+    _serve_summary(tag, stats)
+    n_new = sum(r.max_new_tokens for r in reqs)
+    check(stats.requests_completed == len(reqs)
+          and stats.tokens_out == n_new,
+          f"{tag}: {stats.requests_completed} of {len(reqs)} completed, "
+          f"{stats.tokens_out} of {n_new} tokens")
+    check(all(0 <= t < cfg.vocab_size for r in stats.results.values()
+              for t in r.tokens), f"{tag}: a token out of the vocab")
+    (watch or _no_port_kernel)(tag, stats, counts)
+    print(f"[{tag}] launches {counts} [{card_line()}]", flush=True)
+    profile_decode(tag, eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def profile_decode(tag, eng):
+    """One decode step of the engine's model (every slot active, at its
+    last position: every page allocated, the rings full) under
+    torch.profiler after one warm step: wall and device time, the idle
+    share, the port's kernels' share, the largest kernel rows. The state
+    is zero: the step's work does not depend on its values."""
+    from repro_torch.models import decoding as D
+    b, ps = eng.num_slots, eng.page_size
+    state, pools = D.init_serve_cache(eng.cfg, b, eng.max_len,
+                                      max(1, eng.num_pages), ps,
+                                      device="cuda")
+    pt = torch.arange(b * eng.max_pages, dtype=torch.int32,
+                      device="cuda").view(b, eng.max_pages)
+    if eng.has_pages:
+        pt = pt % max(1, eng.num_pages)
+    batch = {"tokens": torch.ones((b, 1), dtype=torch.int32, device="cuda"),
+             "start": torch.full((b,), eng.max_len - 1, dtype=torch.int32,
+                                 device="cuda"),
+             "active": torch.ones((b,), dtype=torch.bool, device="cuda"),
+             "length": torch.ones((b,), dtype=torch.int32, device="cuda")}
+    step = lambda: D.paged_step(eng.cfg, eng.params, batch, state, pools,
+                                pt, page_size=ps,
+                                flash_decode=eng.flash_decode)
+    step()
+    profile_step(f"{tag}: one decode step ({b} slots at position "
+                 f"{eng.max_len - 1})", step)
+    del state, pools
+
+
+def _no_port_kernel(tag, stats, counts):
+    check(not any(counts.values()),
+          f"{tag}: a port kernel launched on plain serving: {counts}")
+
+
+@contextlib.contextmanager
+def _route_gaps():
+    """Within the block, every MoE routing records the smallest gap between
+    a token's k-th and (k+1)-th router probabilities (a device tensor):
+    where it is under 1e-5 two computations of the same token may route it
+    differently (ROADMAP queue C). Yields the list."""
+    from repro_torch.models import moe as MOE
+    route, gaps = MOE.route, []
+
+    def recording(router, x_flat, k):
+        out = route(router, x_flat, k)
+        top = torch.topk(out[1], min(k + 1, out[1].shape[-1]), dim=-1).values
+        if top.shape[-1] > k:
+            gaps.append((top[:, k - 1] - top[:, k]).min())
+        return out
+    MOE.route = recording
+    try:
+        yield gaps
+    finally:
+        MOE.route = route
+
+
+def _greedy_oracle(cfg, params, toks, gen: int, max_len: int) -> list:
+    """Greedy tokens of the contiguous prefill + decode_step path."""
+    from repro_torch.models import decoding as D
+    logits, cache = D.prefill(cfg, params, {"tokens": torch.as_tensor(
+        toks).cuda()[None]}, pad_to=max_len)
+    out = [int(logits.argmax(-1)[0])]
+    for t in range(len(toks), len(toks) + gen - 1):
+        logits, cache = D.decode_step(
+            cfg, params, {"tokens": torch.tensor([[out[-1]]], device="cuda"),
+                          "positions": torch.full((1, 1), t, device="cuda")},
+            cache)
+        out.append(int(logits.argmax(-1)[0]))
+    return out
+
+
+def _family_oracle(tag, cfg, specs, page_size, moe_probe=False):
+    """At the stated cut in f32: every request's engine tokens (2 slots,
+    so the third request refills a slot) against the contiguous oracle's,
+    every sampled step's top-2 logit gap probed (under 1e-4 fails: the
+    comparison would be unsound). With moe_probe a mismatch is reported,
+    not failed, when some routing had its k-th and (k+1)-th router
+    probabilities within 1e-5 (ROADMAP queue C); the capacity factor is
+    raised to E / k, so no choice is dropped on either side (chunked and
+    whole-prompt prefill route different token sets), as the reference's
+    own prefill / decode test does."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import ServeEngine
+    params = T.init_params(cfg, 0, "cuda")
+    reqs = _family_requests(cfg, specs, seed=3)
+    max_len = max(r.prompt_len + r.max_new_tokens for r in reqs)
+    eng = ServeEngine(cfg, params, num_slots=2, max_len=max_len,
+                      page_size=page_size)
+    seen = _record_logits(eng)
+    with _route_gaps() as gaps:
+        stats = eng.run(reqs)
+        want = {r.rid: _greedy_oracle(cfg, params, r.tokens,
+                                      r.max_new_tokens, max_len)
+                for r in reqs}
+        route_gap = float(torch.stack(gaps).min()) if gaps else None
+    gap = _min_gap(seen)
+    check(gap > 1e-4, f"{tag} oracle parity: a near-tie (top-2 gap {gap}) "
+                      f"makes the token comparison unsound")
+    differ = [r.rid for r in reqs if stats.results[r.rid].tokens
+              != want[r.rid]]
+    if differ and moe_probe and route_gap is not None and route_gap < 1e-5:
+        print(f"[{tag} oracle] requests {differ} differ from the oracle "
+              f"with a router near-tie (smallest k-th / (k+1)-th gap "
+              f"{route_gap:.3e} < 1e-5): reported, not failed", flush=True)
+    else:
+        check(not differ, f"{tag} oracle parity: requests {differ} differ "
+                          f"from the contiguous oracle (router gap "
+                          f"{route_gap})")
+    shapes = [(r.prompt_len, r.max_new_tokens) for r in reqs]
+    print(f"[{tag} oracle] {cfg.name} widths, {cfg.num_layers} layers, f32, "
+          f"{len(reqs)} requests {shapes} on 2 slots, page {page_size}: "
+          f"engine == contiguous oracle for "
+          f"{len(reqs) - len(differ)}; min top-2 gap {gap:.3e}; min router "
+          f"gap {route_gap}", flush=True)
+    del eng, params, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_serve_gemma(results: dict):
+    """Phase 24: full-width gemma3-4b (34 layers: 5 super-blocks of 5
+    local + 1 global, 4 local in the tail; window 1024, tied vocab
+    262144): the 29 local layers serve from 1024-slot rings, the 5 global
+    ones from pages of 64. No port kernel on the path. Then the oracle at
+    published widths cut to one super-block (6 layers), f32, the
+    1088-token prompt (its rings wrap) and a 128-token one."""
+    from repro_torch.configs import get_config
+    arch, page, specs = GEMMA_SERVE
+    _serve_family("serve gemma3-4b", arch, page, specs, results)
+    cfg = dataclasses.replace(get_config(arch), num_layers=6,
+                              dtype="float32")
+    _family_oracle("serve gemma3-4b", cfg, [(1, 1088, 8), (2, 128, 8)], page)
+
+
+def phase_serve_rwkv(results: dict):
+    """Phase 25: full-width rwkv6-3b (32 layers; state only, no pages):
+    exactly 32 wkv6 launches (the state form) a prefill chunk and a decode
+    step, nothing else. Then the oracle at 4 layers, f32."""
+    from repro_torch.configs import get_config
+
+    def watch(tag, stats, counts):
+        steps = stats.prefill_chunks + len(stats.decode_step_s)
+        check(counts["wkv6"] == 32 * steps,
+              f"{tag}: {counts['wkv6']} wkv6 launches, want 32 x "
+              f"({stats.prefill_chunks} prefill chunks + "
+              f"{len(stats.decode_step_s)} decode steps)")
+        check(sum(counts.values()) == counts["wkv6"],
+              f"{tag}: another port kernel launched: {counts}")
+        check(stats.pages_total == stats.pages_peak == 0,
+              f"{tag}: a state-only arch allocated pages")
+        print(f"[{tag}] wkv6 launches {counts['wkv6']} = 32 x "
+              f"({stats.prefill_chunks} prefill chunks + "
+              f"{len(stats.decode_step_s)} decode steps)", flush=True)
+        results["launches"]["wkv6"] += counts["wkv6"]
+
+    _serve_family("serve rwkv6-3b", "rwkv6-3b", 16, FAMILY_SERVE, results,
+                  watch=watch)
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), num_layers=4,
+                              dtype="float32")
+    _family_oracle("serve rwkv6-3b", cfg, [(3, 40, 8)], 16)
+
+
+def _no_drop(cfg):
+    """The capacity factor at E / k: capacity >= the tokens of a call."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
+
+
+def phase_serve_moe(results: dict):
+    """Phase 26: full-width deepseek-moe-16b (28 layers, 64 experts top-6
+    + 2 shared; its capacity factor as configured), then the jamba cut of
+    the train phase (published widths, one super-block of 8 layers: 7
+    mamba with per-slot state, attention at index 4 on pages, MoE of 4 of
+    16 experts on the odd FFNs) with one more request of a 3-token prompt
+    (shorter than d_conv - 1). Then each oracle in f32: deepseek cut to 4
+    layers, the jamba cut further to a 4-layer super-block and 2 experts
+    (the 8-layer cut in f32 would hold 65 GB), with the router near-tie
+    probe."""
+    from repro_torch.configs import get_config
+    _serve_family("serve deepseek-moe-16b", "deepseek-moe-16b", 16,
+                  FAMILY_SERVE, results)
+    _serve_family("serve jamba", "jamba-1.5-large-398b", 16,
+                  FAMILY_SERVE + [(1, 3, 32)], results, model=jamba_cut(),
+                  cut=f" (cut 72 -> {JAMBA_LAYERS}, experts 16 -> "
+                      f"{JAMBA_EXPERTS})")
+    cfg = _no_drop(dataclasses.replace(get_config("deepseek-moe-16b"),
+                                       num_layers=4, dtype="float32"))
+    _family_oracle("serve deepseek-moe-16b", cfg, [(3, 40, 8)], 16,
+                   moe_probe=True)
+    cfg = _no_drop(dataclasses.replace(jamba_cut(experts=2, period=4),
+                                       dtype="float32"))
+    _family_oracle("serve jamba", cfg, [(2, 40, 8), (1, 3, 8)], 16,
+                   moe_probe=True)
+
+
+def _capture_request_logits(engine):
+    """Record, per request id, the logits row each of its tokens was
+    sampled from (fp32, on the card): returns ({rid: [[V] tensors]},
+    undo)."""
+    from repro_torch.serve import scheduler as S
+    rows, last = {}, {}
+    sample, record = engine._sample, S.Scheduler.record_token
+
+    def keep(logits):
+        last["logits"] = logits
+        return sample(logits)
+
+    def record_token(sched, slot, token):
+        lg = last["logits"]
+        rows.setdefault(slot.request.rid, []).append(
+            lg[0 if lg.shape[0] == 1 else slot.index].float().clone())
+        return record(sched, slot, token)
+
+    def undo():
+        S.Scheduler.record_token = record
+        del engine._sample
+
+    engine._sample = keep
+    S.Scheduler.record_token = record_token
+    return rows, undo
+
+
+def phase_flash_decode(results: dict):
+    """Phase 27: serve run A of phase 13 (full-width llama3-8b, 8 x (128 +
+    32), bf16) again, plain and with --flash-decode, on one copy of the
+    weights. The plain run's tokens equal phase 13's run A bitwise; the
+    flash run's equal them except where a request first differs at a near
+    tie: the plain run's top-2 logit gap at that step no larger than twice
+    the largest difference between the two runs' logits there (the split
+    softmax rounds its unnormalized probabilities to bf16 where the
+    monolithic one rounds normalized ones). Every such tie is printed;
+    any other difference fails."""
+    import argparse
+    from repro_torch.launch import serve
+    ap = serve.add_serve_args(argparse.ArgumentParser())
+    args_a = ap.parse_args(SERVE_ARGV + ["--users", "0"])
+    args_f = ap.parse_args(SERVE_ARGV + ["--users", "0", "--flash-decode"])
+    cfg, eng_a = serve.build_engine(args_a)
+    _, eng_f = serve.build_engine(args_f, cfg, params=eng_a.params)
+    check(eng_f.flash_decode and not eng_a.flash_decode,
+          "--flash-decode did not reach the engine")
+    runs = {}
+    for tag, eng in (("plain", eng_a), ("flash-decode", eng_f)):
+        rows, undo = _capture_request_logits(eng)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            stats = eng.run(serve.build_requests(args_a, cfg))
+        finally:
+            undo()
+        _serve_summary(f"serve flash-decode: {tag}", stats)
+        profile_decode(f"serve flash-decode: {tag}", eng)
+        runs[tag] = (stats, rows)
+    plain, flash = runs["plain"], runs["flash-decode"]
+    want = results["serve_a"]["tokens"]
+    check({k: r.tokens for k, r in plain[0].results.items()} == want,
+          "phase 27's plain run differs from phase 13's run A")
+    ties = []
+    for rid, toks in want.items():
+        got = flash[0].results[rid].tokens
+        first = next((i for i, (a, b) in enumerate(zip(toks, got))
+                      if a != b), None)
+        if first is None:
+            continue
+        la, lf = plain[1][rid][first], flash[1][rid][first]
+        top = torch.topk(la, 2).values
+        gap = float(top[0] - top[1])
+        diff = float((la - lf).abs().max())
+        check(gap <= 2 * diff,
+              f"flash-decode request {rid} differs at token {first} with a "
+              f"top-2 gap {gap} over twice the logit difference {diff}")
+        ties.append((rid, first, gap, diff))
+        print(f"[serve flash-decode] near tie: request {rid} token {first}: "
+              f"plain top-2 gap {gap:.4f}, max |logit diff| {diff:.4f}; "
+              f"the rest of the request is not compared", flush=True)
+    # the logits of the steps both runs fed the same tokens
+    upto = {rid: first for rid, first, _, _ in ties}
+    diffs = [float((a - b).abs().max()) for rid in want
+             for a, b in list(zip(plain[1][rid], flash[1][rid]))[
+                 :upto.get(rid, len(want[rid])) + 1]]
+    med_a = statistics.median(plain[0].decode_step_s) * 1e3
+    med_f = statistics.median(flash[0].decode_step_s) * 1e3
+    print(f"[serve flash-decode] llama3-8b full width, bf16: tokens equal "
+          f"run A's for {len(want) - len(ties)} of {len(want)} requests, "
+          f"{len(ties)} near ties; max |logit diff| before any divergence "
+          f"{max(diffs):.4f}; decode_step_ms_median flash-decode {med_f:.3f}"
+          f" vs plain {med_a:.3f} (phase 13 run A "
+          f"{results['serve_a']['median_ms']:.3f}) [{card_line()}]",
+          flush=True)
+    del eng_a, eng_f, runs, plain, flash
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _rss_kib() -> int:
@@ -3814,6 +4269,13 @@ def main() -> int:
     phase_checkpoint(musicgen_losses)
     print(f"[chip_smoke] checkpoint phase done at "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for phase in (phase_serve_gemma, phase_serve_rwkv, phase_serve_moe,
+                  phase_flash_decode):
+        phase(results)
+        print(f"[chip_smoke] {phase.__name__} done at "
+              f"{time.perf_counter() - t0:.0f} s", flush=True)
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t0:.0f} s",
           flush=True)
     # again at the end, beside the numbers: a log cut to its tail keeps it

@@ -78,7 +78,7 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         fns = [(lib.block_scatter_update_launch,
                 [p, p, p, p, i64, i64, i64, i32, i32, i32, i32, i32, p])]
     elif name == "wkv6":
-        fns = [(lib.wkv6_fwd_launch, [p] * 6 + [i32] * 4 + [p]),
+        fns = [(lib.wkv6_fwd_launch, [p] * 8 + [i32] * 4 + [p]),
                (lib.wkv6_bwd_launch, [p] * 12 + [i32] * 4 + [p])]
         lib.wkv6_ckpt_floats.argtypes = [i32] * 3
         lib.wkv6_ckpt_floats.restype = i64

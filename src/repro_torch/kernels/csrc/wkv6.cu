@@ -2,7 +2,7 @@
 // time, in linear space.
 //
 //   y_t = r_t . (diag(u) k_t v_t^T + S_{t-1})
-//   S_t = diag(w_t) S_{t-1} + k_t v_t^T,        S_0 = 0
+//   S_t = diag(w_t) S_{t-1} + k_t v_t^T,        S_0 = s0 (0 in training)
 //
 // per batch row b and head h, with S a [D, D] fp32 state (key channel d by
 // value channel e), w_t the per-channel decay in (0, 1) and u the head's
@@ -27,7 +27,9 @@
 // backward; the train path needs dr, dk, dv, dw and du.
 //
 // Forward (`wkv6_fwd_chunk_kernel`, grid (D / E value slices, B*H), eight
-// warps; E = 64, one CTA a head): with S_c the state before a chunk,
+// warps; E = 64, one CTA a head): with S_c the state before a chunk (S_0
+// loaded from `s0` when one is given, for serving: a prefill chunk or a
+// one-token decode step continues the slot's state),
 //   att[t, j] = sum_d r_t k_j P(j, t)  (j < t),  att[t, t] = r_t . (u k_t),
 //   y = (r A) S_c + att V,    S_{c+1} = diag(Pi) S_c + (k B)^T V.
 // Only the state carries from chunk to chunk, so the CTA is a two-stage
@@ -38,10 +40,12 @@
 // slots, and the TMA copies chunk j + 2 into the other of two input
 // buffers (one box of 16 steps x 64 floats a tensor, from a 4-D tensor map
 // over [B, T, H, D] whose steps past T read as zeros; an mbarrier a
-// buffer): one CTA barrier a chunk. The products run on the
-// tensor cores as m16n8k8 TF32 with each operand split into a high and a
-// low TF32 part (3xTF32: hi*hi + hi*lo + lo*hi, fp32 accumulators): plain
-// TF32 keeps 10 bits and misses a 1e-4-of-max bound. The decays (running
+// buffer): one CTA barrier a chunk. After the last chunk the main warps
+// store their accumulators, the state S_T, to `s_last` when one is given.
+// The products run on the tensor cores as m16n8k8 TF32 with each operand
+// split into a high and a low TF32 part (3xTF32: hi*hi + hi*lo + lo*hi,
+// fp32 accumulators): plain TF32 keeps 10 bits and misses a 1e-4-of-max
+// bound. The decays (running
 // products over C steps) and the scores (per j a running product over t,
 // summed over channels by lane shuffles) are fp32 FMAs.
 //
@@ -73,8 +77,10 @@
 //    a chunk costs O(C^2) a channel. du is written per (b, h, chunk) into
 //    `du_part` [B, H, nc, D] and summed by the wrapper in a fixed order: no
 //    atomics, the result does not depend on the order of CTAs.
-// Steps past T are zero-filled: k = v = r = dy = 0 add nothing, and their
-// w = 0 only scales states that nothing reads.
+// Steps past T are zero-filled: k = v = r = dy = 0 add nothing. Their
+// w = 0 is read as 1 where the decay products k B and Pi are formed, so
+// the state after a partial last chunk is S_T (what `s_last` stores);
+// everywhere else it only scales states that nothing reads.
 //
 // Bound on an H100 at batch 4 x 1024 steps x 40 heads x 64 (fp32): the
 // forward reads r, k, v, w (168 MB) and writes y (42 MB), 210 MB or
@@ -324,7 +330,9 @@ __device__ __forceinline__ void scan(const CUtensorMap* rr,
                                      const CUtensorMap* w,
                                      const float* __restrict__ u,
                                      float* __restrict__ out,
-                                     float* __restrict__ states, int T,
+                                     float* __restrict__ states,
+                                     const float* __restrict__ s0,
+                                     float* __restrict__ s_last, int T,
                                      int H, float* sm) {
   using L = ScanSmem<C, E>;
   constexpr int NT = E / 8, PT = SCAN_THREADS / 2;
@@ -336,7 +344,15 @@ __device__ __forceinline__ void scan(const CUtensorMap* rr,
 
   for (int i = tid; i < 2 * L::SLOT; i += SCAN_THREADS)
     sm[L::SLOTS + i] = 0.0f;
-  for (int i = tid; i < D * L::EP; i += SCAN_THREADS) sm[L::S + i] = 0.0f;
+  // the state before the first chunk: s0's rows, value columns e0 ..
+  // e0 + E - 1 (zero without s0), in shared memory for y and in the main
+  // warps' accumulators below
+  for (int i = tid; i < D * L::EP; i += SCAN_THREADS) {
+    const int d = i / L::EP, e = i % L::EP;
+    sm[L::S + i] = s0 != nullptr && e < E
+                       ? s0[((int64_t)bh * D + d) * D + e0 + e]
+                       : 0.0f;
+  }
   if (tid < D) sm[L::U + tid] = u[h * D + tid];
 
   // step i of the j-th chunk walked -> its time
@@ -398,7 +414,7 @@ __device__ __forceinline__ void scan(const CUtensorMap* rr,
 #pragma unroll
       for (int i = 0; i < C; ++i) {
         kv[i] = sk[row(i) * D + d];
-        wv[i] = sw[row(i) * D + d];
+        wv[i] = time_of(j, i) < T ? sw[row(i) * D + d] : 1.0f;
       }
       float bb = 1.0f;
 #pragma unroll
@@ -469,10 +485,23 @@ __device__ __forceinline__ void scan(const CUtensorMap* rr,
   // main: y of chunk j and the state after it (warps 4-7; mw its index)
   const int mw = warp - PT / 32, d0 = mw * 16 + g;
   float acc[NT][4];                          // S rows 16 mw .. 16 mw + 15
+  const float* s0_row = s0 != nullptr && !prep_warp
+                            ? s0 + ((int64_t)bh * D + d0) * D + e0 + 2 * q
+                            : nullptr;
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
+  for (int n = 0; n < NT; ++n) {
+    const float2 lo = s0_row != nullptr
+                          ? *reinterpret_cast<const float2*>(s0_row + n * 8)
+                          : make_float2(0.0f, 0.0f);
+    const float2 hi = s0_row != nullptr
+                          ? *reinterpret_cast<const float2*>(s0_row + 8 * D +
+                                                             n * 8)
+                          : make_float2(0.0f, 0.0f);
+    acc[n][0] = lo.x;
+    acc[n][1] = lo.y;
+    acc[n][2] = hi.x;
+    acc[n][3] = hi.y;
+  }
   auto main_step = [&](int j) {
     const float* sl = sm + L::SLOTS + (j & 1) * L::SLOT;
     const float* s_in = sm + L::S + (j & 1) * D * L::EP;
@@ -574,6 +603,17 @@ __device__ __forceinline__ void scan(const CUtensorMap* rr,
     if (j + 2 < nc) await(j + 2);
     __syncthreads();
   }
+  // the state after the last step
+  if (s_last != nullptr && !prep_warp) {
+    float* st = s_last + ((int64_t)bh * D + d0) * D + e0 + 2 * q;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      *reinterpret_cast<float2*>(st + n * 8) =
+          make_float2(acc[n][0], acc[n][1]);
+      *reinterpret_cast<float2*>(st + 8 * D + n * 8) =
+          make_float2(acc[n][2], acc[n][3]);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(SCAN_THREADS, 2)
@@ -582,10 +622,11 @@ wkv6_fwd_chunk_kernel(const __grid_constant__ CUtensorMap r,
                       const __grid_constant__ CUtensorMap v,
                       const __grid_constant__ CUtensorMap w,
                       const float* __restrict__ u, float* __restrict__ y,
-                      int T, int H) {
+                      const float* __restrict__ s0,
+                      float* __restrict__ s_last, int T, int H) {
   extern __shared__ __align__(128) float sm[];
-  scan<FWD_C, FWD_E, false, true, false>(&r, &k, &v, &w, u, y, nullptr, T,
-                                         H, sm);
+  scan<FWD_C, FWD_E, false, true, false>(&r, &k, &v, &w, u, y, nullptr, s0,
+                                         s_last, T, H, sm);
 }
 
 // z = 0: dv and G_c (the forward run backwards in time with r and k
@@ -605,10 +646,10 @@ wkv6_bwd_scan_kernel(const __grid_constant__ CUtensorMap r,
   const int64_t half = (int64_t)gridDim.y * nc * D * D;
   if (blockIdx.z == 0)
     scan<BWD_C, BWD_E, true, true, true>(&k, &r, &dy, &w, u, dv, ckpt + half,
-                                         T, H, sm);
+                                         nullptr, nullptr, T, H, sm);
   else
     scan<BWD_C, BWD_E, false, false, true>(nullptr, &k, &v, &w, u, nullptr,
-                                           ckpt, T, H, sm);
+                                           ckpt, nullptr, nullptr, T, H, sm);
 }
 
 // ---------------------------------------------------------------------------
@@ -899,10 +940,14 @@ static_assert(CHUNK_THREADS % D == 0 && CHUNK_THREADS / 32 * 8 == D &&
 }  // namespace
 
 // y [B, T, H, D] from r, k, v, w [B, T, H, D] and u [H, D], all fp32 and
-// contiguous, D = 64. Returns the CUDA error of the launch (0 = launched).
+// contiguous, D = 64. s0: the state before the first step, [B, H, D, D]
+// (key channel by value channel), or null for zero; s_last: where the
+// state after the last step goes, [B, H, D, D], or null. Returns the CUDA
+// error of the launch (0 = launched).
 extern "C" int wkv6_fwd_launch(const void* r, const void* k, const void* v,
-                               const void* w, const void* u, void* y, int B,
-                               int T, int H, int d, void* stream) {
+                               const void* w, const void* u, void* y,
+                               const void* s0, void* s_last, int B, int T,
+                               int H, int d, void* stream) {
   if (bad_shape(B, T, H, d)) return (int)cudaErrorInvalidValue;
   static bool smem_set = false;
   cudaError_t err = allow_smem(wkv6_fwd_chunk_kernel, FWD_SMEM, smem_set);
@@ -918,7 +963,7 @@ extern "C" int wkv6_fwd_launch(const void* r, const void* k, const void* v,
   wkv6_fwd_chunk_kernel<<<dim3(D / FWD_E, B * H), SCAN_THREADS, FWD_SMEM,
                           static_cast<cudaStream_t>(stream)>>>(
       mr, mk, mv, mw, static_cast<const float*>(u), static_cast<float*>(y),
-      T, H);
+      static_cast<const float*>(s0), static_cast<float*>(s_last), T, H);
   return (int)cudaGetLastError();
 }
 

@@ -464,21 +464,37 @@ def _check_wkv(name: str, tensors, u):
              f"{r.shape[-1]}")
 
 
-def wkv6_fwd(r, k, v, w, u):
-    """The WKV recurrence from a zero state (see `ref.wkv6_ref`): r, k, v, w
-    [B, T, H, D] and u [H, D], fp32, contiguous -> y [B, T, H, D]."""
+def wkv6_fwd(r, k, v, w, u, s0=None, want_state: bool = False):
+    """The WKV recurrence (see `ref.wkv6_ref`): r, k, v, w [B, T, H, D] and
+    u [H, D], fp32, contiguous -> y [B, T, H, D], from the state s0
+    [B, H, D, D] fp32 (None: zero). With want_state, -> (y, s_last), the
+    state after the last step, [B, H, D, D]. One launch either way: the
+    serving path's prefill chunks (T = page size) and decode steps (T = 1)
+    continue each slot's state through the same kernel as training."""
     _check_wkv("wkv6", (r, k, v, w), u)
+    if s0 is not None:
+        b, _, h, d = r.shape
+        _require(tuple(s0.shape) == (b, h, d, d)
+                 and s0.dtype == torch.float32 and s0.is_contiguous()
+                 and s0.device == r.device,
+                 f"wkv6: s0 must be float32 [B, H, D, D] = {(b, h, d, d)}, "
+                 f"contiguous, on {r.device}; got {s0.dtype} "
+                 f"{tuple(s0.shape)} on {s0.device}")
     if not r.is_cuda:
-        return ref.wkv6_ref(r, k, v, w, u)
+        return ref.wkv6_ref(r, k, v, w, u, s0=s0, want_state=want_state)
     from repro_torch.kernels.build import load
     b, t, h, d = r.shape
     y = torch.empty_like(r)
+    s_last = torch.empty((b, h, d, d), dtype=torch.float32,
+                         device=r.device) if want_state else None
     rc = load("wkv6").wkv6_fwd_launch(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-        y.data_ptr(), b, t, h, d, _stream(r))
+        y.data_ptr(), None if s0 is None else s0.data_ptr(),
+        None if s_last is None else s_last.data_ptr(), b, t, h, d,
+        _stream(r))
     _raise_on(rc, "wkv6")
     LAUNCHES["wkv6"] += 1
-    return y
+    return (y, s_last) if want_state else y
 
 
 def wkv6_bwd(r, k, v, w, u, dy):

@@ -153,26 +153,29 @@ def block_act_prune_bwd_ref(dy, y, threshold: float = 0.15,
     return (dyb * _keep(y, threshold, block)).reshape(dy.shape)
 
 
-def wkv6_ref(r, k, v, w, u):
+def wkv6_ref(r, k, v, w, u, s0=None, want_state: bool = False):
     """The RWKV-6 WKV recurrence, step by step (the reference's
-    `models/rwkv6._wkv_chunk` from a zero state, and its `kernels/ref.wkv6_ref`
-    with one u per head):
+    `models/rwkv6._wkv_chunk`, and its `kernels/ref.wkv6_ref` with one u
+    per head):
 
         y_t = r_t . (diag(u) k_t v_t^T + S_{t-1})
-        S_t = diag(w_t) S_{t-1} + k_t v_t^T,   S_0 = 0
+        S_t = diag(w_t) S_{t-1} + k_t v_t^T,   S_0 = s0 (None: 0)
 
-    r, k, v, w: [B, T, H, D] (w the per-channel decay in (0, 1)); u: [H, D].
-    Returns y [B, T, H, D] fp32."""
+    r, k, v, w: [B, T, H, D] (w the per-channel decay in (0, 1)); u: [H, D];
+    s0: [B, H, D, D]. Returns y [B, T, H, D] fp32, or with want_state
+    (y, S_T), S_T [B, H, D, D] fp32."""
     r, k, v, w = (a.float() for a in (r, k, v, w))
     b, t, h, d = r.shape
     uu = u.float()[None, :, :, None]
-    s = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
+    s = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device) \
+        if s0 is None else s0.float()
     ys = []
     for i in range(t):
         kt, vt = k[:, i, :, :, None], v[:, i, :, None, :]
         ys.append(torch.einsum("bhd,bhde->bhe", r[:, i], uu * kt * vt + s))
         s = w[:, i, :, :, None] * s + kt * vt
-    return torch.stack(ys, dim=1)
+    y = torch.stack(ys, dim=1)
+    return (y, s) if want_state else y
 
 
 def wkv6_bwd_ref(r, k, v, w, u, dy):

@@ -13,10 +13,13 @@ an online train wave when the user's request completes. Reported counts
 cover COMPLETED requests only. Runs on the card (`--device cuda`, the
 default) or on the CPU (`--device cpu`, smoke configs).
 
-The flags are the reference launcher's. Prefix sharing is off in this
-slice (`--prefix-mode off`, the default and the only mode accepted); the
-flags of the features still to port raise with the ROADMAP item that
-brings them rather than being ignored.
+Every registered LM arch serves through `--arch` (dense, sliding-window,
+MoE, mamba / attention hybrid and rwkv layers; the audio and vlm archs
+with placeholder prompt embeddings). The flags are the reference
+launcher's. Prefix sharing is off in this slice (`--prefix-mode off`,
+the default and the only mode accepted); the flags of the features still
+to port raise with the ROADMAP item that brings them rather than being
+ignored.
 """
 from __future__ import annotations
 
@@ -43,7 +46,6 @@ _REFUSED = {
     "--shed-watermark > 0": (lambda a: a.shed_watermark > 0.0, _A13),
     "--mesh-model > 1": (lambda a: a.mesh_model > 1,
                          "ROADMAP queue A item 14"),
-    "--flash-decode": (lambda a: a.flash_decode, "ROADMAP queue A item 12"),
 }
 
 
@@ -88,7 +90,8 @@ def build_engine(args, cfg=None, params=None):
         max_len=args.prompt_len + args.gen_len,
         temperature=args.temperature, eos_id=args.eos_id, seed=args.seed,
         page_size=args.page_size, num_pages=args.num_pages,
-        prefix_mode=args.prefix_mode, personalization=p13n)
+        prefix_mode=args.prefix_mode, personalization=p13n,
+        flash_decode=args.flash_decode)
     return cfg, engine
 
 
@@ -170,7 +173,8 @@ def add_serve_args(ap: argparse.ArgumentParser):
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="> 1: sharded serving (not ported yet)")
     ap.add_argument("--flash-decode", action="store_true",
-                    help="flash-decoding split softmax (not ported yet)")
+                    help="flash-decoding: the paged layers' softmax page "
+                         "by page")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card) or cpu")
     return ap

@@ -141,8 +141,9 @@ def fwd(lib, r, k, v, w, u):
     b, t, h, d = r.shape
     y = torch.empty_like(r)
     rc = lib.wkv6_fwd_launch(r.data_ptr(), k.data_ptr(), v.data_ptr(),
-                             w.data_ptr(), u.data_ptr(), y.data_ptr(), b, t,
-                             h, d, torch.cuda.current_stream().cuda_stream)
+                             w.data_ptr(), u.data_ptr(), y.data_ptr(), None,
+                             None, b, t, h, d,
+                             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wkv6 forward launch failed with CUDA error {rc}")
     return y

@@ -1,6 +1,7 @@
 """Core layers: norms (incl. the CNN's GroupNorm), RoPE, GQA attention
 (dense causal / sliding window, diagonal-block flash past 2048 tokens,
-cached decode, chunked paged serving), MLP variants.
+cached decode with ring buffers for windowed layers, chunked paged and ring
+serving, the flash-decoding split softmax), MLP variants.
 
 Params are plain dicts of tensors with the reference package's key names.
 Matmuls that take part in the sparse update go through
@@ -347,24 +348,25 @@ def attention(p, cfg, x, positions, *, window: int = 0, sel=None,
     return smm(out.reshape(b, s, -1), p["wo"], sel, "wo")
 
 
-def decode_attention(p, cfg, x, positions, cache):
+def decode_attention(p, cfg, x, positions, cache, *, window: int = 0):
     """Single-token decode against a contiguous KV cache (the serving
-    path's oracle; window-free layers only, the sliding-window ring buffer
-    comes with ROADMAP queue A item 12).
+    path's oracle).
 
     cache: {"k","v": [B, S_cache, Hkv, D], "pos": [B] int32 tokens so far},
-    `pos` per row, so rows may sit at different depths. Out of place: the
-    cache passed in is not written."""
+    `pos` per row, so rows may sit at different depths. For sliding-window
+    layers (window > 0) the cache is a ring buffer: position p lives at
+    slot p % S_cache. Out of place: the cache passed in is not written."""
     b, s, _ = x.shape
     assert s == 1
     hd = cfg.resolved_head_dim
     q, k, v = _qkv(p, cfg, x, positions)
     pos = cache["pos"]
     s_cache = cache["k"].shape[1]
+    slot = torch.remainder(pos, s_cache) if window > 0 else pos
     rows = torch.arange(b, device=x.device)
     k_cache, v_cache = cache["k"].clone(), cache["v"].clone()
-    k_cache[rows, pos.long()] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, pos.long()] = v[:, 0].to(v_cache.dtype)
+    k_cache[rows, slot.long()] = k[:, 0].to(k_cache.dtype)
+    v_cache[rows, slot.long()] = v[:, 0].to(v_cache.dtype)
 
     hkv = cfg.num_kv_heads
     g = cfg.num_heads // hkv
@@ -372,7 +374,13 @@ def decode_attention(p, cfg, x, positions, cache):
     scores = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
                           k_cache.float()) / math.sqrt(hd)
     idx = torch.arange(s_cache, device=x.device)[None, :]
-    valid = idx <= pos[:, None]
+    if window > 0:
+        # slot i holds position p_at = pos - ((pos - i) mod W), and
+        # pos - W < p_at <= pos by construction: only p_at >= 0 matters
+        p_at = pos[:, None] - torch.remainder(pos[:, None] - idx, s_cache)
+        valid = p_at >= 0
+    else:
+        valid = idx <= pos[:, None]
     scores = torch.where(valid[:, None, None, :], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgk,bkhd->bhgd", probs.to(q.dtype).float(),
@@ -383,13 +391,14 @@ def decode_attention(p, cfg, x, positions, cache):
 
 
 # ---------------------------------------------------------------------------
-# Chunk-capable serving attention (paged)
+# Chunk-capable serving attention (paged + ring)
 #
 # s >= 1 new tokens per row against an existing cache, so the serving
 # engine's one step function covers batched decode (s = 1 over all slots)
 # AND chunked prefill (one slot, page-sized chunks). Scores are taken
 # against [cached keys ++ in-chunk keys] with the cache read BEFORE the
-# chunk's rows are written.
+# chunk's rows are written, so in-chunk causality never depends on the
+# order of writes (a ring buffer may overwrite its own chunk).
 # ---------------------------------------------------------------------------
 
 def _grouped_scores(q, k_cat, v_cat, mask):
@@ -412,6 +421,41 @@ def _grouped_scores(q, k_cat, v_cat, mask):
     return out.reshape(b, s, hq * hd)
 
 
+def _grouped_scores_split(q, k_cat, v_cat, mask, tile: int):
+    """The flash-decoding form of `_grouped_scores`: the key axis is cut
+    into `tile`-sized blocks (one page each in the serve engine), and the
+    blocks merge one after another with the online-softmax update of
+    `_flash_fwd_impl` (running max, denominator and numerator in fp32), so
+    no [B, Hq, S, L] score tensor is materialized. Matches the monolithic
+    softmax to fp32 roundoff. The last block may be short: its missing
+    keys would be masked, and a masked key adds exactly 0 once a visible
+    one has set the running max."""
+    b, s, hq, hd = q.shape
+    hkv = k_cat.shape[2]
+    g = hq // hkv
+    n_keys = k_cat.shape[1]
+    qg = q.reshape(b, s, hkv, g, hd).float()
+    scale = 1.0 / math.sqrt(hd)
+    dev = q.device
+    m = torch.full((b, hkv, g, s), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hkv, g, s), dtype=torch.float32, device=dev)
+    o = torch.zeros((b, hkv, g, s, hd), dtype=torch.float32, device=dev)
+    for t0 in range(0, n_keys, tile):
+        k_b = k_cat[:, t0:t0 + tile].float()
+        v_b = v_cat[:, t0:t0 + tile].float()
+        sc = torch.einsum("bshgd,bthd->bhgst", qg, k_b) * scale
+        sc = torch.where(mask[:, None, None, :, t0:t0 + tile], sc, -1e30)
+        m_new = torch.maximum(m, sc.amax(dim=-1))
+        pr = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + pr.sum(dim=-1)
+        pv = torch.einsum("bhgst,bthd->bhgsd", pr.to(q.dtype).float(), v_b)
+        o = o * corr[..., None] + pv
+        m = m_new
+    out = o / torch.clamp(l, min=1e-30)[..., None]          # [B,Hkv,G,S,D]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype).reshape(b, s, hq * hd)
+
+
 def _serve_positions(cfg, start, s: int):
     """Token positions of a chunk: [B, S] ([3, B, S], the three components
     equal, for M-RoPE)."""
@@ -422,8 +466,71 @@ def _serve_positions(cfg, start, s: int):
     return pos
 
 
+def chunk_ring_attention(p, cfg, x, start, active, cache, *, window: int,
+                         length=None, delta=None):
+    """Sliding-window attention for a chunk of s tokens per batch row
+    against per-row ring buffers.
+
+    cache: {"k","v": [B, W, Hkv, D]}, position p at slot p % W (W =
+    min(window, max_len)). `start` [B]: tokens already cached per row;
+    `active` [B] bool; `length` [B]: valid tokens per row (None = all s).
+    Returns (y, new ring), out of place.
+
+    The chunk attends to the ring as it was before the chunk, plus itself.
+    Then every ring slot takes the newest VALID chunk row that maps onto
+    it, if any: padded rows (j >= length) and inactive rows never write,
+    and of a row's valid positions only the last W do. The reference drops
+    the other writes through an out-of-bounds slot and relies on the valid
+    ones never colliding; here each slot gathers its one writer instead
+    (slot i's: the largest valid position congruent to i mod W), so no
+    scatter, duplicate or dropped index is involved."""
+    b, s, _ = x.shape
+    dev = x.device
+    if length is None:
+        length = torch.full((b,), s, dtype=torch.int32, device=dev)
+    ring_k, ring_v = cache["k"], cache["v"]
+    w_cap = ring_k.shape[1]
+    q, k, v = _qkv(p, cfg, x, _serve_positions(cfg, start, s), delta=delta)
+
+    st = start.long()
+    j = torch.arange(s, device=dev)
+    qpos = st[:, None] + j[None, :]                          # [B, S]
+    # ring part: slot i holds the latest position == i (mod W) below start
+    # (the pre-chunk content); a negative one was never written
+    idx = torch.arange(w_cap, device=dev)[None, :]
+    last = st[:, None] - 1
+    p_at = last - torch.remainder(last - idx, w_cap)         # [B, W]
+    ring_mask = (p_at[:, None, :] >= 0) & \
+        (qpos[:, :, None] - p_at[:, None, :] < window)       # [B, S, W]
+    # in-chunk part: causal, window-limited
+    gap = j[:, None] - j[None, :]
+    chunk_mask = (gap >= 0) & (gap < window)
+    chunk_mask = chunk_mask[None].expand(b, s, s)
+
+    k_cat = torch.cat([ring_k.to(k.dtype), k], dim=1)
+    v_cat = torch.cat([ring_v.to(v.dtype), v], dim=1)
+    mask = torch.cat([ring_mask, chunk_mask], dim=2)
+    out = _grouped_scores(q, k_cat, v_cat, mask)
+
+    # slot i's writer: the largest position < start + length congruent to
+    # i, if it is one of the row's last min(W, length) valid positions
+    hi = st + length.long()                                  # [B]
+    lo = st + (length.long() - w_cap).clamp(min=0)
+    p_w = (hi - 1)[:, None] - torch.remainder((hi - 1)[:, None] - idx,
+                                              w_cap)         # [B, W]
+    writes = ((p_w >= lo[:, None]) & active[:, None])[:, :, None, None]
+    src = (p_w - st[:, None]).clamp(0, s - 1)
+    src = src[:, :, None, None].expand((b, w_cap) + tuple(k.shape[2:]))
+    new = {"k": torch.where(writes, torch.gather(k, 1, src).to(ring_k.dtype),
+                            ring_k),
+           "v": torch.where(writes, torch.gather(v, 1, src).to(ring_v.dtype),
+                            ring_v)}
+    return row_matmul(out, p["wo"], None, "wo", delta), new
+
+
 def chunk_paged_attention(p, cfg, x, start, active, pool, page_table, *,
-                          page_size: int, length=None, delta=None):
+                          page_size: int, length=None, delta=None,
+                          flash_decode: bool = False):
     """Full (window-free) attention for a chunk of s tokens per batch row,
     reading and writing K/V through per-row page tables.
 
@@ -431,7 +538,9 @@ def chunk_paged_attention(p, cfg, x, start, active, pool, page_table, *,
     (R = num_pages * page_size); page_table: [B, MP] int32 physical page per
     logical page, -1 where unallocated. `start` [B]: tokens already cached
     per row; `active` [B] bool; `length` [B]: valid tokens per row (None =
-    all s). Returns (y, new pool), out of place as the reference.
+    all s). flash_decode: the softmax over the keys page by page
+    (`_grouped_scores_split`). Returns (y, new pool), out of place as the
+    reference.
 
     The reference drops the writes of inactive rows, of unallocated pages
     and of padded positions through an out-of-bounds index under
@@ -465,7 +574,10 @@ def chunk_paged_attention(p, cfg, x, start, active, pool, page_table, *,
     k_cat = torch.cat([k_cache.to(k.dtype), k], dim=1)
     v_cat = torch.cat([v_cache.to(v.dtype), v], dim=1)
     mask = torch.cat([cache_mask, chunk_mask], dim=2)
-    out = _grouped_scores(q, k_cat, v_cat, mask)
+    if flash_decode:
+        out = _grouped_scores_split(q, k_cat, v_cat, mask, tile=ps)
+    else:
+        out = _grouped_scores(q, k_cat, v_cat, mask)
 
     # the chunk's rows: logical position -> page_table page; unallocated
     # pages, inactive rows and padded positions go to the spare row
@@ -486,13 +598,25 @@ def chunk_paged_attention(p, cfg, x, start, active, pool, page_table, *,
     return y, new_pool
 
 
-def init_kv_cache(cfg, batch: int, seq_len: int, dtype, device="cuda"):
+def init_kv_cache(cfg, batch: int, seq_len: int, dtype, device="cuda", *,
+                  window: int = 0):
     """A contiguous KV cache (the oracle's): k/v [B, S, Hkv, D] and the
-    per-row token count `pos`."""
-    shape = (batch, seq_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    per-row token count `pos`; S = seq_len, or a ring of min(window,
+    seq_len) slots for a windowed layer."""
+    size = min(window, seq_len) if window > 0 else seq_len
+    shape = (batch, size, cfg.num_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
             "pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def ring_snapshot_leaves(cfg, window: int, max_len: int, dtype):
+    """Per-row (shape, dtype) of a ring layer's serve-cache state, the unit
+    a prefix cache snapshots at a page boundary: the k/v buffers (the serve
+    ring keeps no per-row `pos`; the engine's slot position is it)."""
+    size = min(window, max_len)
+    leaf = ((size, cfg.num_kv_heads, cfg.resolved_head_dim), dtype)
+    return {"k": leaf, "v": leaf}
 
 
 # ---------------------------------------------------------------------------

@@ -26,9 +26,15 @@ The parameters are mixed-dtype as in the reference: `dt_bias`, `A_log` and
 (`core.selection.EXCLUDED`), so in trainable layers they and the 1-D
 leaves take the dense rule, their gradients flowing through the scan.
 
-Training runs from a zero state. The serving forms (a recurrent cache,
-per-row valid lengths) come with the recurrent serving caches, and the
-channel-sharded form with the multi-GPU slice; both raise until then.
+Training runs from a zero state. Serving passes a recurrent cache {"h":
+[B, d_inner, d_state] fp32, "conv": [B, d_conv - 1, d_inner]}: a one-token
+step convolves [conv tail ++ x] in fp32 and advances h = dA h + dBx; a
+chunk convolves [conv tail ++ chunk], scans from h, and keeps the last
+d_conv - 1 valid inputs as the new tail. With per-row valid lengths
+(`length`, padded prefill chunks) dt is forced to 0 on the padded steps, an
+identity transition, so the cache comes back as after the valid prefix.
+The channel-sharded form comes with the multi-GPU slice and raises until
+then.
 """
 from __future__ import annotations
 
@@ -43,8 +49,6 @@ from repro_torch.models.common import dense_init
 
 CHUNK = 64
 
-_CACHE = ("mamba state caches and per-row lengths: ROADMAP queue A item 12 "
-          "(not ported yet)")
 _MESH = ("channel-sharded mamba (the serve mesh): ROADMAP queue A item 14 "
          "(not ported yet)")
 
@@ -155,9 +159,9 @@ def selective_scan(a, dt, xc, b_ssm, c, h0):
 
 
 def apply_mamba(p, cfg, x, sel=None, cache=None, length=None):
-    """x: [B, S, d] -> (out [B, S, d], None), from a zero state."""
-    if cache is not None or length is not None:
-        raise NotImplementedError(_CACHE)
+    """x: [B, S, d] -> (out [B, S, d], new cache or None), from a zero
+    state or, serving, from `cache`; length [B] (chunk form, None = all s):
+    valid tokens per row."""
     b, s, _ = x.shape
     di = d_inner(cfg)
     ns = cfg.ssm.d_state
@@ -167,17 +171,74 @@ def apply_mamba(p, cfg, x, sel=None, cache=None, length=None):
 
     xz = smm(x, p["in_proj"], sel, "in_proj")
     x_in, z = torch.chunk(xz, 2, dim=-1)
-    x_c = F.silu(_causal_depthwise_conv(x_in, p["conv_w"], p["conv_b"]))
+    new_conv = None
+    if cache is None:
+        x_c = F.silu(_causal_depthwise_conv(x_in, p["conv_w"], p["conv_b"]))
+    elif s == 1:
+        hist = torch.cat([cache["conv"], x_in], dim=1)      # [B, K, D]
+        acc = torch.einsum("bkd,kd->bd", hist.float(), p["conv_w"].float()) \
+            + p["conv_b"].float()
+        x_c = F.silu(acc)[:, None, :].to(x.dtype)
+        new_conv = hist[:, 1:]
+    else:
+        # a chunk: the conv over [history ++ chunk], each output with its
+        # full K-1 causal history; the new tail is the last K-1 VALID
+        # inputs, hist rows [length, length + K-1) (hist row i is the
+        # chunk's input i - (K-1))
+        n_hist = cache["conv"].shape[1]
+        hist = torch.cat([cache["conv"], x_in], dim=1)      # [B, K-1+S, D]
+        full = _causal_depthwise_conv(hist, p["conv_w"], p["conv_b"])
+        x_c = F.silu(full[:, n_hist:])
+        if length is None:
+            new_conv = hist[:, -n_hist:]
+        else:
+            tail = length.long()[:, None] + torch.arange(n_hist,
+                                                         device=x.device)
+            new_conv = torch.gather(
+                hist, 1, tail[:, :, None].expand(b, n_hist, hist.shape[2]))
 
     dbl = smm(x_c, p["x_proj"], sel, "x_proj")
     dt, b_ssm, c_ssm = torch.split(dbl, [dr, ns, ns], dim=-1)
     dt = softplus(torch.matmul(dt.float(), p["dt_proj"].float())
                   + p["dt_bias"])                         # [B,S,D] fp32
+    if length is not None and s > 1:
+        # padded steps: dt = 0 makes the step an identity (dA = 1, dBx = 0)
+        valid = torch.arange(s, device=x.device)[None, :, None] \
+            < length[:, None, None]
+        dt = torch.where(valid, dt, 0.0)
     a = -torch.exp(p["A_log"])                            # [D,N]
     xc32 = x_c.float()
-    h0 = torch.zeros((b, di, ns), dtype=torch.float32, device=x.device)
-    y, _ = selective_scan(a, dt, xc32, b_ssm.float(), c_ssm.float(), h0)
+    h0 = cache["h"] if cache is not None else torch.zeros(
+        (b, di, ns), dtype=torch.float32, device=x.device)
+    if cache is not None and s == 1:
+        dA, dBx = _discretize(a, dt[:, 0], xc32[:, 0], b_ssm[:, 0].float())
+        h_last = dA * h0 + dBx
+        y = torch.einsum("bdn,bn->bd", h_last, c_ssm[:, 0].float())[:, None]
+    else:
+        y, h_last = selective_scan(a, dt, xc32, b_ssm.float(),
+                                   c_ssm.float(), h0)
 
     y = y + p["D"] * xc32
     y = y.to(x.dtype) * F.silu(z)
-    return smm(y, p["out_proj"], sel, "out_proj"), None
+    out = smm(y, p["out_proj"], sel, "out_proj")
+    if cache is None:
+        return out, None
+    return out, {"h": h_last, "conv": new_conv}
+
+
+def init_mamba_cache(cfg, batch: int, dtype, device="cuda"):
+    """A zero recurrent cache for `batch` rows: h in fp32, the conv tail in
+    the model dtype."""
+    di = d_inner(cfg)
+    return {"h": torch.zeros((batch, di, cfg.ssm.d_state),
+                             dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, cfg.ssm.d_conv - 1, di), dtype=dtype,
+                                device=device)}
+
+
+def mamba_snapshot_leaves(cfg, dtype):
+    """Per-row (shape, dtype) of the mamba recurrent state, the unit a
+    prefix cache snapshots: the scan's h and the conv tail."""
+    di = d_inner(cfg)
+    return {"h": ((di, cfg.ssm.d_state), torch.float32),
+            "conv": ((cfg.ssm.d_conv - 1, di), dtype)}

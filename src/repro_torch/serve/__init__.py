@@ -2,7 +2,9 @@
 per-user compact deltas and online train waves.
 
 The engine owns a fixed number of decode *slots* and a fixed page pool.
-For every window-free attention layer, a physical token-row pool
+Sliding-window layers keep per-slot ring buffers and mamba / rwkv layers
+per-slot recurrent state; for every window-free attention layer, a
+physical token-row pool
 ``[steps, num_pages * page_size, Hkv, D]`` is shared by ALL slots; a
 per-slot page table (``[num_slots, ceil(max_len/page_size)]`` int32, -1 =
 unallocated) maps logical page i to a physical page, and one page id
@@ -13,7 +15,8 @@ Slot life cycle::
     FREE --admit--> PREFILL --last chunk--> ACTIVE --finish/cancel--> FREE
 
 Admission is per slot and page-gated: a request is admitted only when the
-pool can cover its worst-case page need. Chunked prefill and batched decode
+pool can cover its worst-case page need (an arch with no window-free
+attention layer, rwkv, uses no pages). Chunked prefill and batched decode
 are the SAME ``paged_step``; inactive batch rows keep their state and their
 page writes are dropped. ``requests_completed`` / ``tokens_out`` count
 finished requests only; cancelled and timed-out requests land in

@@ -25,13 +25,19 @@ an online compact train wave (`train.steps.make_online_wave`) advances the
 delta on the request's token stream, and live slots of the same user pick
 the new delta up mid-stream. The shared base params are never written.
 
+Every cache family serves: window-free attention through the page pools,
+sliding-window layers through per-slot ring buffers, mamba and rwkv layers
+through per-slot recurrent state (`models.decoding`). An arch whose mixers
+keep only state (rwkv) allocates no pages at all. `flash_decode=True` takes
+the paged layers' softmax page by page (the flash-decoding split); it is
+off by default, as the reference's single-device engine has it.
+
 The port serves the reference engine's `prefix_mode="off"`: no prefix
 sharing, so no page is ever shared and copy-on-write never triggers (its
 contract stays in `_ensure_writable`). The reference's other features are
 refused with the ROADMAP item that brings them: prefix caches, spill and
 persist, chaos injection, the request journal, the watchdog and load
-shedding (queue A item 13), sharded serving (item 14) and the
-flash-decoding softmax (item 12).
+shedding (queue A item 13) and sharded serving (item 14).
 
 Embedding-input archs (musicgen, qwen2-vl): a request carries its prompt
 as `embeds` [prompt_len, d_model], and each decode step feeds every slot a
@@ -65,7 +71,6 @@ from repro_torch.serve.scheduler import Request, Scheduler, Slot
 __all__ = ["RequestResult", "ServeEngine", "ServeStats",
            "make_random_requests"]
 
-_A12 = "ROADMAP queue A item 12"
 _A13 = "ROADMAP queue A item 13"
 
 
@@ -172,14 +177,14 @@ class ServeEngine:
                 _refuse(what, _A13)
         if rules is not None:
             _refuse("sharded serving (rules)", "ROADMAP queue A item 14")
-        if flash_decode:
-            _refuse("flash_decode", _A12)
         self.cfg = cfg
         self.params = params
         self.device = tree_leaves(params)[0].device
         self.num_slots = num_slots
         self.max_len = max_len
         self.page_size = page_size
+        # the reference's default: on only when sharded (refused above)
+        self.flash_decode = bool(flash_decode)
         self.max_pages = -(-max_len // page_size)
         self.has_pages = D.has_paged_layers(cfg)
         self.num_pages = 0 if not self.has_pages else (
@@ -191,9 +196,10 @@ class ServeEngine:
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._decode_length = torch.ones((num_slots,), dtype=torch.int32,
                                          device=self.device)
-        ps = page_size
+        ps, fd = page_size, self.flash_decode
         self._step = lambda p, batch, state, pools, pt, deltas: D.paged_step(
-            cfg, p, batch, state, pools, pt, page_size=ps, deltas=deltas)
+            cfg, p, batch, state, pools, pt, page_size=ps, deltas=deltas,
+            flash_decode=fd)
         self._p13n = personalization
         self._dbatch = None
         if personalization is not None:

@@ -362,13 +362,27 @@ def test_cache_row_ops_roundtrip():
 
 
 def test_unported_families_and_helpers_raise():
+    """The MoE and sliding-window families lay out now (their parity is
+    tests/test_torch_serve_families.py): full deepseek-moe-16b's pools on
+    the meta device, a windowed llama3 smoke config's per-slot rings of
+    min(window, max_len) slots and no pools. The spill helpers (item 13)
+    and the sharded step (item 14) still raise with their ROADMAP item."""
     moe = get_config("deepseek-moe-16b")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        PD.init_serve_cache(moe, 1, 16, 1, 16, device="meta")
-    ring = dataclasses.replace(get_smoke_config("llama3-8b"),
+    state, pools = PD.init_serve_cache(moe, 1, 16, 1, 16, device="meta")
+    assert jax.tree.leaves(state) == []
+    assert tuple(pools["blocks"]["k"].shape) == (
+        moe.num_layers - 1, 16, moe.num_kv_heads, moe.resolved_head_dim)
+    # gemma3's smoke super-block (5 local + 1 global) and a tail of 2
+    # local layers, the window cut to 8
+    ring = dataclasses.replace(get_smoke_config("gemma3-4b"), num_layers=8,
                                sliding_window=8)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PD.has_paged_layers(ring)
+    assert PD.has_paged_layers(ring) and PD.has_state_layers(ring)
+    state, pools = PD.init_serve_cache(ring, 2, 16, 1, 4, device="meta")
+    row = (2, 8, ring.num_kv_heads, ring.resolved_head_dim)
+    assert tuple(state["tail"]["k"].shape) == (2,) + row
+    assert sorted(state["blocks"]) == [f"sub{i}" for i in range(5)]
+    assert tuple(state["blocks"]["sub0"]["v"].shape) == (1,) + row
+    assert sorted(pools["blocks"]) == ["sub5"] and pools["tail"] == {}
     for fn, args in ((PD.read_pool_rows, ({}, 0, 1)),
                      (PD.write_pool_rows, ({}, {}, 0)),
                      (PD.make_sharded_paged_step, ())):

@@ -4,8 +4,9 @@ the chunked selective scan at one, a whole and two chunks, the whole block,
 and their gradients with respect to the input and every mamba leaf against
 `jax.grad`; the port's chunked scan against its own step-by-step recurrence
 (the counterpart of the reference's
-`test_mamba_chunked_scan_matches_stepwise`); and the refusals of the
-serving forms."""
+`test_mamba_chunked_scan_matches_stepwise`); the serving forms (a cached
+chunk with per-row lengths, a one-token step) against the reference's;
+and the refusal of the channel-sharded form."""
 import numpy as np
 import pytest
 
@@ -195,13 +196,37 @@ def test_sequence_must_fill_whole_chunks():
 
 
 def test_serving_forms_refuse():
-    _, pcfg, p = _params()
+    """The serving forms against the reference's apply_mamba with a cache:
+    a chunk of 16 from a nonzero state with per-row valid lengths (one row
+    padded: its dt forced to 0, its conv tail gathered at its valid end),
+    then a one-token step from that cache; outputs and both cache leaves
+    (h fp32, conv). The channel-sharded form still refuses (item 14)."""
+    cfg, pcfg, p = _params(seed=2)
     tp = {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
-    x = torch.zeros((1, 4, pcfg.d_model))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PM.apply_mamba(tp, pcfg, x, cache={})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PM.apply_mamba(tp, pcfg, x, length=torch.ones(1))
+    di, k1 = JM.d_inner(cfg), cfg.ssm.d_conv - 1
+    cache = {"h": _normal(7, (2, di, cfg.ssm.d_state), 0.3),
+             "conv": _normal(8, (2, k1, di), 0.5)}
+    length = np.array([16, 9], np.int32)
+    x = _normal(9, (2, 16, cfg.d_model), 0.5)
+    want, jc = JM.apply_mamba(p, cfg, jnp.asarray(x),
+                              cache=jax.tree.map(jnp.asarray, cache),
+                              length=jnp.asarray(length))
+    got, pc = PM.apply_mamba(tp, pcfg, torch.from_numpy(x),
+                             cache=bridge.to_torch(cache),
+                             length=torch.from_numpy(length))
+    valid = np.arange(16)[None, :] < length[:, None]
+    np.testing.assert_allclose(got.numpy()[valid], np.asarray(want)[valid],
+                               **FWD)
+    for key in ("h", "conv"):
+        np.testing.assert_allclose(pc[key].numpy(), np.asarray(jc[key]),
+                                   err_msg=key, **FWD)
+    x1 = _normal(10, (2, 1, cfg.d_model), 0.5)
+    want, jc = JM.apply_mamba(p, cfg, jnp.asarray(x1), cache=jc)
+    got, pc = PM.apply_mamba(tp, pcfg, torch.from_numpy(x1), cache=pc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
+    for key in ("h", "conv"):
+        np.testing.assert_allclose(pc[key].numpy(), np.asarray(jc[key]),
+                                   err_msg=key, **FWD)
     narrow = dict(tp, out_proj=tp["out_proj"][:16])
     with pytest.raises(NotImplementedError, match="item 14"):
-        PM.apply_mamba(narrow, pcfg, x)
+        PM.apply_mamba(narrow, pcfg, torch.zeros((1, 4, pcfg.d_model)))

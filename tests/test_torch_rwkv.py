@@ -1,7 +1,8 @@
 """The port's RWKV-6 model against the reference's on the rwkv6-3b smoke
 config: time mix and channel mix with bridged parameters, the full model's
 loss (f32 tight, bf16 loose), and the parameter tree's layout; plus the
-serving forms' refusals. The train step is `test_torch_rwkv_train.py`."""
+serving forms (a cache, per-row lengths) against the reference's. The
+train step is `test_torch_rwkv_train.py`."""
 import dataclasses
 
 import numpy as np
@@ -111,38 +112,71 @@ def test_forward_hidden_matches_reference_f32():
 
 
 def test_serving_forms_refuse_with_their_roadmap_item():
-    pcfg = get_smoke_config(ARCH)
-    p = PT.init_params(pcfg, 0, "cpu")["segments"]["blocks"]
-    layer = jax.tree.map(lambda t: t[0], p,
-                         is_leaf=lambda t: isinstance(t, torch.Tensor))
-    x = torch.zeros(1, 4, pcfg.d_model)
-    for fn, sub in ((PR.apply_time_mix, "time"),
-                    (PR.apply_channel_mix, "chan")):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn(layer[sub], pcfg, x, cache={})
-        with pytest.raises(NotImplementedError, match="item 12"):
-            fn(layer[sub], pcfg, x, length=torch.ones(1))
+    """The serving forms against the reference's: each mix from a nonzero
+    cache over a chunk of 16 with per-row valid lengths (one row padded:
+    k = 0 and w = 1 on its padded steps, `last` at its valid end), then a
+    one-token step from that cache; outputs and every cache leaf. The
+    head-sharded time mix still refuses (item 14)."""
+    cfg, pcfg = jget(ARCH), get_smoke_config(ARCH)
+    rng = np.random.default_rng(6)
+    h, hd, d = JR.num_heads(cfg), cfg.rwkv.head_dim, cfg.d_model
+    length = np.array([16, 5], np.int32)
+    valid = np.arange(16)[None, :] < length[:, None]
+    for mix, init, japply, papply in (
+            ("time", JR.init_time_mix, JR.apply_time_mix, PR.apply_time_mix),
+            ("chan", JR.init_channel_mix, JR.apply_channel_mix,
+             PR.apply_channel_mix)):
+        p = jax.device_get(init(jax.random.PRNGKey(1), cfg, jnp.float32))
+        tp = bridge.to_torch(p)
+        cache = {"last": rng.normal(size=(2, d)).astype(np.float32)}
+        if mix == "time":
+            cache["s"] = (0.3 * rng.normal(size=(2, h, hd, hd))).astype(
+                np.float32)
+        jc, pc = jax.tree.map(jnp.asarray, cache), bridge.to_torch(cache)
+        for x, ln in ((_x(cfg, 7, s=16), length), (_x(cfg, 8, s=1), None)):
+            want, jc = japply(p, cfg, jnp.asarray(x), cache=jc,
+                              length=None if ln is None else jnp.asarray(ln))
+            got, pc = papply(tp, pcfg, torch.from_numpy(x), cache=pc,
+                             length=None if ln is None
+                             else torch.from_numpy(ln))
+            keep = valid if ln is not None else np.ones((2, 1), bool)
+            np.testing.assert_allclose(got.numpy()[keep],
+                                       np.asarray(want)[keep], rtol=1e-5,
+                                       atol=1e-5, err_msg=mix)
+            assert sorted(pc) == sorted(jc)
+            for key in jc:
+                np.testing.assert_allclose(pc[key].numpy(),
+                                           np.asarray(jc[key]), rtol=1e-5,
+                                           atol=1e-5, err_msg=f"{mix} {key}")
+    layer = jax.tree.map(lambda t: t[0], PT.init_params(pcfg, 0, "cpu")[
+        "segments"]["blocks"], is_leaf=lambda t: isinstance(t, torch.Tensor))
     narrow = dict(layer["time"], wr=layer["time"]["wr"][:, :16])
     with pytest.raises(NotImplementedError, match="item 14"):
-        PR.apply_time_mix(narrow, pcfg, x)
-    from repro_torch.models import decoding as PD
-    with pytest.raises(NotImplementedError, match="item 12"):
-        PD.init_serve_cache(pcfg, 1, 16, 1, 16, device="meta")
+        PR.apply_time_mix(narrow, pcfg, torch.zeros(1, 4, pcfg.d_model))
 
 
 def test_other_recurrent_and_hybrid_families_still_refuse():
-    """gemma3 and jamba train now (tests/test_torch_gemma.py,
-    test_torch_jamba.py); their serving caches are still refused, naming
-    item 12. Embedding inputs and M-RoPE (item 10a, ported) lay out as the
-    dense family, on the smoke and the full configs, and an embedding-input
-    model has no token table unless its head is tied."""
+    """gemma3, jamba and rwkv6 lay out their serving caches now (parity in
+    tests/test_torch_serve_families.py): rings for gemma's local layers
+    and pools for its global ones, mamba state and one paged attention
+    layer for jamba, recurrent state and no pages for rwkv, on the full
+    configs (meta device). Embedding inputs and M-RoPE lay out as the
+    dense family, on the smoke and the full configs, and an
+    embedding-input model has no token table unless its head is tied."""
     from repro_torch.models import decoding as PD
-    for arch in ("gemma3-4b", "jamba-1.5-large-398b"):
-        cfg = get_smoke_config(arch)
-        assert PT.segment_layout(cfg)[0].kind in ("gemma_super",
-                                                  "jamba_super")
-        with pytest.raises(NotImplementedError, match="item 12"):
-            PD.init_cache(cfg, 1, 16, device="meta")
+    for arch, kinds, paged in (("gemma3-4b", ("gemma_super", "dense"), True),
+                               ("jamba-1.5-large-398b", ("jamba_super",),
+                                True),
+                               ("rwkv6-3b", ("rwkv",), False)):
+        cfg = get_config(arch)
+        assert tuple(s.kind for s in PT.segment_layout(cfg)) == kinds
+        assert PD.has_paged_layers(cfg) is paged
+        assert PD.has_state_layers(cfg) is True
+        cache = PD.init_cache(cfg, 1, 16, device="meta")
+        state, pools = PD.init_serve_cache(cfg, 1, 16, 1, 16, device="meta")
+        assert sorted(cache) == sorted(state) == sorted(pools) == \
+            [s.name for s in PT.segment_layout(cfg)]
+        assert bool(jax.tree.leaves(pools)) is paged
     base = get_smoke_config("llama3-8b")
     for kw in ({"embed_inputs": True}, {"mrope": True},
                {"embed_inputs": True, "tie_embeddings": True}):

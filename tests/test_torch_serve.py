@@ -362,11 +362,24 @@ def test_cli_exact_counts(capsys):
     ["--branching-prefix"], ["--shared-prefix-len", "4"],
     ["--prefix-persist", "x"], ["--fault-rate", "0.1"],
     ["--kill-after", "1"], ["--journal", "x"], ["--watchdog-s", "1"],
-    ["--shed-watermark", "0.1"], ["--mesh-model", "2"], ["--flash-decode"],
+    ["--shed-watermark", "0.1"], ["--mesh-model", "2"],
 ], ids=lambda f: f[0].lstrip("-") + (f"={f[1]}" if len(f) > 1 else ""))
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
         launch_serve.main(_argv("--requests", "1", *flag))
+
+
+def test_cli_flash_decode_serves(capsys):
+    """--flash-decode reaches the engine and serves the same counts and
+    tokens as the default softmax."""
+    plain = launch_serve.main(_argv("--requests", "3", "--batch", "2"))
+    fd = launch_serve.main(_argv("--requests", "3", "--batch", "2",
+                                 "--flash-decode"))
+    assert fd.requests_completed == 3 and fd.tokens_out == 12
+    assert {k: r.tokens for k, r in fd.results.items()} == \
+        {k: r.tokens for k, r in plain.results.items()}
+    assert "[serve] 3/3 requests (0 cancelled), 12 tokens" in \
+        capsys.readouterr().out
 
 
 def test_cli_defaults_to_the_card():
@@ -384,7 +397,7 @@ def test_engine_refuses_unported_options(model):
     for kw in ({"prefix_mode": "radix"}, {"chaos": object()},
                {"journal": "j"}, {"watchdog_s": 1.0},
                {"shed_watermark": 0.1}, {"prefix_persist": "p"},
-               {"rules": object()}, {"flash_decode": True}):
+               {"rules": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
             ServeEngine(cfg, params, num_slots=1, max_len=8, **kw)
     assert dataclasses.is_dataclass(ServeEngine(
