@@ -209,12 +209,32 @@ Phases (any failure exits non-zero and prints no result):
    plain run's tokens bitwise run A's, the flash run's equal except at a
    printed near tie (the plain top-2 gap at the first differing token no
    larger than twice the two runs' largest logit difference there); the
-   decode-step medians side by side.
+   decode-step medians side by side;
+28. prefix reuse on full-width llama3-8b (bf16, 4 slots, pages of 16),
+   one copy of the weights: the shared-prefix workload (8 requests of
+   128 + 32 tokens, the first 96 shared) under `--prefix-mode` off, chain
+   and radix: tokens bitwise equal, radix hits and fewer prefill chunks,
+   no port kernel launched; a page's rows through the engine's spill
+   callbacks (device -> host -> a free page) bitwise; the radix run's
+   spill tier saved and a fresh `--prefix-persist` engine (a directory
+   under build/, deleted after) rehydrating and serving off's tokens,
+   pages of 32 starting cold, the file's bytes and the save and restore
+   seconds; the zipf-branching workload (8 x (128 + 16)) twice on one
+   radix engine with a 24-page pool (below the contiguous 36): wave 1
+   spills, wave 2 rehydrates, both waves' tokens those of chain and off.
+
+Phases 24-26 also run the shared-prefix workload of phase 28 on the
+weights they hold, `off` then `radix` (pages of 16; MoE layers at capacity
+E / k, the dropped share printed): tokens bitwise equal, fewer prefill
+chunks under radix, snapshot hits for gemma3-4b, rwkv6-3b and the jamba
+cut, each run's prefix counts, snapshots stored times `snapshot_row_bytes`
+and the host's RSS; rwkv's wkv6 launches exactly 32 x (prefill chunks +
+decode steps) in both modes (added to the kernels line).
 
 Each serving phase prints the decode-step median, prefill and decode
 tokens/s, the peak memory and the card's name and power limit, and frees
 its model before the next. The long-sequence phases 16-23, and the
-serving phases 24-27 after them, run last, so that the profiler windows
+serving phases 24-28 after them, run last, so that the profiler windows
 of the earlier phases open where they did before them (a window can lose
 kernels, more often late in the process; PERF.md §6).
 
@@ -3313,7 +3333,7 @@ def phase_serve_oracle():
                                                     max_len)
 
     plain = ServeEngine(cfg, params, num_slots=2, max_len=max_len,
-                        page_size=16)
+                        page_size=16, prefix_mode="off")
     seen = _record_logits(plain)
     stats = plain.run([Request(i, gen, tokens=t)
                        for i, t in enumerate(prompts[:2])])
@@ -3332,7 +3352,8 @@ def phase_serve_oracle():
         optimizer=OptimizerConfig(kind="sgd", learning_rate=0.05),
         train_tokens=16)
     eng = ServeEngine(cfg, params, num_slots=1, max_len=max_len,
-                      page_size=16, personalization=p13n)
+                      page_size=16, personalization=p13n,
+                      prefix_mode="off")
     seen = _record_logits(eng)
     r1 = eng.run([Request(0, gen, tokens=prompts[0], user=9)]).results[0]
     entry = eng._deltas.peek(9)
@@ -3548,7 +3569,7 @@ def phase_serve_av():
         plen, gen, max_len = 40, 8, 48
         reqs = make_random_requests(cfg, 3, plen, gen, seed=3)
         eng = ServeEngine(cfg, params, num_slots=2, max_len=max_len,
-                          page_size=16)
+                          page_size=16, prefix_mode="off")
         seen = _record_logits(eng)
         fed, undo = _capture_decode_embeds(eng)
         try:
@@ -3602,7 +3623,9 @@ def _serve_family(tag, arch, page_size, specs, results, model=None,
     launcher's `build_engine`: 4 slots, prefix_mode off, greedy; counts
     zeroed just before the run and read just after. Every request
     completes with in-vocab tokens; the launches are checked by the
-    caller's `watch(stats, counts)`. Frees the model. Returns the stats."""
+    caller's `watch(stats, counts)`. Then the shared-prefix workload on
+    the same weights, off and radix (`phase_prefix_family`). Frees the
+    model. Returns the stats."""
     import argparse
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -3635,7 +3658,12 @@ def _serve_family(tag, arch, page_size, specs, results, model=None,
     (watch or _no_port_kernel)(tag, stats, counts)
     print(f"[{tag}] launches {counts} [{card_line()}]", flush=True)
     profile_decode(tag, eng)
+    cfg, params = eng.cfg, eng.params
     del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_prefix_family(tag, arch, cfg, params, results)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return stats
@@ -3728,7 +3756,7 @@ def _family_oracle(tag, cfg, specs, page_size, moe_probe=False):
     reqs = _family_requests(cfg, specs, seed=3)
     max_len = max(r.prompt_len + r.max_new_tokens for r in reqs)
     eng = ServeEngine(cfg, params, num_slots=2, max_len=max_len,
-                      page_size=page_size)
+                      page_size=page_size, prefix_mode="off")
     seen = _record_logits(eng)
     with _route_gaps() as gaps:
         stats = eng.run(reqs)
@@ -3782,19 +3810,9 @@ def phase_serve_rwkv(results: dict):
     from repro_torch.configs import get_config
 
     def watch(tag, stats, counts):
-        steps = stats.prefill_chunks + len(stats.decode_step_s)
-        check(counts["wkv6"] == 32 * steps,
-              f"{tag}: {counts['wkv6']} wkv6 launches, want 32 x "
-              f"({stats.prefill_chunks} prefill chunks + "
-              f"{len(stats.decode_step_s)} decode steps)")
-        check(sum(counts.values()) == counts["wkv6"],
-              f"{tag}: another port kernel launched: {counts}")
+        _wkv_launches(tag, stats, counts, results)
         check(stats.pages_total == stats.pages_peak == 0,
               f"{tag}: a state-only arch allocated pages")
-        print(f"[{tag}] wkv6 launches {counts['wkv6']} = 32 x "
-              f"({stats.prefill_chunks} prefill chunks + "
-              f"{len(stats.decode_step_s)} decode steps)", flush=True)
-        results["launches"]["wkv6"] += counts["wkv6"]
 
     _serve_family("serve rwkv6-3b", "rwkv6-3b", 16, FAMILY_SERVE, results,
                   watch=watch)
@@ -3931,6 +3949,274 @@ def phase_flash_decode(results: dict):
           f"{results['serve_a']['median_ms']:.3f}) [{card_line()}]",
           flush=True)
     del eng_a, eng_f, runs, plain, flash
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# prefix reuse: 8 requests of 128 prompt + 32 new tokens whose first 96
+# tokens (6 pages of 16) are one shared system prompt, 4 slots, greedy
+PREFIX_ARGV = ["--requests", "8", "--batch", "4", "--prompt-len", "128",
+               "--gen-len", "32", "--page-size", "16", "--shared-prefix-len",
+               "96", "--seed", "0"]
+# the zipf-branching workload, twice on one radix engine, on a pool of 24
+# pages: below the contiguous capacity of 36 (4 slots x 9 pages), so wave 1
+# evicts (and spills) cached pages to admit
+BRANCH_ARGV = ["--requests", "8", "--batch", "4", "--prompt-len", "128",
+               "--gen-len", "16", "--page-size", "16", "--branching-prefix",
+               "--num-pages", "24", "--seed", "0"]
+PREFIX_DIR = ROOT / "build" / "prefix_persist"
+
+
+def _prefix_run(tag, arch, argv, cfg, params, mode, moe=False, eng=None,
+                extra=()):
+    """One run of `argv` through the serve launcher's `build_engine` (on
+    `params`, or on `eng` when given), counts zeroed just before and read
+    just after; with `moe` every MoE layer's dropped choices are recorded.
+    Returns (engine, stats, launch counts, dropped share or None)."""
+    import argparse
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as MOE
+    args = serve.add_serve_args(argparse.ArgumentParser()).parse_args(
+        ["--arch", arch] + argv + ["--prefix-mode", mode] + list(extra))
+    if eng is None:
+        _, eng = serve.build_engine(args, cfg, params=params)
+    reqs = serve.build_requests(args, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with MOE.record_routing() as routed:
+        stats = eng.run(reqs)
+    counts = ops.launch_counts()
+    drop = None
+    if moe:
+        drop = float(sum(d for d, _ in routed)) / max(1, sum(
+            n for _, n in routed))
+    n_new = sum(r.max_new_tokens for r in reqs)
+    check(stats.requests_completed == len(reqs)
+          and stats.tokens_out == n_new,
+          f"{tag} {mode}: {stats.requests_completed} of {len(reqs)} "
+          f"completed, {stats.tokens_out} of {n_new} tokens")
+    steps = [t * 1e3 for t in stats.decode_step_s]
+    print(f"[{tag}] {mode}: prefill_chunks={stats.prefill_chunks} "
+          f"prefix_hit_tokens={stats.prefix_hit_tokens}/"
+          f"{stats.prefix_lookup_tokens} snapshot_hits={stats.snapshot_hits}"
+          f" snapshots_stored={stats.snapshots_stored} "
+          f"cow_splits={stats.cow_splits} pages_peak={stats.pages_peak}/"
+          f"{stats.pages_total} spills={stats.spills} "
+          f"rehydrates={stats.rehydrates} radix_nodes={stats.radix_nodes} "
+          f"decode_steps={len(steps)} decode_step_ms_median="
+          f"{statistics.median(steps):.3f} prefill_tok_per_s="
+          f"{stats.prefill_tok_per_s:.1f} prefill_s={stats.prefill_s:.3f} "
+          f"wall_s={stats.wall_s:.3f} "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+          f"host_rss_kib={_rss_kib()}"
+          + (f" dropped_share={drop:.4f}" if drop is not None else "")
+          + f" launches={ {k: v for k, v in counts.items() if v} } "
+          f"[{card_line()}]", flush=True)
+    return eng, stats, counts, drop
+
+
+def _same_tokens(tag, a, b, what):
+    ta = {k: r.tokens for k, r in a.results.items()}
+    tb = {k: r.tokens for k, r in b.results.items()}
+    differ = sorted(k for k in ta if ta[k] != tb.get(k))
+    check(not differ, f"{tag}: {what}: requests {differ} differ")
+
+
+def _wkv_launches(tag, stats, counts, results):
+    """rwkv: exactly 32 wkv6 launches (the state form) a prefill chunk
+    and a decode step, no other port kernel; added to the kernels line."""
+    steps = stats.prefill_chunks + len(stats.decode_step_s)
+    check(counts["wkv6"] == 32 * steps,
+          f"{tag}: {counts['wkv6']} wkv6 launches, want 32 x "
+          f"({stats.prefill_chunks} prefill chunks + "
+          f"{len(stats.decode_step_s)} decode steps)")
+    check(sum(counts.values()) == counts["wkv6"],
+          f"{tag}: another port kernel launched: {counts}")
+    print(f"[{tag}] wkv6 launches {counts['wkv6']} = 32 x "
+          f"({stats.prefill_chunks} prefill chunks + "
+          f"{len(stats.decode_step_s)} decode steps)", flush=True)
+    results["launches"]["wkv6"] += counts["wkv6"]
+
+
+def phase_prefix_family(tag, arch, cfg, params, results):
+    """The shared-prefix workload (8 x (128 + 32), a 96-token shared
+    prefix, pages of 16) on weights a serving phase already holds, `off`
+    then `radix`; MoE layers at capacity E / k (the dropped share, 0, is
+    printed). Tokens bitwise equal; fewer prefill chunks under radix;
+    snapshot hits for the ring and state families; rwkv's wkv6 launches
+    exactly 32 x (prefill chunks + decode steps) in both modes, no port
+    kernel elsewhere."""
+    from repro_torch.models import decoding as D
+    moe = cfg.moe is not None
+    if moe:
+        cfg = _no_drop(cfg)
+    tag = f"{tag} prefix"
+    row = D.snapshot_row_bytes(cfg, 160)
+    runs = {}
+    for mode in ("off", "radix"):
+        eng, stats, counts, drop = _prefix_run(tag, arch, PREFIX_ARGV, cfg,
+                                               params, mode, moe=moe)
+        if arch == "rwkv6-3b":
+            _wkv_launches(f"{tag} {mode}", stats, counts, results)
+        else:
+            _no_port_kernel(f"{tag} {mode}", stats, counts)
+        if moe:
+            check(drop == 0.0, f"{tag} {mode}: dropped share {drop} at "
+                               f"capacity E / k")
+        runs[mode] = stats
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    off, radix = runs["off"], runs["radix"]
+    _same_tokens(tag, radix, off, "radix against off")
+    check(radix.prefill_chunks < off.prefill_chunks,
+          f"{tag}: radix prefill chunks {radix.prefill_chunks} not under "
+          f"off's {off.prefill_chunks}")
+    if D.has_state_layers(cfg):
+        check(radix.snapshot_hits > 0, f"{tag}: no snapshot hit")
+    else:
+        check(radix.prefix_hit_tokens > 0, f"{tag}: no prefix hit")
+    print(f"[{tag}] {cfg.name}: radix tokens == off tokens (8 requests); "
+          f"prefill chunks {radix.prefill_chunks} vs {off.prefill_chunks}; "
+          f"snapshots_stored={radix.snapshots_stored} x snapshot_row_bytes="
+          f"{row} = {radix.snapshots_stored * row} bytes; host_rss_kib="
+          f"{_rss_kib()} [{card_line()}]", flush=True)
+
+
+def phase_prefix(results: dict):
+    """Phase 28: prefix reuse on full-width llama3-8b (bf16), one copy of
+    the weights. The shared-prefix workload under off, chain and radix:
+    tokens bitwise equal, radix hits and fewer prefill chunks, no port
+    kernel launched. The branching workload twice on one radix engine with
+    a 24-page pool: wave 1 spills, wave 2 rehydrates, both waves' tokens
+    those of chain and off. A page's rows read to the host and written
+    into a free page, read back bitwise. A spill tier saved from the radix
+    run's engine, restored by a fresh `--prefix-persist` engine: it
+    rehydrates and serves off's tokens; an engine with pages of 32 starts
+    cold."""
+    import argparse
+    import shutil
+    from repro_torch.checkpoint import manager as CM
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import decoding as D
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import SpillTier
+    tag = "prefix llama3-8b"
+    cfg = get_config("llama3-8b")
+    params = T.init_params(cfg, 0, "cuda")
+    print(f"[{tag}] {cfg.num_layers} layers (no depth cut), {cfg.dtype}, 4 "
+          f"slots, pages of 16, 8 requests x (128 prompt + 32 new), shared "
+          f"prefix 96, greedy [{card_line()}]", flush=True)
+    runs = {}
+    for mode in ("off", "chain", "radix"):
+        eng, stats, counts, _ = _prefix_run(tag, "llama3-8b", PREFIX_ARGV,
+                                            cfg, params, mode)
+        _no_port_kernel(f"{tag} {mode}", stats, counts)
+        runs[mode] = (eng, stats)
+    off, chain = runs["off"][1], runs["chain"][1]
+    eng, radix = runs["radix"]
+    _same_tokens(tag, chain, off, "chain against off")
+    _same_tokens(tag, radix, off, "radix against off")
+    check(radix.prefix_hit_tokens > 0, f"{tag}: radix had no prefix hit")
+    check(radix.prefill_chunks < off.prefill_chunks,
+          f"{tag}: radix prefill chunks {radix.prefill_chunks} not under "
+          f"off's {off.prefill_chunks}")
+    del runs
+
+    # the page round trip on the device, through the engine's own spill
+    # callbacks: a tree page to the host, into a free page, back
+    ps = eng.page_size
+    src = next(iter(eng._cache._root.children.values())).pages[0]
+    dst = eng._pool._free[-1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blob = eng._page_reader(src)
+    t1 = time.perf_counter()
+    eng._page_writer(dst, blob)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bits = lambda a: a.view(torch.int16) if a.dtype == torch.bfloat16 else a
+    same = all(torch.equal(bits(a), bits(b)) for a, b in zip(
+        _leaves(D.read_pool_rows(eng._pools, src * ps, ps)),
+        _leaves(D.read_pool_rows(eng._pools, dst * ps, ps))))
+    check(same, f"{tag}: page {src} written to page {dst} differs")
+    page_bytes = sum(t.numel() * t.element_size() for t in _leaves(blob))
+    print(f"[{tag}] page round trip: page {src} -> host -> page {dst} "
+          f"bitwise equal; {page_bytes} bytes a page; read "
+          f"{(t1 - t0) * 1e3:.3f} ms, write {(t2 - t1) * 1e3:.3f} ms "
+          f"[{card_line()}]", flush=True)
+
+    # --prefix-persist across a restart
+    shutil.rmtree(PREFIX_DIR, ignore_errors=True)
+    PREFIX_DIR.mkdir(parents=True)
+    path = str(PREFIX_DIR / "prefix_tree.ckpt")
+    try:
+        # the run's end flushed the tree into the spill tier: save that
+        t0 = time.perf_counter()
+        CM.save_spill_tier(path, eng._spill, meta=eng._persist_meta())
+        save_s = time.perf_counter() - t0
+        entries = len(eng._spill)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        CM.restore_spill_tier(path, SpillTier(4096))
+        restore_s = time.perf_counter() - t0
+        extra = ["--prefix-persist", str(PREFIX_DIR)]
+        fresh, again, counts, _ = _prefix_run(
+            f"{tag} persist", "llama3-8b", PREFIX_ARGV, cfg, params, "radix",
+            extra=extra)
+        _no_port_kernel(f"{tag} persist", again, counts)
+        check(again.rehydrates > 0, f"{tag}: the restarted engine did not "
+                                    f"rehydrate")
+        _same_tokens(tag, again, off, "the restarted engine against off")
+        del fresh
+        args = serve.add_serve_args(argparse.ArgumentParser()).parse_args(
+            ["--arch", "llama3-8b"] + PREFIX_ARGV + extra
+            + ["--page-size", "32"])
+        _, cold = serve.build_engine(args, cfg, params=params)
+        check(len(cold._spill) == 0, f"{tag}: pages of 32 did not start "
+                                     f"cold")
+        del cold
+        print(f"[{tag}] persist: {entries} entries, file "
+              f"{Path(path).stat().st_size} bytes, save {save_s:.3f} s, "
+              f"restore {restore_s:.3f} s; the restarted engine rehydrated "
+              f"{again.rehydrates} pages and served off's tokens; pages of "
+              f"32 start cold [{card_line()}]", flush=True)
+    finally:
+        shutil.rmtree(PREFIX_DIR, ignore_errors=True)
+
+    # the branching workload: two waves on one radix engine, then chain
+    # and off
+    eng = None
+    waves = []
+    for i in range(2):
+        eng, stats, counts, _ = _prefix_run(
+            f"{tag} branching wave {i + 1}", "llama3-8b", BRANCH_ARGV, cfg,
+            params, "radix", eng=eng)
+        _no_port_kernel(f"{tag} branching", stats, counts)
+        waves.append(stats)
+    del eng
+    check(waves[0].spills > 0, f"{tag}: branching wave 1 did not spill")
+    check(waves[1].rehydrates > 0,
+          f"{tag}: branching wave 2 did not rehydrate")
+    for mode in ("chain", "off"):
+        e, stats, counts, _ = _prefix_run(f"{tag} branching", "llama3-8b",
+                                          BRANCH_ARGV, cfg, params, mode)
+        _no_port_kernel(f"{tag} branching {mode}", stats, counts)
+        del e
+        for i, w in enumerate(waves):
+            _same_tokens(tag, w, stats, f"branching wave {i + 1} against "
+                                        f"{mode}")
+    print(f"[{tag}] checks passed: off, chain and radix tokens bitwise "
+          f"equal; radix {radix.prefill_chunks} prefill chunks vs off "
+          f"{off.prefill_chunks}; branching wave 1 spills "
+          f"{waves[0].spills}, wave 2 rehydrates {waves[1].rehydrates}, "
+          f"both waves' tokens those of chain and off", flush=True)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4113,7 +4399,9 @@ def kernels_line(results: dict) -> dict:
     runs) over the wave's 7 leaves. Launches: the LM path's run (6 steps),
     the MoE path's run (6 steps; batched_dw), the rwkv path's run (6 steps;
     wkv6, wkv6_bwd), the CNN path's run (12 steps of `dynamic`) and
-    serving run B (8 waves; block_scatter_update), plus the gemma path's
+    serving run B (8 waves; block_scatter_update), plus rwkv6-3b's serving
+    runs (phase 25: plain, and the shared-prefix workload off and radix;
+    wkv6), plus the gemma path's
     (6 steps; block_sparse_dw, fused_block_opt), the jamba path's (6
     steps; block_sparse_dw, batched_dw, fused_block_opt) and the train_4k,
     nemotron, command-r, llama4-scout, musicgen-medium and qwen2-vl-7b
@@ -4272,7 +4560,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     for phase in (phase_serve_gemma, phase_serve_rwkv, phase_serve_moe,
-                  phase_flash_decode):
+                  phase_flash_decode, phase_prefix):
         phase(results)
         print(f"[chip_smoke] {phase.__name__} done at "
               f"{time.perf_counter() - t0:.0f} s", flush=True)

@@ -36,6 +36,7 @@ import warnings
 import zlib
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import msgpack
@@ -376,6 +377,45 @@ def restore_delta_store(path: str, store):
     arrays, meta = load_pytree(path)
     for user in meta.get("delta_users", sorted(arrays)):
         store.load(user, DeltaState.from_tree(arrays[str(user)]))
+    return meta
+
+
+def save_spill_tier(path: str, tier, meta: Optional[dict] = None):
+    """Serialize a serve engine's prefix-cache spill tier (`serve.paging.
+    SpillTier`) into the standard .ckpt format: one subtree per spilled
+    page boundary (the prefix tokens, int32, plus the optional device page
+    rows and recurrent-state snapshot, host tensors), keyed e000000,
+    e000001, ... oldest first, the keys in meta["spill_entries"] so the
+    LRU order survives. Duck-typed: `tier` needs `items()` yielding
+    (tokens, entry) oldest first, so this module imports nothing of
+    serving. The reference's `restore_spill_tier` reads the file."""
+    tree, order = {}, []
+    for i, (tokens, ent) in enumerate(tier.items()):
+        key = f"e{i:06d}"
+        sub = {"tokens": torch.from_numpy(
+            np.array(tokens, dtype=np.int32).reshape(-1))}
+        if ent.get("pages") is not None:
+            sub["pages"] = ent["pages"]
+        if ent.get("snap") is not None:
+            sub["snap"] = ent["snap"]
+        tree[key] = sub
+        order.append(key)
+    meta = dict(meta or {})
+    meta["spill_entries"] = order
+    save_pytree(path, tree, meta)
+
+
+def restore_spill_tier(path: str, tier):
+    """Restore entries written by `save_spill_tier` (here or by the
+    reference) into `tier` via its `put()`, in the file's LRU order (the
+    capacity bound honoured: restoring more entries than capacity drops
+    the least recent). Tokens come back as numpy int32, rows and snapshots
+    as host tensors. Returns the meta."""
+    arrays, meta = load_pytree(path)
+    for key in meta.get("spill_entries", sorted(arrays)):
+        ent = arrays[key]
+        tier.put(ent["tokens"].numpy().astype(np.int32),
+                 pages=ent.get("pages"), snap=ent.get("snap"))
     return meta
 
 

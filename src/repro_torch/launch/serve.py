@@ -3,11 +3,16 @@ CLI over the paged continuous-batching engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
         --smoke --device cpu --requests 8 --batch 4 --prompt-len 32 \
-        --gen-len 16 --page-size 16 --users 2
+        --gen-len 16 --page-size 16 --shared-prefix-len 16
 
 Requests are admitted into fixed decode slots backed by a paged KV cache;
-prompts chunk-prefill a page at a time, and `--stream` prints tokens as
-they are sampled. With `--users N > 0` requests are routed round-robin to N
+prompts chunk-prefill a page at a time, common prompt prefixes share
+refcounted pages copy-on-write through the radix prefix cache (the
+default `--prefix-mode radix`; `chain` is the flat baseline, `off` no
+sharing), and `--stream` prints tokens as they are sampled.
+`--shared-prefix-len N` and `--branching-prefix` choose the prefix
+workloads, and `--prefix-persist DIR` keeps the prefix tree on disk across
+restarts. With `--users N > 0` requests are routed round-robin to N
 users, each with a compact per-user delta applied at decode and advanced by
 an online train wave when the user's request completes. Reported counts
 cover COMPLETED requests only. Runs on the card (`--device cuda`, the
@@ -16,10 +21,8 @@ default) or on the CPU (`--device cpu`, smoke configs).
 Every registered LM arch serves through `--arch` (dense, sliding-window,
 MoE, mamba / attention hybrid and rwkv layers; the audio and vlm archs
 with placeholder prompt embeddings). The flags are the reference
-launcher's. Prefix sharing is off in this slice (`--prefix-mode off`,
-the default and the only mode accepted); the flags of the features still
-to port raise with the ROADMAP item that brings them rather than being
-ignored.
+launcher's; the flags of the features still to port raise with the
+ROADMAP item that brings them rather than being ignored.
 """
 from __future__ import annotations
 
@@ -31,19 +34,18 @@ from repro_torch.configs import (OptimizerConfig, SparseUpdateConfig,
                                  get_config, get_smoke_config)
 from repro_torch.models import transformer as T
 from repro_torch.serve import (PersonalizationConfig, ServeEngine,
-                               make_random_requests)
+                               make_branching_prefix_requests,
+                               make_random_requests,
+                               make_shared_prefix_requests)
 
-_A13 = "ROADMAP queue A item 13"
+_A13B = "ROADMAP queue A item 13b"
 # flag -> (is it set?, the ROADMAP item that brings it)
 _REFUSED = {
-    "--branching-prefix": (lambda a: a.branching_prefix, _A13),
-    "--shared-prefix-len > 0": (lambda a: a.shared_prefix_len > 0, _A13),
-    "--prefix-persist": (lambda a: a.prefix_persist is not None, _A13),
-    "--fault-rate > 0": (lambda a: a.fault_rate > 0.0, _A13),
-    "--kill-after": (lambda a: a.kill_after is not None, _A13),
-    "--journal": (lambda a: a.journal is not None, _A13),
-    "--watchdog-s": (lambda a: a.watchdog_s is not None, _A13),
-    "--shed-watermark > 0": (lambda a: a.shed_watermark > 0.0, _A13),
+    "--fault-rate > 0": (lambda a: a.fault_rate > 0.0, _A13B),
+    "--kill-after": (lambda a: a.kill_after is not None, _A13B),
+    "--journal": (lambda a: a.journal is not None, _A13B),
+    "--watchdog-s": (lambda a: a.watchdog_s is not None, _A13B),
+    "--shed-watermark > 0": (lambda a: a.shed_watermark > 0.0, _A13B),
     "--mesh-model > 1": (lambda a: a.mesh_model > 1,
                          "ROADMAP queue A item 14"),
 }
@@ -51,10 +53,6 @@ _REFUSED = {
 
 def check_args(args) -> None:
     """Raise on a flag whose feature the port does not have yet."""
-    if args.prefix_mode != "off":
-        raise NotImplementedError(
-            f"--prefix-mode {args.prefix_mode}: prefix caches come with "
-            f"{_A13} (not ported yet); this slice serves --prefix-mode off")
     for flag, (given, item) in _REFUSED.items():
         if given(args):
             raise NotImplementedError(
@@ -90,15 +88,28 @@ def build_engine(args, cfg=None, params=None):
         max_len=args.prompt_len + args.gen_len,
         temperature=args.temperature, eos_id=args.eos_id, seed=args.seed,
         page_size=args.page_size, num_pages=args.num_pages,
-        prefix_mode=args.prefix_mode, personalization=p13n,
-        flash_decode=args.flash_decode)
+        prefix_sharing=not args.no_prefix_sharing,
+        prefix_mode=args.prefix_mode, prefix_persist=args.prefix_persist,
+        personalization=p13n, flash_decode=args.flash_decode)
     return cfg, engine
 
 
 def build_requests(args, cfg):
     check_args(args)
-    reqs = make_random_requests(cfg, args.requests, args.prompt_len,
-                                args.gen_len, seed=args.seed)
+    if args.branching_prefix:
+        reqs = make_branching_prefix_requests(
+            cfg, args.requests, args.prompt_len, args.gen_len,
+            page_size=args.page_size,
+            max_prefix_pages=max(1, (args.prompt_len - 1) // args.page_size
+                                 - 1),
+            seed=args.seed)
+    elif args.shared_prefix_len > 0:
+        reqs = make_shared_prefix_requests(
+            cfg, args.requests, args.shared_prefix_len, args.prompt_len,
+            args.gen_len, seed=args.seed)
+    else:
+        reqs = make_random_requests(cfg, args.requests, args.prompt_len,
+                                    args.gen_len, seed=args.seed)
     for r in reqs:
         r.timeout_s = args.timeout_s
         if args.users > 0:
@@ -125,20 +136,22 @@ def add_serve_args(ap: argparse.ArgumentParser):
                     help="page-pool capacity (default: batch * max pages "
                          "per request, i.e. contiguous-equivalent)")
     ap.add_argument("--no-prefix-sharing", action="store_true",
-                    help="disable cross-request prompt-prefix page sharing "
-                         "(always off in this slice)")
+                    help="disable cross-request prompt-prefix page sharing")
     ap.add_argument("--prefix-mode", choices=("radix", "chain", "off"),
-                    default="off",
-                    help="prefix-reuse structure; only off is served so far")
+                    default="radix",
+                    help="prefix-reuse structure: radix tree with state "
+                         "snapshots + spill (default), the chain-hash "
+                         "baseline, or off")
     ap.add_argument("--prefix-persist", type=str, default=None,
-                    help="directory for the persistent prefix tree (not "
-                         "ported yet)")
+                    help="directory for the persistent prefix tree: the "
+                         "spill tier is saved there after each run and "
+                         "restored at engine start (radix mode only)")
     ap.add_argument("--shared-prefix-len", type=int, default=0,
                     help="> 0: requests share a common prompt prefix of "
-                         "this many tokens (not ported yet)")
+                         "this many tokens (system-prompt workload)")
     ap.add_argument("--branching-prefix", action="store_true",
-                    help="partially-overlapping prefix workload (not ported "
-                         "yet)")
+                    help="partially-overlapping (zipf-branching) prefix "
+                         "workload instead of uniform-random prompts")
     ap.add_argument("--timeout-s", type=float, default=None,
                     help="per-request wall-clock deadline")
     ap.add_argument("--stream", action="store_true",
@@ -158,18 +171,23 @@ def add_serve_args(ap: argparse.ArgumentParser):
     ap.add_argument("--delta-capacity", type=int, default=32,
                     help="max resident per-user deltas (hard LRU bound)")
     ap.add_argument("--fault-rate", type=float, default=0.0,
-                    help="chaos injection (not ported yet)")
+                    help="chaos injection (not ported yet: "
+                         "item 13b)")
     ap.add_argument("--chaos-seed", type=int, default=0)
     ap.add_argument("--chaos-slow-s", type=float, default=0.002)
     ap.add_argument("--max-retries", type=int, default=3)
     ap.add_argument("--shed-watermark", type=float, default=0.0,
-                    help="load shedding (not ported yet)")
+                    help="load shedding (not ported yet: "
+                         "item 13b)")
     ap.add_argument("--watchdog-s", type=float, default=None,
-                    help="hung-request watchdog (not ported yet)")
+                    help="hung-request watchdog (not ported yet: "
+                         "item 13b)")
     ap.add_argument("--journal", type=str, default=None,
-                    help="request-lifecycle journal (not ported yet)")
+                    help="request-lifecycle journal (not ported yet: "
+                         "item 13b)")
     ap.add_argument("--kill-after", type=int, default=None,
-                    help="injected crash (not ported yet)")
+                    help="injected crash (not ported yet: "
+                         "item 13b)")
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="> 1: sharded serving (not ported yet)")
     ap.add_argument("--flash-decode", action="store_true",
@@ -194,7 +212,14 @@ def main(argv=None):
           f"p95 {stats.latency_p95_s * 1e3:.1f}ms")
     print(f"[serve] pages {stats.pages_peak}/{stats.pages_total} peak "
           f"(util {stats.page_util:.2f}), prefix mode {stats.prefix_mode}, "
+          f"prefix hit rate {stats.prefix_hit_rate:.2f}, "
           f"{stats.cow_splits} COW splits")
+    if stats.prefix_mode == "radix":
+        print(f"[serve] radix: {stats.radix_nodes} nodes, "
+              f"snapshot hit rate {stats.snapshot_hit_rate:.2f} "
+              f"({stats.snapshots_stored} stored), "
+              f"{stats.spills} spills / {stats.rehydrates} rehydrates, "
+              f"{stats.spill_entries} tier entries")
     if args.users > 0:
         print(f"[serve] personalization: {args.users} users, "
               f"{stats.train_waves} train waves "

@@ -12,10 +12,11 @@ Cache families. Every mixer's serve cache plays one of three roles
 page pools), `ring` (sliding-window attention: per-slot ring buffers of
 min(window, max_len) slots) and `state` (mamba / rwkv: per-slot O(1)
 recurrent state). `CACHE_FAMILIES` describes each role's per-row snapshot
-(the unit a prefix cache would store at a page boundary) and
-`snapshot_row_bytes` prices one slot's; the prefix caches themselves, the
-spill helpers and the sharded step come with ROADMAP queue A items 13 and
-14 and raise until then.
+(the unit the radix prefix cache stores at a page boundary) and
+`snapshot_row_bytes` prices one slot's. `read_pool_rows` /
+`write_pool_rows` move a page's token rows out of and back into every
+layer's pool (the device half of the host spill tier). The sharded step
+comes with ROADMAP queue A item 14 and raises until then.
 
 The serve engine splits per-layer caches into two trees: `state` (per-slot
 leaves [steps, B, ...]: ring k/v and recurrent state) and `pools` (for
@@ -277,13 +278,21 @@ def copy_pool_rows(pools, src_row: int, dst_row: int, n: int):
 
 
 def read_pool_rows(pools, src_row: int, n: int):
-    raise NotImplementedError("the host spill tier: ROADMAP queue A item 13 "
-                              "(not ported yet)")
+    """`n` physical token rows from `src_row` of EVERY layer's pool (views;
+    the device half of spilling an evicted prefix page to the host)."""
+    return tree_map(lambda a: a[:, src_row:src_row + n], pools)
 
 
 def write_pool_rows(pools, rows, dst_row: int):
-    raise NotImplementedError("the host spill tier: ROADMAP queue A item 13 "
-                              "(not ported yet)")
+    """Write a `read_pool_rows`-shaped tree (any device) back into EVERY
+    layer's pool at physical row `dst_row`, cast to the pool's dtype, in
+    place (the device half of rehydrating a spilled page); returns
+    `pools`."""
+    def wr(a, r):
+        a[:, dst_row:dst_row + r.shape[1]] = r.to(device=a.device,
+                                                  dtype=a.dtype)
+        return a
+    return tree_map(wr, pools, rows)
 
 
 def make_sharded_paged_step(*args, **kwargs):

@@ -548,7 +548,16 @@ def chunk_paged_attention(p, cfg, x, start, active, pool, page_table, *,
     assert, so here the new pool has one spare row R that takes every such
     write and is cut off again: no host sync, no boolean-mask indexing.
     Valid destinations never repeat (no two rows own a page; positions are
-    distinct), so the write is deterministic."""
+    distinct), so the write is deterministic.
+
+    The keys are the reference's, [cached prefix, chunk], in another
+    order: one axis of L + s slots in logical order, the chunk's key j at
+    slot start + j (the reference appends the chunk after the L cached
+    slots). A key's place on the axis is then its position wherever a
+    chunk starts, so the fp32 softmax and PV sums add the same terms in
+    the same order whether a prompt's tail is prefilled in one chunk or
+    resumes from a shared prefix page: prefix reuse is bitwise neutral on
+    the card, where those sums' order sets their rounding."""
     b, s, _ = x.shape
     dev = x.device
     if length is None:
@@ -556,32 +565,34 @@ def chunk_paged_attention(p, cfg, x, start, active, pool, page_table, *,
     ps = page_size
     r_rows = pool["k"].shape[0]
     mp = page_table.shape[1]
+    n_log = mp * ps
     q, k, v = _qkv(p, cfg, x, _serve_positions(cfg, start, s), delta=delta)
-
-    # the cached prefix in logical order: [B, MP*ps] physical rows
-    phys = (page_table.clamp(min=0).long()[:, :, None] * ps
-            + torch.arange(ps, device=dev)[None, None, :]).reshape(b, mp * ps)
-    k_cache = pool["k"][phys]                                # [B, L, H, D]
-    v_cache = pool["v"][phys]
-
-    l_idx = torch.arange(mp * ps, device=dev)[None, :]      # logical index
-    alloc = torch.gather(page_table, 1, (l_idx // ps).expand(b, -1)) >= 0
-    cache_mask = (l_idx < start[:, None]) & alloc           # [B, L]
-    cache_mask = cache_mask[:, None, :].expand(b, s, mp * ps)
     j = torch.arange(s, device=dev)
-    chunk_mask = (j[None, :] <= j[:, None])[None].expand(b, s, s)
+    wpos = start[:, None].long() + j[None, :]                # [B, S]
 
-    k_cat = torch.cat([k_cache.to(k.dtype), k], dim=1)
-    v_cat = torch.cat([v_cache.to(v.dtype), v], dim=1)
-    mask = torch.cat([cache_mask, chunk_mask], dim=2)
+    # the cached prefix in logical order ([B, L] physical rows), then s
+    # more slots; the chunk's keys go to their positions (start < L)
+    phys = (page_table.clamp(min=0).long()[:, :, None] * ps
+            + torch.arange(ps, device=dev)[None, None, :]).reshape(b, n_log)
+    at = wpos[:, :, None, None].expand(-1, -1, k.shape[2], k.shape[3])
+    k_log, v_log = (torch.cat([pool[key][phys].to(t.dtype),
+                               t.new_zeros((b, s) + tuple(t.shape[2:]))],
+                              dim=1).scatter_(1, at, t)
+                    for key, t in (("k", k), ("v", v)))
+    l_idx = torch.arange(n_log + s, device=dev)[None, :]    # logical index
+    alloc = torch.gather(page_table, 1, (l_idx.clamp(max=n_log - 1) // ps)
+                         .expand(b, -1)) >= 0
+    cached = (l_idx < start[:, None]) & alloc               # [B, L + s]
+    own = (l_idx[:, None, :] >= start[:, None, None]) \
+        & (l_idx[:, None, :] <= wpos[:, :, None])            # [B, S, L + s]
+    mask = cached[:, None, :] | own
     if flash_decode:
-        out = _grouped_scores_split(q, k_cat, v_cat, mask, tile=ps)
+        out = _grouped_scores_split(q, k_log, v_log, mask, tile=ps)
     else:
-        out = _grouped_scores(q, k_cat, v_cat, mask)
+        out = _grouped_scores(q, k_log, v_log, mask)
 
     # the chunk's rows: logical position -> page_table page; unallocated
     # pages, inactive rows and padded positions go to the spare row
-    wpos = start[:, None].long() + j[None, :]                # [B, S]
     pid = torch.gather(page_table, 1, (wpos // ps).clamp(max=mp - 1)).long()
     keep = (pid >= 0) & active[:, None] & (j[None, :] < length[:, None]) \
         & (wpos // ps < mp)

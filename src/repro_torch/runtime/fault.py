@@ -22,7 +22,7 @@ This module covers the TRAIN loop. ``runtime/chaos.py`` holds the seeded,
 deterministic fault schedule; the port's checkpoint manager draws its
 ``torn`` writes from it. The serve engine's injection points, retries,
 quarantine, load shedding and request journal come with ROADMAP queue A
-item 13.
+item 13b.
 
 `step_fn` is timed with the host clock: on the card it should return only
 after its work is done (synchronize inside it), or the straggler monitor

@@ -15,8 +15,9 @@ Slot life cycle::
     FREE --admit--> PREFILL --last chunk--> ACTIVE --finish/cancel--> FREE
 
 Admission is per slot and page-gated: a request is admitted only when the
-pool can cover its worst-case page need (an arch with no window-free
-attention layer, rwkv, uses no pages). Chunked prefill and batched decode
+pool (free pages plus the prefix cache's evictable ones) can cover its
+worst-case page need (an arch with no window-free attention layer, rwkv,
+uses no pages). Chunked prefill and batched decode
 are the SAME ``paged_step``; inactive batch rows keep their state and their
 page writes are dropped. ``requests_completed`` / ``tokens_out`` count
 finished requests only; cancelled and timed-out requests land in
@@ -28,18 +29,28 @@ as a gather-add inside the step, advanced by an online compact train wave
 when that user's request completes, and LRU-evicted under a hard capacity
 bound. The shared base model is never written.
 
-The reference's prefix caches (radix, chain), spill tier, request journal
-and chaos machinery come with ROADMAP queue A item 13.
+Prefix reuse (``paging.RadixPrefixCache``, the default; the
+``ChainPrefixCache`` baseline): prompts share refcounted pages
+copy-on-write, ring and recurrent-state families restore a snapshot at the
+deepest shared page boundary, and evicted prefixes spill to a host
+``SpillTier`` that outlives a run and, with ``prefix_persist``, a restart.
+The request journal and chaos injection come with ROADMAP queue A item
+13b.
 """
 from repro_torch.serve.deltas import DeltaStore, PersonalizationConfig
 from repro_torch.serve.engine import (RequestResult, ServeEngine, ServeStats,
-                                      make_random_requests)
-from repro_torch.serve.paging import PagePool
+                                      make_branching_prefix_requests,
+                                      make_random_requests,
+                                      make_shared_prefix_requests)
+from repro_torch.serve.paging import (ChainPrefixCache, MatchResult,
+                                      PagePool, RadixPrefixCache, SpillTier)
 from repro_torch.serve.sampling import sample_token
 from repro_torch.serve.scheduler import Request, Scheduler, Slot, SlotState
 
 __all__ = [
-    "DeltaStore", "PagePool", "PersonalizationConfig", "Request",
-    "RequestResult", "Scheduler", "ServeEngine", "ServeStats", "Slot",
-    "SlotState", "make_random_requests", "sample_token",
+    "ChainPrefixCache", "DeltaStore", "MatchResult", "PagePool",
+    "PersonalizationConfig", "RadixPrefixCache", "Request", "RequestResult",
+    "Scheduler", "ServeEngine", "ServeStats", "Slot", "SlotState",
+    "SpillTier", "make_branching_prefix_requests", "make_random_requests",
+    "make_shared_prefix_requests", "sample_token",
 ]

@@ -24,8 +24,9 @@ Delta lifecycle (mirrors the refcount/LRU discipline of
    recycled) until capacity forces LRU eviction of the least-recently-used
    unpinned entry. Capacity is a hard bound: admitting a new user when
    every resident delta is pinned raises (like PagePool exhaustion) rather
-   than silently growing. The store's checkpoint comes with the checkpoint
-   slice (ROADMAP queue A items 11 and 13).
+   than silently growing. `checkpoint.manager.save_delta_store` /
+   `restore_delta_store` write and read the store in the reference's
+   format.
 
 The store is torch-free: entries are opaque values produced by a
 `make_entry(user)` factory, so the invariants are property-testable with

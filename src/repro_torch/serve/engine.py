@@ -8,7 +8,11 @@ One engine iteration:
    counters.
 2. *Admission*: while a FREE slot and a queued request exist AND the page
    pool can cover the request's worst-case page need, bind the request to
-   the slot.
+   the slot. Prompt-prefix sharing (every cache family) attaches cached
+   pages from the radix tree and, for archs with ring or recurrent state,
+   restores the state snapshot at the deepest matched page boundary, so
+   the matched prefix tokens are never recomputed. The match stays pinned
+   in the tree until the slot closes.
 3. *Chunked prefill*: every PREFILL slot advances by ONE page-sized chunk
    through the same `paged_step` the decode uses (B = 1), so a long prompt
    never stalls in-flight decodes. The final chunk's logits give the
@@ -16,6 +20,20 @@ One engine iteration:
 4. *Decode*: one fixed-shape `paged_step` over all slots (S = 1) with
    per-slot start positions and an active mask; inactive rows keep their
    state and their page writes are dropped.
+
+Copy-on-write: any write into a page shared with the prefix cache or
+another request first splits it (an exclusive copy of the device rows in
+every layer's pool). The canonical trigger: a request registers its
+partially-filled last prompt page, then splits it on its first decode
+write, leaving the cached page frozen at prompt-only content.
+
+Prefix reuse modes (`prefix_mode`, `serve/paging.py`): "radix" (the
+default) is the radix tree over token pages with recurrent-state snapshots
+and the host spill tier: evicted and ended trees survive across `run()`
+calls and, with `prefix_persist`, across engine restarts. "chain" is the
+flat chain-hash baseline (fully-paged archs only, it dies with `run()`),
+kept for comparison. "off" disables sharing. Personalized requests
+(`user` set) never share: their K/V come from their own delta.
 
 Per-user personalization (a `PersonalizationConfig`): `Request.user` routes
 a request to that user's compact delta (`core/delta.py`), copied into the
@@ -32,12 +50,9 @@ keep only state (rwkv) allocates no pages at all. `flash_decode=True` takes
 the paged layers' softmax page by page (the flash-decoding split); it is
 off by default, as the reference's single-device engine has it.
 
-The port serves the reference engine's `prefix_mode="off"`: no prefix
-sharing, so no page is ever shared and copy-on-write never triggers (its
-contract stays in `_ensure_writable`). The reference's other features are
-refused with the ROADMAP item that brings them: prefix caches, spill and
-persist, chaos injection, the request journal, the watchdog and load
-shedding (queue A item 13) and sharded serving (item 14).
+The reference's robustness features are refused with the ROADMAP item
+that brings them: chaos injection, the request journal, the watchdog and
+load shedding (queue A item 13b), and sharded serving (item 14).
 
 Embedding-input archs (musicgen, qwen2-vl): a request carries its prompt
 as `embeds` [prompt_len, d_model], and each decode step feeds every slot a
@@ -53,25 +68,48 @@ embeddings of the placeholder frontend come from it too).
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+import warnings
 import zlib
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.manager import (CheckpointCorruptError,
+                                            restore_spill_tier,
+                                            save_spill_tier)
 from repro_torch.core.sparse_update import SelSpec, tree_leaves, tree_map
 from repro_torch.models import decoding as D
 from repro_torch.models.transformer import dtype_of
 from repro_torch.serve.deltas import DeltaStore, PersonalizationConfig
-from repro_torch.serve.paging import PagePool
+from repro_torch.serve.paging import (ChainPrefixCache, PagePool,
+                                      RadixPrefixCache, SpillTier)
 from repro_torch.serve.sampling import sample_token
 from repro_torch.serve.scheduler import Request, Scheduler, Slot
 
 __all__ = ["RequestResult", "ServeEngine", "ServeStats",
-           "make_random_requests"]
+           "make_random_requests", "make_shared_prefix_requests",
+           "make_branching_prefix_requests"]
 
-_A13 = "ROADMAP queue A item 13"
+_A13B = "ROADMAP queue A item 13b"
+
+
+def _graft_like(tpl, blob):
+    """Re-attach the empty subtrees that checkpoint serialization drops:
+    walk the template's dict skeleton and take `blob`'s value wherever the
+    template has leaves below (structure only, no data moves)."""
+    if isinstance(tpl, dict):
+        return {k: _graft_like(v, blob.get(k, {}) if isinstance(blob, dict)
+                               else {}) for k, v in tpl.items()}
+    return blob
+
+
+def _to_host(tree):
+    """A copy of a tree of tensors on the host (the spill tier's and the
+    snapshots' storage)."""
+    return tree_map(lambda a: a.to("cpu", copy=True), tree)
 
 
 @dataclasses.dataclass
@@ -94,11 +132,22 @@ class ServeStats:
     latency_p95_s: float
     refills: int            # admissions that recycled a dirty slot
     prefill_chunks: int     # chunked-prefill steps run
+    prefix_hit_tokens: int  # prompt tokens served from shared pages
+    prefix_lookup_tokens: int
     pages_total: int        # page-pool capacity
-    pages_peak: int         # peak pages in use
+    pages_peak: int         # peak pages in use (sharing lowers this)
     cow_splits: int
     results: dict           # rid -> RequestResult
+    # prefix-reuse internals (zero when prefix_mode is "off")
     prefix_mode: str = "off"
+    prefix_lookups: int = 0         # admission-time cache lookups
+    state_lookups: int = 0          # lookups that asked for a state snapshot
+    radix_nodes: int = 0            # tree nodes at end of run
+    snapshot_hits: int = 0          # matches that restored recurrent state
+    snapshots_stored: int = 0
+    spills: int = 0                 # entries written to the host spill tier
+    rehydrates: int = 0             # spilled entries re-attached on match
+    spill_entries: int = 0          # tier size at end of run
     # per-user personalization (all zero when the engine has none)
     delta_hits: int = 0             # delta-store admissions that hit
     delta_lookups: int = 0          # delta-store admissions total
@@ -118,8 +167,18 @@ class ServeStats:
     # wall time of every decode step, synchronized, in order
 
     @property
+    def prefix_hit_rate(self) -> float:
+        return self.prefix_hit_tokens / max(1, self.prefix_lookup_tokens)
+
+    @property
     def page_util(self) -> float:
         return self.pages_peak / max(1, self.pages_total)
+
+    @property
+    def snapshot_hit_rate(self) -> float:
+        """Snapshot hits over state-family lookups only: attention-family
+        lookups never ask for a snapshot."""
+        return self.snapshot_hits / max(1, self.state_lookups)
 
     @property
     def delta_hit_rate(self) -> float:
@@ -151,30 +210,26 @@ class ServeEngine:
     def __init__(self, cfg, params, *, num_slots: int, max_len: int,
                  temperature: float = 0.0, eos_id: Optional[int] = None,
                  seed: int = 0, page_size: int = 16,
-                 num_pages: Optional[int] = None, prefix_mode: str = "off",
+                 num_pages: Optional[int] = None, prefix_sharing: bool = True,
+                 prefix_mode: str = "radix",
+                 prefix_persist: Optional[str] = None,
+                 spill_entries: int = 4096, snapshot_budget: int = 256,
+                 max_tree_nodes: int = 4096,
                  personalization: Optional[PersonalizationConfig] = None,
-                 prefix_persist: Optional[str] = None, chaos=None,
-                 shed_watermark: float = 0.0,
+                 chaos=None, shed_watermark: float = 0.0,
                  watchdog_s: Optional[float] = None, journal=None,
                  rules=None, flash_decode: Optional[bool] = None):
         assert num_slots >= 1 and max_len >= 2 and page_size >= 1
-        if cfg.embed_inputs:
-            # placeholder-embeds frontends have no token identity to key
-            # prefix reuse on
-            prefix_mode = "off"
+        assert prefix_mode in ("radix", "chain", "off")
         if personalization is not None and cfg.embed_inputs:
             raise ValueError("personalization trains on token streams; "
                              "embed-input frontends have none")
-        if prefix_mode != "off":
-            _refuse(f"prefix_mode={prefix_mode!r} (radix / chain prefix "
-                    f"caches)", _A13)
-        for what, given in (("prefix_persist", prefix_persist is not None),
-                            ("chaos (fault injection)", chaos is not None),
+        for what, given in (("chaos (fault injection)", chaos is not None),
                             ("shed_watermark > 0", shed_watermark > 0.0),
                             ("watchdog_s", watchdog_s is not None),
                             ("journal", journal is not None)):
             if given:
-                _refuse(what, _A13)
+                _refuse(what, _A13B)
         if rules is not None:
             _refuse("sharded serving (rules)", "ROADMAP queue A item 14")
         self.cfg = cfg
@@ -187,10 +242,33 @@ class ServeEngine:
         self.flash_decode = bool(flash_decode)
         self.max_pages = -(-max_len // page_size)
         self.has_pages = D.has_paged_layers(cfg)
+        self._need_state = D.has_state_layers(cfg)
+        # default pool = contiguous capacity (num_slots full-length tables);
+        # prefix sharing brings the peak under it. State-only archs (rwkv)
+        # have no paged layers and no pool at all.
         self.num_pages = 0 if not self.has_pages else (
             num_pages if num_pages is not None
             else num_slots * self.max_pages)
+        # placeholder-embeds frontends have no token identity to key reuse
+        # on; the chain baseline also needs every layer paged (it has no
+        # snapshots to cover ring or recurrent state)
+        if not prefix_sharing or cfg.embed_inputs:
+            prefix_mode = "off"
+        elif prefix_mode == "chain" and (self._need_state
+                                         or not self.has_pages):
+            prefix_mode = "off"
         self.prefix_mode = prefix_mode
+        self.prefix_sharing = prefix_mode != "off"
+        self.snapshot_budget = snapshot_budget
+        self.max_tree_nodes = max_tree_nodes
+        # ONE spill tier per engine, shared by every run()'s tree: prefix
+        # state outlives the pools (and, with prefix_persist, restarts)
+        self._spill = SpillTier(spill_entries) \
+            if prefix_mode == "radix" else None
+        self._cache = None      # built per run(); None until the first run
+        self._persist_path = None
+        if prefix_persist is not None and self._spill is not None:
+            self._restore_prefix_state(prefix_persist)
         self.temperature = float(temperature)
         self.eos_id = eos_id
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -391,8 +469,21 @@ class ServeEngine:
         return need
 
     def _headroom(self, sched: Scheduler) -> int:
-        return self._pool.free_pages - sum(self._worst_case_need(s)
-                                           for s in sched.live_slots())
+        avail = self._pool.free_pages
+        if self._cache is not None:
+            avail += self._cache.evictable()
+        return avail - sum(self._worst_case_need(s)
+                           for s in sched.live_slots())
+
+    def _evict_until_free(self) -> None:
+        while not self._pool.free_pages:
+            if self._cache is None or not self._cache.evict_one():
+                raise RuntimeError("page pool exhausted with nothing "
+                                   "evictable (reservation bug)")
+
+    def _alloc_page(self) -> int:
+        self._evict_until_free()
+        return self._pool.alloc()
 
     def _ensure_writable(self, slot: Slot, lo: int, hi: int, pools):
         """Make every page covering token positions [lo, hi) allocated and
@@ -404,28 +495,94 @@ class ServeEngine:
         for pg in range(lo // ps, -(-hi // ps)):
             pid = int(self._pt[slot.index, pg])
             if pid < 0:
-                pid = self._pool.alloc()
+                pid = self._alloc_page()
                 assert pg == len(slot.page_ids), "non-contiguous page alloc"
                 slot.page_ids.append(pid)
                 self._pt[slot.index, pg] = pid
             elif self._pool.ref[pid] > 1:
+                self._evict_until_free()
                 new = self._pool.cow_split(pid)
                 pools = D.copy_pool_rows(pools, pid * ps, new * ps, ps)
                 slot.page_ids[pg] = new
                 self._pt[slot.index, pg] = new
         return pools
 
+    def _page_reader(self, pid: int):
+        """Device -> host: one page's token rows from EVERY layer's pool
+        (the radix cache's spill callback)."""
+        ps = self.page_size
+        return _to_host(D.read_pool_rows(self._pools, pid * ps, ps))
+
+    def _page_writer(self, pid: int, blob) -> None:
+        """Host -> device: write a spilled page's rows back into EVERY
+        layer's pool (the radix cache's rehydrate callback). The blob is
+        grafted onto the live pool structure first: a disk round trip
+        drops empty subtrees."""
+        D.write_pool_rows(self._pools, _graft_like(self._pools, blob),
+                          pid * self.page_size)
+
     def _release_slot(self, slot: Slot):
         for pid in slot.page_ids:
             self._pool.decref(pid)
         slot.page_ids = []
         slot.registered_pages = 0
+        if slot.match is not None:
+            if self._cache is not None:
+                self._cache.release(slot.match)
+            slot.match = None
         self._pt[slot.index, :] = -1
+
+    def _restore_prefix_state(self, directory: str) -> None:
+        """Point the engine at `directory`'s persisted tree and load it into
+        the spill tier. A torn file (a crash mid-write) warns and starts
+        cold; so does a tree saved for another page size, max_len or
+        model, silently."""
+        os.makedirs(directory, exist_ok=True)
+        self._persist_path = os.path.join(directory, "prefix_tree.ckpt")
+        if not os.path.exists(self._persist_path):
+            return
+        want = self._persist_meta()
+        try:
+            meta = restore_spill_tier(self._persist_path, self._spill)
+        except CheckpointCorruptError as e:
+            warnings.warn(f"prefix-persist tree is corrupt ({e}); "
+                          "starting cold")
+            self._spill.clear()
+            meta = want
+        if any(meta.get(k) != v for k, v in want.items()):
+            self._spill.clear()         # incompatible tree: start cold
+
+    def _persist_meta(self) -> dict:
+        return {"page_size": self.page_size, "max_len": self.max_len,
+                "model": self.cfg.name}
+
+    def _persist_prefix_state(self) -> None:
+        """Flush the radix tree (pages and snapshots) into the host spill
+        tier while the device pools are still alive, and, with
+        `prefix_persist`, the tier to disk. Runs at the end of a run and on
+        the unwind of a failed one, so a killed engine still leaves a warm
+        tree behind."""
+        if self.prefix_mode != "radix" or self._cache is None:
+            return
+        self._cache.spill_all()
+        if self._persist_path is not None:
+            save_spill_tier(self._persist_path, self._spill,
+                            meta=self._persist_meta())
 
     # -- serve loop --------------------------------------------------------
 
     def run(self, requests: list[Request],
             verbose: bool = False) -> ServeStats:
+        try:
+            return self._run(requests, verbose)
+        except BaseException:
+            # a failed run still flushes the radix tree to the spill tier
+            # (and disk, with prefix_persist), so a restarted engine finds
+            # a warm prefix cache instead of a cold one
+            self._persist_prefix_state()
+            raise
+
+    def _run(self, requests: list[Request], verbose: bool) -> ServeStats:
         for r in requests:
             given = r.embeds if self.cfg.embed_inputs else r.tokens
             assert given is not None, (
@@ -451,6 +608,17 @@ class ServeEngine:
             self.page_size, device=self.device)
         self._pt = np.full((self.num_slots, self.max_pages), -1, np.int32)
         self._pool = PagePool(max(1, self.num_pages), self.page_size)
+        if self.prefix_mode == "radix":
+            self._cache = RadixPrefixCache(
+                self._pool, has_pages=self.has_pages,
+                reader=self._page_reader if self.has_pages else None,
+                writer=self._page_writer if self.has_pages else None,
+                spill=self._spill, snapshot_budget=self.snapshot_budget,
+                max_nodes=self.max_tree_nodes)
+        elif self.prefix_mode == "chain":
+            self._cache = ChainPrefixCache(self._pool)
+        else:
+            self._cache = None
         if self._p13n is not None:
             self._dbatch = None     # the previous run's rows go first
             self._dbatch = self._delta_batch_zeros()
@@ -496,18 +664,46 @@ class ServeEngine:
             # head without disturbing FIFO order)
             while (adm := sched.peek_admission()) is not None:
                 slot, req = adm
-                need = self._pages_needed(req)
+                mr, matched, covered = None, [], 0
+                # personalized requests compute K/V under their own delta:
+                # sharing those pages (or adopting shared ones) would serve
+                # another user's prefix from the wrong weights
+                if self._cache is not None and req.tokens is not None \
+                        and req.user is None:
+                    # leave >= 1 prompt token uncached: something must
+                    # produce the logits that sample the first token
+                    mr = self._cache.match(
+                        np.asarray(req.tokens), req.prompt_len - 1,
+                        need_state=self._need_state)
+                    matched, covered = mr.pages, mr.covered
+                has_partial = bool(matched) and \
+                    matched[-1][1] < self.page_size
+                need = self._pages_needed(req) - len(matched) \
+                    + int(has_partial)
                 if self.has_pages and self._headroom(sched) < need:
+                    if mr is not None:              # roll the match back
+                        self._cache.abandon(mr, req.prompt_len)
+                        mr, matched, covered = None, [], 0
                     if sched.live_slots():
                         break   # retry when an in-flight request frees pages
-                    # nothing in flight: the whole pool is free, and
-                    # pages_needed <= num_pages always fits
-                    assert self._headroom(sched) >= need
-                sched.commit_admission(slot)
-                slot.page_ids = []
-                slot.registered_pages = 0
+                    # nothing in flight will ever free pages: admit WITHOUT
+                    # sharing. With no live slot every cache page is
+                    # evictable, so pages_needed <= num_pages always fits
+                    assert self._headroom(sched) >= self._pages_needed(req)
+                    has_partial = False
+                sched.commit_admission(slot, prefilled=covered)
+                slot.match = mr     # pinned until the slot closes
+                slot.page_ids = [pid for pid, _ in matched]
+                slot.registered_pages = len(matched) - int(has_partial)
                 self._pt[slot.index, :] = -1
-                state = D.cache_reset_row(state, slot.index)
+                self._pt[slot.index, :len(matched)] = slot.page_ids
+                if mr is not None and mr.snapshot is not None:
+                    # restore the recurrent state at the matched boundary;
+                    # prefill resumes from slot.pos = covered
+                    state = D.cache_insert_row(
+                        state, _graft_like(state, mr.snapshot), slot.index)
+                else:
+                    state = D.cache_reset_row(state, slot.index)
                 if self._p13n is not None:
                     if req.user is not None:
                         entry = self._deltas.admit(req.user)
@@ -521,7 +717,28 @@ class ServeEngine:
             # 3) chunked prefill: one page-sized chunk per PREFILL slot
             for slot in sched.prefill_slots():
                 req = slot.request
-                size = min(self.page_size, req.prompt_len - slot.pos)
+                ps = self.page_size
+                shareable = (self._cache is not None
+                             and req.tokens is not None and req.user is None)
+                toks = np.asarray(req.tokens) if shareable else None
+                # chunk-time adoption: a page a CONCURRENT slot registered
+                # since our admission is attached instead of recomputed
+                # (same-wave admissions of a common prefix share this way).
+                # State archs skip it: adopting K/V rows without the
+                # recurrent state at that boundary would lose the state
+                # those tokens should have produced.
+                while (shareable and not self._need_state
+                       and slot.pos % ps == 0
+                       and slot.pos + ps <= req.prompt_len - 1
+                       and slot.pos // ps == len(slot.page_ids)):
+                    pid = self._cache.match_page(toks, slot.pos)
+                    if pid is None:
+                        break
+                    slot.page_ids.append(pid)
+                    self._pt[slot.index, len(slot.page_ids) - 1] = pid
+                    slot.pos += ps
+                    slot.registered_pages = len(slot.page_ids)
+                size = min(ps, req.prompt_len - slot.pos)
                 self._pools = self._ensure_writable(
                     slot, slot.pos, slot.pos + size, self._pools)
                 st_row = D.cache_extract_row(state, slot.index)
@@ -538,8 +755,24 @@ class ServeEngine:
                 state = D.cache_insert_row(state, st_row, slot.index)
                 slot.pos += size
                 prefill_chunks += 1
+                if shareable and self.has_pages:
+                    slot.registered_pages = self._cache.insert_pages(
+                        toks, slot.pos // ps, slot.page_ids,
+                        slot.registered_pages)
+                if (shareable and self._need_state and slot.pos % ps == 0
+                        and self._cache.wants_snapshot(toks, slot.pos)):
+                    # the recurrent state at this page boundary, copied to
+                    # the host: a later shared-prefix request resumes from
+                    # it instead of prefilling again
+                    self._cache.insert_snapshot(
+                        toks, slot.pos,
+                        _to_host(D.cache_extract_row(state, slot.index)))
                 if slot.pos == req.prompt_len:
                     sched.finish_prefill(slot)
+                    if shareable and self.has_pages \
+                            and not self._need_state \
+                            and self._headroom(sched) >= 1:
+                        self._cache.insert_partial(toks, slot.page_ids[-1])
                     outcome = sched.record_token(slot,
                                                  self._sample(logits)[0])
                     if outcome is not None:
@@ -580,10 +813,13 @@ class ServeEngine:
                     close(slot, "completed" if outcome == "done"
                           else "cancelled")
 
+        self._persist_prefix_state()
         wall = time.perf_counter() - t0
         lat = [r.latency_s for r in results.values()
                if r.status == "completed"] or [0.0]
         p13n = self._p13n is not None
+        c = self._cache
+        count = lambda name: getattr(c, name) if c is not None else 0
         return ServeStats(
             requests_completed=sched.requests_completed,
             requests_cancelled=sched.requests_cancelled,
@@ -595,11 +831,21 @@ class ServeEngine:
             latency_p95_s=float(np.percentile(lat, 95)),
             refills=sched.refills,
             prefill_chunks=prefill_chunks,
+            prefix_hit_tokens=count("hit_tokens"),
+            prefix_lookup_tokens=count("lookup_tokens"),
             pages_total=self.num_pages,
             pages_peak=self._pool.peak_in_use,
             cow_splits=self._pool.cow_splits,
             results=results,
             prefix_mode=self.prefix_mode,
+            prefix_lookups=count("lookups"),
+            state_lookups=count("state_lookups"),
+            radix_nodes=count("node_count"),
+            snapshot_hits=count("snapshot_hits"),
+            snapshots_stored=count("snapshots_stored"),
+            spills=count("spills"),
+            rehydrates=count("rehydrates"),
+            spill_entries=len(self._spill) if self._spill is not None else 0,
             delta_hits=self._deltas.hits if p13n else 0,
             delta_lookups=(self._deltas.hits + self._deltas.misses
                            if p13n else 0),
@@ -632,4 +878,55 @@ def make_random_requests(cfg, n: int, prompt_len: int, gen_len: int,
             toks = rng.integers(
                 0, cfg.vocab_size, prompt_len).astype(np.int32)
             reqs.append(Request(rid, gen_len, tokens=toks, **req_kw))
+    return reqs
+
+
+def make_shared_prefix_requests(cfg, n: int, prefix_len: int, prompt_len: int,
+                                gen_len: int, seed: int = 0) -> list[Request]:
+    """Workload with a common `prefix_len`-token prompt prefix (system-
+    prompt style): later admissions hit the prefix cache and share pages.
+    Bitwise the reference's for the same seed."""
+    assert 0 < prefix_len <= prompt_len
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, cfg.vocab_size, prefix_len).astype(np.int32)
+    reqs = []
+    for rid in range(n):
+        tail = rng.integers(
+            0, cfg.vocab_size, prompt_len - prefix_len).astype(np.int32)
+        reqs.append(Request(rid, gen_len,
+                            tokens=np.concatenate([prefix, tail])))
+    return reqs
+
+
+def make_branching_prefix_requests(cfg, n: int, prompt_len: int, gen_len: int,
+                                   *, page_size: int = 16,
+                                   max_prefix_pages: int = 4, branch: int = 2,
+                                   zipf_a: float = 1.5,
+                                   seed: int = 0) -> list[Request]:
+    """Partially-overlapping prefix workload: prompts walk a `branch`-ary
+    token tree with zipf-skewed branch popularity (few-shot preambles that
+    agree for a while, then diverge), so pairs of requests share SOME page-
+    aligned prefix but rarely the whole prompt. This is the workload where
+    the radix tree's arbitrary-prefix matching beats whole-chain hashing.
+    Page content at each tree position is keyed by the path to it, so equal
+    paths yield identical tokens across requests (and across runs), and
+    the same seed gives the reference's tokens."""
+    assert prompt_len > max_prefix_pages * page_size
+    rng = np.random.default_rng(seed)
+    w = 1.0 / np.arange(1, branch + 1) ** zipf_a
+    w /= w.sum()
+    reqs = []
+    for rid in range(n):
+        depth = 1 + int(rng.integers(0, max_prefix_pages))
+        path: list[int] = []
+        pages = []
+        for _ in range(depth):
+            path.append(int(rng.choice(branch, p=w)))
+            pages.append(np.random.default_rng([seed, *path]).integers(
+                0, cfg.vocab_size, page_size).astype(np.int32))
+        prefix = np.concatenate(pages)
+        tail = rng.integers(0, cfg.vocab_size,
+                            prompt_len - len(prefix)).astype(np.int32)
+        reqs.append(Request(rid, gen_len,
+                            tokens=np.concatenate([prefix, tail])))
     return reqs

@@ -365,8 +365,9 @@ def test_unported_families_and_helpers_raise():
     """The MoE and sliding-window families lay out now (their parity is
     tests/test_torch_serve_families.py): full deepseek-moe-16b's pools on
     the meta device, a windowed llama3 smoke config's per-slot rings of
-    min(window, max_len) slots and no pools. The spill helpers (item 13)
-    and the sharded step (item 14) still raise with their ROADMAP item."""
+    min(window, max_len) slots and no pools. The sharded step still raises
+    with its ROADMAP item (14); the spill helpers serve
+    (tests/test_torch_prefix_cache.py)."""
     moe = get_config("deepseek-moe-16b")
     state, pools = PD.init_serve_cache(moe, 1, 16, 1, 16, device="meta")
     assert jax.tree.leaves(state) == []
@@ -383,8 +384,5 @@ def test_unported_families_and_helpers_raise():
     assert sorted(state["blocks"]) == [f"sub{i}" for i in range(5)]
     assert tuple(state["blocks"]["sub0"]["v"].shape) == (1,) + row
     assert sorted(pools["blocks"]) == ["sub5"] and pools["tail"] == {}
-    for fn, args in ((PD.read_pool_rows, ({}, 0, 1)),
-                     (PD.write_pool_rows, ({}, {}, 0)),
-                     (PD.make_sharded_paged_step, ())):
-        with pytest.raises(NotImplementedError, match="item 1[34]"):
-            fn(*args)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        PD.make_sharded_paged_step()

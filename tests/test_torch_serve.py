@@ -1,5 +1,6 @@
-"""The port's serve engine against the reference's `ServeEngine(prefix_mode=
-"off")` on the llama3 smoke config (f32), from the reference's params:
+"""The port's serve engine against the reference's, both with
+`prefix_mode="off"`, on the llama3 smoke config (f32), from the
+reference's params:
 identical greedy tokens for plain serving across page boundaries, slot
 refill, cancellation and timeouts, and for personalized serving with online
 train waves (the reference's per-user selection injected); the same
@@ -102,7 +103,7 @@ def _run_both(model, specs, num_slots, max_len, seed=11, req_kw=None,
             ServeEngine, "_make_delta_entry",
             lambda self, user: bridge.delta_to_torch(
                 jeng._make_delta_entry(user)))
-    peng = ServeEngine(pcfg, tparams,
+    peng = ServeEngine(pcfg, tparams, prefix_mode="off",
                        personalization=(_p13n(PCF, PersonalizationConfig)
                                         if p13n else None), **kw)
     gaps = _probed(peng)
@@ -358,9 +359,7 @@ def test_cli_exact_counts(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--prefix-mode", "radix"], ["--prefix-mode", "chain"],
-    ["--branching-prefix"], ["--shared-prefix-len", "4"],
-    ["--prefix-persist", "x"], ["--fault-rate", "0.1"],
+    ["--fault-rate", "0.1"],
     ["--kill-after", "1"], ["--journal", "x"], ["--watchdog-s", "1"],
     ["--shed-watermark", "0.1"], ["--mesh-model", "2"],
 ], ids=lambda f: f[0].lstrip("-") + (f"={f[1]}" if len(f) > 1 else ""))
@@ -386,7 +385,7 @@ def test_cli_defaults_to_the_card():
     args = launch_serve.add_serve_args(
         __import__("argparse").ArgumentParser()).parse_args(
             ["--arch", "llama3-8b"])
-    assert args.device == "cuda" and args.prefix_mode == "off"
+    assert args.device == "cuda" and args.prefix_mode == "radix"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             launch_serve.build_engine(args)
@@ -394,10 +393,8 @@ def test_cli_defaults_to_the_card():
 
 def test_engine_refuses_unported_options(model):
     _, cfg, _, params = model
-    for kw in ({"prefix_mode": "radix"}, {"chaos": object()},
-               {"journal": "j"}, {"watchdog_s": 1.0},
-               {"shed_watermark": 0.1}, {"prefix_persist": "p"},
-               {"rules": object()}):
+    for kw in ({"chaos": object()}, {"journal": "j"}, {"watchdog_s": 1.0},
+               {"shed_watermark": 0.1}, {"rules": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
             ServeEngine(cfg, params, num_slots=1, max_len=8, **kw)
     assert dataclasses.is_dataclass(ServeEngine(

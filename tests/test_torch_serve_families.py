@@ -401,7 +401,7 @@ def test_engine_matches_reference(arch):
     kw = dict(num_slots=2, max_len=12, page_size=PS)
     ref = JServeEngine(jcfg, jparams, prefix_mode="off", **kw).run(
         _requests(JRequest, ENGINE_SPECS, jcfg.vocab_size))
-    peng = ServeEngine(pcfg, tparams, **kw)
+    peng = ServeEngine(pcfg, tparams, prefix_mode="off", **kw)
     gaps = _probed(peng)
     ours = peng.run(_requests(Request, ENGINE_SPECS, pcfg.vocab_size))
     assert gaps and min(gaps) > GAP, f"near-tie: top-2 gap {min(gaps)}"
