@@ -145,9 +145,10 @@ Phases (any failure exits non-zero and prints no result):
    4096, K = 2, 6 steps through the launcher, each with the LM path's
    checks (launches as its plan derives them, one profiled step with the
    flash path's share, frozen params against a fresh init, compact
-   against dense-scatter bitwise): nemotron-4-15b at full depth (32
-   layers; layernorm, squared ReLU) with AdamW; command-r-35b (layernorm,
-   tied embeddings) cut 40 -> 24 layers, AdamW; llama4-scout-17b-a16e
+   against dense-scatter bitwise): nemotron-4-15b (layernorm, squared
+   ReLU) cut 32 -> 16 layers with AdamW; command-r-35b (layernorm, tied
+   embeddings) cut 40 -> 16 layers, AdamW (the cuts keep the whole run
+   inside its time limit); llama4-scout-17b-a16e
    (MoE in every layer, 16 experts top-1 + 1 shared) cut 48 -> 8 layers
    with all 16 experts, SGD lr 0.1, its dropped share and every expert
    leaf's unselected blocks through the first fixed phase against the
@@ -221,7 +222,26 @@ Phases (any failure exits non-zero and prints no result):
    pages of 32 starting cold, the file's bytes and the save and restore
    seconds; the zipf-branching workload (8 x (128 + 16)) twice on one
    radix engine with a 24-page pool (below the contiguous 36): wave 1
-   spills, wave 2 rehydrates, both waves' tokens those of chain and off.
+   spills, wave 2 rehydrates, both waves' tokens those of chain and off;
+29. serving robustness on phase 28's copy of the weights and its
+   shared-prefix workload, phase 28's fault-free radix and off tokens the
+   reference (`phase_robust`): (a) `--fault-rate 0.1` (`FaultSchedule(0,
+   fault_rate=0.1)`, 10 retries) under radix, every request with a stream
+   callback: radix's tokens, faults of every kind (alloc, step, slow,
+   stream) retried, 8 completed; (b) a poison rid with 2 retries:
+   quarantined after 3, the other 7 with radix's tokens; then on that
+   warmed engine an endless retry budget and the watchdog at 10 x the
+   longest decode step of phase 28 (3 s at least): the watchdog
+   quarantines it; (c) `--shed-watermark 0.5`, off, 40 pages (4 x 10):
+   requests shed, 8 completed with off's tokens; (d) `--kill-after 2`
+   with `--journal` and `--prefix-persist` under build/ (deleted after):
+   the run raises `InjectedCrash`, a fresh engine's `recover_requests()`
+   serves each request left in flight with radix's tokens, as journal
+   replays with prefix hits, and a third engine recovers nothing; (e)
+   run B (2 users, online waves) under 10% faults: completed + cancelled
+   + quarantined = 8, a wave per completed request, each wave exactly
+   phase 13's 7 / 14 / 7 scatter / dW / optimizer launches. Each run
+   prints its wall seconds, decode median and robustness counts.
 
 Phases 24-26 also run the shared-prefix workload of phase 28 on the
 weights they hold, `off` then `radix` (pages of 16; MoE layers at capacity
@@ -229,7 +249,11 @@ E / k, the dropped share printed): tokens bitwise equal, fewer prefill
 chunks under radix, snapshot hits for gemma3-4b, rwkv6-3b and the jamba
 cut, each run's prefix counts, snapshots stored times `snapshot_row_bytes`
 and the host's RSS; rwkv's wkv6 launches exactly 32 x (prefill chunks +
-decode steps) in both modes (added to the kernels line).
+decode steps) in both modes (added to the kernels line). Phase 25 also
+runs rwkv6-3b's shared-prefix workload `off` under `--fault-rate 0.1`: the
+fault-free off run's tokens bitwise, faults fired, the wkv6 launches
+again exactly 32 x (prefill chunks + decode steps) that ran (a faulted
+attempt launches nothing; added to the kernels line).
 
 Each serving phase prints the decode-step median, prefill and decode
 tokens/s, the peak memory and the card's name and power limit, and frees
@@ -319,16 +343,19 @@ JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--steps", "6", "--batch",
               str(JAMBA_J), "--phase-k", "2", "--log-every", "1",
               "--seed", "0"]
 # the reference's other text-only archs at its train_4k shape, batch 1,
-# K = 2: nemotron-4-15b at full depth; command-r-35b cut 40 -> 24 layers
-# (the uncut 60.6 GB of bf16 params, the tied head's 8.4 GB fp32 copy in
-# the loss and AdamW's state leave no room for a step's activations);
+# K = 2: nemotron-4-15b cut 32 -> 16 layers and command-r-35b cut 40 -> 16
+# (the whole run must end well inside its time limit: every layer of a
+# stack is the same code, and the checks read the last K; command-r's
+# uncut 60.6 GB of bf16 params, the tied head's 8.4 GB fp32 copy in the
+# loss and AdamW's state also leave no room for a step's activations);
 # llama4-scout-17b-a16e cut 48 -> 8 layers with all 16 experts (~108 B
 # params uncut) and SGD, the paper's optimizer (AdamW's fp32 state on one
 # 2.2 B-param layer alone is ~17.6 GB). The cuts pass to the launcher as
 # `model=`; the config files keep the published depths.
 TEXT_ARGV = ["--steps", "6", "--batch", "1", "--seq", "4096"] + MAIN_ARGV[8:]
+NEMOTRON_LAYERS = 16
 NEMOTRON_ARGV = ["--arch", "nemotron-4-15b"] + TEXT_ARGV
-COMMAND_R_LAYERS = 24
+COMMAND_R_LAYERS = 16
 COMMAND_R_ARGV = ["--arch", "command-r-35b"] + TEXT_ARGV
 SCOUT_LAYERS = 8
 SCOUT_J = 2                # the first fixed phase of the llama4-scout run
@@ -2813,6 +2840,14 @@ def phase_jamba_path(results: dict):
     snap.clear()
 
 
+def nemotron_cut():
+    """nemotron-4-15b at published widths cut to NEMOTRON_LAYERS of its 32
+    layers (see NEMOTRON_ARGV)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("nemotron-4-15b"),
+                               num_layers=NEMOTRON_LAYERS)
+
+
 def command_r_cut():
     """command-r-35b at published widths cut to COMMAND_R_LAYERS of its 40
     layers (see COMMAND_R_ARGV)."""
@@ -3968,10 +4003,12 @@ PREFIX_DIR = ROOT / "build" / "prefix_persist"
 
 
 def _prefix_run(tag, arch, argv, cfg, params, mode, moe=False, eng=None,
-                extra=()):
+                extra=(), complete=True, streams=False):
     """One run of `argv` through the serve launcher's `build_engine` (on
     `params`, or on `eng` when given), counts zeroed just before and read
     just after; with `moe` every MoE layer's dropped choices are recorded.
+    Every request completes unless `complete` is False (quarantines);
+    with `streams` every request has a stream callback that keeps nothing.
     Returns (engine, stats, launch counts, dropped share or None)."""
     import argparse
     from repro_torch.kernels import ops
@@ -3982,6 +4019,8 @@ def _prefix_run(tag, arch, argv, cfg, params, mode, moe=False, eng=None,
     if eng is None:
         _, eng = serve.build_engine(args, cfg, params=params)
     reqs = serve.build_requests(args, cfg)
+    for r in reqs if streams else ():
+        r.stream = lambda rid, tok: None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -3993,10 +4032,15 @@ def _prefix_run(tag, arch, argv, cfg, params, mode, moe=False, eng=None,
         drop = float(sum(d for d, _ in routed)) / max(1, sum(
             n for _, n in routed))
     n_new = sum(r.max_new_tokens for r in reqs)
-    check(stats.requests_completed == len(reqs)
-          and stats.tokens_out == n_new,
+    check(not complete or (stats.requests_completed == len(reqs)
+                           and stats.tokens_out == n_new),
           f"{tag} {mode}: {stats.requests_completed} of {len(reqs)} "
           f"completed, {stats.tokens_out} of {n_new} tokens")
+    check(stats.requests_completed + stats.requests_cancelled
+          + stats.quarantined == len(reqs),
+          f"{tag} {mode}: {stats.requests_completed} completed + "
+          f"{stats.requests_cancelled} cancelled + {stats.quarantined} "
+          f"quarantined of {len(reqs)}")
     steps = [t * 1e3 for t in stats.decode_step_s]
     print(f"[{tag}] {mode}: prefill_chunks={stats.prefill_chunks} "
           f"prefix_hit_tokens={stats.prefix_hit_tokens}/"
@@ -4014,7 +4058,27 @@ def _prefix_run(tag, arch, argv, cfg, params, mode, moe=False, eng=None,
           + (f" dropped_share={drop:.4f}" if drop is not None else "")
           + f" launches={ {k: v for k, v in counts.items() if v} } "
           f"[{card_line()}]", flush=True)
+    if eng.chaos is not None or eng._journal is not None \
+            or eng.shed_watermark > 0.0 or eng.watchdog_s is not None:
+        _robust_line(f"{tag} {mode}", stats)
     return eng, stats, counts, drop
+
+
+ROBUST_COUNTS = ("faults_injected", "faults_by_kind", "retries", "sheds",
+                 "quarantined", "tokens_quarantined", "watchdog_kills",
+                 "stream_errors", "journal_replays", "stragglers")
+
+
+def _robust_line(tag, stats):
+    """A run's robustness counts (`ServeStats`), its wall seconds, decode
+    steps and decode-step median, with the card."""
+    steps = [t * 1e3 for t in stats.decode_step_s] or [0.0]
+    print(f"[{tag}] robustness: wall_s={stats.wall_s:.3f} decode_steps="
+          f"{len(stats.decode_step_s)} decode_step_ms_median="
+          f"{statistics.median(steps):.3f} "
+          + " ".join(f"{k}={getattr(stats, k)}" for k in ROBUST_COUNTS)
+          + f" completed={stats.requests_completed} [{card_line()}]",
+          flush=True)
 
 
 def _same_tokens(tag, a, b, what):
@@ -4074,6 +4138,23 @@ def phase_prefix_family(tag, arch, cfg, params, results):
     check(radix.prefill_chunks < off.prefill_chunks,
           f"{tag}: radix prefill chunks {radix.prefill_chunks} not under "
           f"off's {off.prefill_chunks}")
+    if arch == "rwkv6-3b":
+        # phase 25's chaos run: rwkv rows are independent of the batch, so
+        # under 10% faults (masked decode rows, retried chunks) the tokens
+        # are the fault-free off run's, and faults fire before any launch
+        eng, chaos, counts, _ = _prefix_run(
+            tag, arch, PREFIX_ARGV, cfg, params, "off",
+            extra=["--fault-rate", "0.1", "--max-retries", "10"])
+        del eng
+        _wkv_launches(f"{tag} off chaos", chaos, counts, results)
+        _same_tokens(tag, chaos, off, "off under 10% faults against off")
+        check(chaos.faults_injected > 0, f"{tag}: no fault fired at 10%")
+        print(f"[{tag}] chaos: tokens == the fault-free off run's; "
+              f"{chaos.faults_injected} faults {chaos.faults_by_kind}, "
+              f"{chaos.retries} retries, decode steps "
+              f"{len(chaos.decode_step_s)} vs {len(off.decode_step_s)}, "
+              f"wall_s {chaos.wall_s:.3f} vs {off.wall_s:.3f} "
+              f"[{card_line()}]", flush=True)
     if D.has_state_layers(cfg):
         check(radix.snapshot_hits > 0, f"{tag}: no snapshot hit")
     else:
@@ -4118,6 +4199,7 @@ def phase_prefix(results: dict):
         runs[mode] = (eng, stats)
     off, chain = runs["off"][1], runs["chain"][1]
     eng, radix = runs["radix"]
+    longest = max(max(st.decode_step_s) for _, st in runs.values())
     _same_tokens(tag, chain, off, "chain against off")
     _same_tokens(tag, radix, off, "radix against off")
     check(radix.prefix_hit_tokens > 0, f"{tag}: radix had no prefix hit")
@@ -4216,6 +4298,176 @@ def phase_prefix(results: dict):
           f"{off.prefill_chunks}; branching wave 1 spills "
           f"{waves[0].spills}, wave 2 rehydrates {waves[1].rehydrates}, "
           f"both waves' tokens those of chain and off", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, params, off, radix, longest
+
+
+ROBUST_DIR = ROOT / "build" / "robust"
+
+
+def phase_robust(results: dict, cfg, params, off, radix, longest: float):
+    """Phase 29: serving robustness on phase 28's copy of full-width
+    llama3-8b (bf16, 4 slots, pages of 16), its shared-prefix workload
+    and its fault-free off and radix tokens as the reference. (a) 10%
+    faults under radix: radix's tokens, faults of every kind retried. (b)
+    a poison rid: with 2 retries quarantined after 3, the other 7 with
+    their tokens; then on that warmed engine an endless retry budget and
+    the watchdog at 10 x the longest decode step of phase 28 (3 s at
+    least) quarantines it. (c) a 0.5 free-page watermark, off, 40 pages:
+    sheds, off's tokens. (d) a crash after 2 completions with a journal
+    and --prefix-persist under build/ (deleted after): a fresh engine
+    replays what was in flight with radix's tokens and prefix hits, a
+    third replays nothing. (e) run B (2 users, online waves) under 10%
+    faults: every request accounted for, a wave per completed request,
+    each wave's launches exactly phase 13's (added to the kernels line).
+    Frees the model."""
+    import argparse
+    import shutil
+    from repro_torch.launch import serve
+    from repro_torch.runtime import FaultSchedule, InjectedCrash
+    tag = "robust llama3-8b"
+    arch = "llama3-8b"
+    print(f"[{tag}] phase 28's weights and shared-prefix workload; the "
+          f"longest decode step of phase 28 {longest * 1e3:.3f} ms "
+          f"[{card_line()}]", flush=True)
+    t0 = time.perf_counter()
+    faults = ["--fault-rate", "0.1", "--max-retries", "10"]
+
+    # (a) 10% faults under radix
+    eng, st, counts, _ = _prefix_run(f"{tag} (a)", arch, PREFIX_ARGV, cfg,
+                                     params, "radix", extra=faults,
+                                     streams=True)
+    del eng
+    _no_port_kernel(f"{tag} (a)", st, counts)
+    _same_tokens(f"{tag} (a)", st, radix, "10% faults against radix")
+    check(st.faults_injected > 0 and st.retries > 0
+          and st.requests_completed == 8,
+          f"{tag} (a): {st.faults_injected} faults, {st.retries} retries, "
+          f"{st.requests_completed} completed")
+    check(set(st.faults_by_kind) == {"alloc", "step", "slow", "stream"},
+          f"{tag} (a): fault kinds {st.faults_by_kind}")
+
+    # (b) a poison rid: quarantined after max_retries + 1 faults
+    poison = 5
+    args = serve.add_serve_args(argparse.ArgumentParser()).parse_args(
+        ["--arch", arch] + PREFIX_ARGV + ["--prefix-mode", "radix",
+                                          "--max-retries", "2"])
+    _, eng = serve.build_engine(args, cfg, params=params)
+    eng.chaos = FaultSchedule(0, poison_rids={poison})
+    eng, st, counts, _ = _prefix_run(f"{tag} (b) poison", arch, PREFIX_ARGV,
+                                     cfg, params, "radix", eng=eng,
+                                     complete=False)
+    _no_port_kernel(f"{tag} (b)", st, counts)
+    check(st.quarantined == 1 and st.retries == 3
+          and st.results[poison].status == "quarantined"
+          and st.requests_completed == 7,
+          f"{tag} (b): quarantined {st.quarantined}, retries {st.retries}, "
+          f"completed {st.requests_completed}")
+    want = {k: r.tokens for k, r in radix.results.items() if k != poison}
+    got = {k: r.tokens for k, r in st.results.items() if k != poison}
+    check(got == want, f"{tag} (b): the other 7 requests' tokens differ")
+    # the engine is warm: an endless retry budget, the watchdog armed
+    watchdog = max(3.0, 10 * longest)
+    eng.max_retries = 10 ** 6
+    eng.chaos = FaultSchedule(0, poison_rids={poison})
+    eng.watchdog_s = watchdog
+    eng, st, counts, _ = _prefix_run(f"{tag} (b) watchdog {watchdog:.3f} s",
+                                     arch, PREFIX_ARGV, cfg, params,
+                                     "radix", eng=eng, complete=False)
+    del eng
+    check(st.watchdog_kills >= 1
+          and st.results[poison].status == "quarantined"
+          and st.requests_completed == 7,
+          f"{tag} (b): watchdog kills {st.watchdog_kills}, completed "
+          f"{st.requests_completed}")
+    got = {k: r.tokens for k, r in st.results.items() if k != poison}
+    check(got == want, f"{tag} (b) watchdog: the other 7 requests' tokens "
+                       f"differ")
+
+    # (c) load shedding: 40 pages (4 x 10), a 0.5 watermark, off
+    eng, st, counts, _ = _prefix_run(
+        f"{tag} (c)", arch, PREFIX_ARGV, cfg, params, "off",
+        extra=["--shed-watermark", "0.5", "--num-pages", "40"])
+    del eng
+    check(st.sheds > 0, f"{tag} (c): no request shed")
+    _same_tokens(f"{tag} (c)", st, off, "shed against off")
+
+    # (d) a crash after 2 completions, then replay from the journal
+    shutil.rmtree(ROBUST_DIR, ignore_errors=True)
+    keep = ["--journal", str(ROBUST_DIR / "journal.jsonl"),
+            "--prefix-persist", str(ROBUST_DIR / "persist")]
+    try:
+        args = serve.add_serve_args(argparse.ArgumentParser()).parse_args(
+            ["--arch", arch] + PREFIX_ARGV + ["--prefix-mode", "radix",
+                                              "--kill-after", "2"] + keep)
+        _, eng = serve.build_engine(args, cfg, params=params)
+        crashed = False
+        try:
+            eng.run(serve.build_requests(args, cfg))
+        except InjectedCrash as e:
+            crashed = True
+            print(f"[{tag} (d)] {e}", flush=True)
+        check(crashed, f"{tag} (d): the run did not crash")
+        eng._journal.close()
+        del eng
+        args = serve.add_serve_args(argparse.ArgumentParser()).parse_args(
+            ["--arch", arch] + PREFIX_ARGV + ["--prefix-mode", "radix"]
+            + keep)
+        _, eng = serve.build_engine(args, cfg, params=params)
+        pending = eng.recover_requests()
+        check(pending, f"{tag} (d): nothing to replay after the crash")
+        t1 = time.perf_counter()
+        st = eng.run(pending)
+        replay_s = time.perf_counter() - t1
+        _robust_line(f"{tag} (d) replay", st)
+        check(st.requests_completed == len(pending)
+              and st.journal_replays == len(pending)
+              and st.prefix_hit_tokens > 0,
+              f"{tag} (d): {st.requests_completed} completed, "
+              f"{st.journal_replays} replays of {len(pending)}, "
+              f"{st.prefix_hit_tokens} prefix hit tokens")
+        for rid, r in st.results.items():
+            check(r.tokens == radix.results[rid].tokens,
+                  f"{tag} (d): replayed request {rid} differs from radix")
+        eng._journal.close()
+        del eng
+        _, eng = serve.build_engine(args, cfg, params=params)
+        check(eng.recover_requests() == [],
+              f"{tag} (d): a third engine found requests to replay")
+        eng._journal.close()
+        del eng
+        print(f"[{tag} (d)] crash after 2 completions, {len(pending)} "
+              f"replayed in {replay_s:.3f} s with {st.prefix_hit_tokens} "
+              f"prefix hit tokens, {st.rehydrates} rehydrates, "
+              f"{st.prefill_chunks} prefill chunks; radix's tokens "
+              f"[{card_line()}]", flush=True)
+    finally:
+        shutil.rmtree(ROBUST_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) run B under 10% faults: waves follow the completions
+    eng, st, counts, _ = _prefix_run(
+        f"{tag} (e) run B", arch, SERVE_ARGV[2:], cfg, params, "off",
+        extra=["--users", "2"] + faults, complete=False)
+    del eng
+    users = st.requests_completed     # every request has a user
+    check(st.train_waves == users,
+          f"{tag} (e): {st.train_waves} waves, {users} completed")
+    for name, per_wave in WAVE_LAUNCHES.items():
+        check(counts[name] == st.train_waves * per_wave,
+              f"{tag} (e): {counts[name]} {name} launches, want "
+              f"{st.train_waves} x {per_wave}")
+    check(sum(counts.values()) == sum(counts[n] for n in WAVE_LAUNCHES),
+          f"{tag} (e): another port kernel launched: {counts}")
+    check(st.faults_injected > 0, f"{tag} (e): no fault fired at 10%")
+    _add_launches(results, {n: counts[n] for n in WAVE_LAUNCHES})
+    print(f"[{tag}] checks passed in {time.perf_counter() - t0:.1f} s: "
+          f"tokens under faults, poison, watchdog and shedding those of "
+          f"radix / off; the crash replayed warm; run B under faults "
+          f"{st.train_waves} waves of 7 / 14 / 7 launches "
+          f"[{card_line()}]", flush=True)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4400,8 +4652,10 @@ def kernels_line(results: dict) -> dict:
     the MoE path's run (6 steps; batched_dw), the rwkv path's run (6 steps;
     wkv6, wkv6_bwd), the CNN path's run (12 steps of `dynamic`) and
     serving run B (8 waves; block_scatter_update), plus rwkv6-3b's serving
-    runs (phase 25: plain, and the shared-prefix workload off and radix;
-    wkv6), plus the gemma path's
+    runs (phase 25: plain, and the shared-prefix workload off, radix and
+    off under 10% faults; wkv6), plus run B under 10% faults (phase 29e;
+    block_sparse_dw, fused_block_opt, block_scatter_update), plus the
+    gemma path's
     (6 steps; block_sparse_dw, fused_block_opt), the jamba path's (6
     steps; block_sparse_dw, batched_dw, fused_block_opt) and the train_4k,
     nemotron, command-r, llama4-scout, musicgen-medium and qwen2-vl-7b
@@ -4527,14 +4781,17 @@ def main() -> int:
     phase_prefill()
     print(f"[chip_smoke] prefill phases done at "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
-    phase_text_arch(results, "nemotron", NEMOTRON_ARGV, "blocks/mlp/w_up")
-    phase_compact_vs_dense(get_config("nemotron-4-15b"),
-                           "nemotron-compact-vs-dense", batch=1, seq=4096)
+    phase_text_arch(results, "nemotron", NEMOTRON_ARGV, "blocks/mlp/w_up",
+                    model=nemotron_cut(),
+                    cut=f"cut 32 -> {NEMOTRON_LAYERS}: the run's time limit")
+    phase_compact_vs_dense(nemotron_cut(), "nemotron-compact-vs-dense",
+                           batch=1, seq=4096)
     phase_text_arch(results, "command-r", COMMAND_R_ARGV, "blocks/mlp/w_gate",
                     model=command_r_cut(),
                     cut=f"cut 40 -> {COMMAND_R_LAYERS}: the uncut bf16 "
                         f"params, the tied head's fp32 copy and AdamW's "
-                        f"state leave no room for a step")
+                        f"state leave no room for a step; 16 for the "
+                        f"run's time limit")
     phase_compact_vs_dense(command_r_cut(), "command-r-compact-vs-dense",
                            batch=1, seq=4096, one_at_a_time=True)
     phase_text_arch(results, "scout", SCOUT_ARGV, "blocks/attn/wo",
@@ -4561,9 +4818,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     for phase in (phase_serve_gemma, phase_serve_rwkv, phase_serve_moe,
                   phase_flash_decode, phase_prefix):
-        phase(results)
+        held = phase(results)
         print(f"[chip_smoke] {phase.__name__} done at "
               f"{time.perf_counter() - t0:.0f} s", flush=True)
+    # phase 29 on phase 28's copy of the weights
+    phase_robust(results, *held)
+    del held
+    print(f"[chip_smoke] phase_robust done at {time.perf_counter() - t0:.0f}"
+          f" s", flush=True)
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t0:.0f} s",
           flush=True)
     # again at the end, beside the numbers: a log cut to its tail keeps it

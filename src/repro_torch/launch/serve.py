@@ -18,11 +18,20 @@ an online train wave when the user's request completes. Reported counts
 cover COMPLETED requests only. Runs on the card (`--device cuda`, the
 default) or on the CPU (`--device cpu`, smoke configs).
 
+Robustness: `--fault-rate R` injects seeded page-alloc, step, stream and
+slow faults (`--chaos-seed`, `--chaos-slow-s`; a faulted request retries
+up to `--max-retries` times, then is quarantined), `--watchdog-s`
+quarantines a request that stops progressing, `--shed-watermark` defers
+admission under a free-page watermark, `--journal FILE` records every
+admission and completion, and `--kill-after N` crashes the engine after N
+completions (a restart with the same `--journal` and `--prefix-persist`
+replays what was in flight). The `[serve] chaos:` line prints the counts.
+
 Every registered LM arch serves through `--arch` (dense, sliding-window,
 MoE, mamba / attention hybrid and rwkv layers; the audio and vlm archs
 with placeholder prompt embeddings). The flags are the reference
-launcher's; the flags of the features still to port raise with the
-ROADMAP item that brings them rather than being ignored.
+launcher's; `--mesh-model > 1` (sharded serving) raises with the ROADMAP
+item that brings it rather than being ignored.
 """
 from __future__ import annotations
 
@@ -33,19 +42,14 @@ import torch
 from repro_torch.configs import (OptimizerConfig, SparseUpdateConfig,
                                  get_config, get_smoke_config)
 from repro_torch.models import transformer as T
+from repro_torch.runtime.chaos import FaultSchedule
 from repro_torch.serve import (PersonalizationConfig, ServeEngine,
                                make_branching_prefix_requests,
                                make_random_requests,
                                make_shared_prefix_requests)
 
-_A13B = "ROADMAP queue A item 13b"
 # flag -> (is it set?, the ROADMAP item that brings it)
 _REFUSED = {
-    "--fault-rate > 0": (lambda a: a.fault_rate > 0.0, _A13B),
-    "--kill-after": (lambda a: a.kill_after is not None, _A13B),
-    "--journal": (lambda a: a.journal is not None, _A13B),
-    "--watchdog-s": (lambda a: a.watchdog_s is not None, _A13B),
-    "--shed-watermark > 0": (lambda a: a.shed_watermark > 0.0, _A13B),
     "--mesh-model > 1": (lambda a: a.mesh_model > 1,
                          "ROADMAP queue A item 14"),
 }
@@ -83,6 +87,11 @@ def build_engine(args, cfg=None, params=None):
                                       learning_rate=args.personalize_lr),
             store_capacity=args.delta_capacity,
             train_tokens=args.train_tokens, seed=args.seed)
+    chaos = None
+    if args.fault_rate > 0.0 or args.kill_after is not None:
+        chaos = FaultSchedule(args.chaos_seed, fault_rate=args.fault_rate,
+                              slow_s=args.chaos_slow_s,
+                              kill_after=args.kill_after)
     engine = ServeEngine(
         cfg, params, num_slots=args.batch,
         max_len=args.prompt_len + args.gen_len,
@@ -90,7 +99,10 @@ def build_engine(args, cfg=None, params=None):
         page_size=args.page_size, num_pages=args.num_pages,
         prefix_sharing=not args.no_prefix_sharing,
         prefix_mode=args.prefix_mode, prefix_persist=args.prefix_persist,
-        personalization=p13n, flash_decode=args.flash_decode)
+        personalization=p13n,
+        chaos=chaos, max_retries=args.max_retries,
+        shed_watermark=args.shed_watermark, watchdog_s=args.watchdog_s,
+        journal=args.journal, flash_decode=args.flash_decode)
     return cfg, engine
 
 
@@ -171,23 +183,28 @@ def add_serve_args(ap: argparse.ArgumentParser):
     ap.add_argument("--delta-capacity", type=int, default=32,
                     help="max resident per-user deltas (hard LRU bound)")
     ap.add_argument("--fault-rate", type=float, default=0.0,
-                    help="chaos injection (not ported yet: "
-                         "item 13b)")
-    ap.add_argument("--chaos-seed", type=int, default=0)
-    ap.add_argument("--chaos-slow-s", type=float, default=0.002)
-    ap.add_argument("--max-retries", type=int, default=3)
+                    help="> 0: deterministic chaos injection, the per-draw "
+                         "probability of page-alloc / step / stream / slow "
+                         "faults (runtime/chaos.py)")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="fault-schedule seed: same seed, same faults")
+    ap.add_argument("--chaos-slow-s", type=float, default=0.002,
+                    help="injected straggler delay per slow fault")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="transient faults absorbed per request before it "
+                         "is quarantined")
     ap.add_argument("--shed-watermark", type=float, default=0.0,
-                    help="load shedding (not ported yet: "
-                         "item 13b)")
+                    help="> 0: defer admission when free pages would drop "
+                         "below this fraction of the pool")
     ap.add_argument("--watchdog-s", type=float, default=None,
-                    help="hung-request watchdog (not ported yet: "
-                         "item 13b)")
+                    help="quarantine a request making no progress for this "
+                         "many seconds")
     ap.add_argument("--journal", type=str, default=None,
-                    help="request-lifecycle journal (not ported yet: "
-                         "item 13b)")
+                    help="request-lifecycle journal file: admitted but "
+                         "unfinished requests are replayed after a restart")
     ap.add_argument("--kill-after", type=int, default=None,
-                    help="injected crash (not ported yet: "
-                         "item 13b)")
+                    help="inject a hard crash after N completed requests "
+                         "(exercises journal replay and prefix persistence)")
     ap.add_argument("--mesh-model", type=int, default=1,
                     help="> 1: sharded serving (not ported yet)")
     ap.add_argument("--flash-decode", action="store_true",
@@ -220,6 +237,15 @@ def main(argv=None):
               f"({stats.snapshots_stored} stored), "
               f"{stats.spills} spills / {stats.rehydrates} rehydrates, "
               f"{stats.spill_entries} tier entries")
+    if args.fault_rate > 0.0 or args.kill_after is not None \
+            or args.journal is not None:
+        print(f"[serve] chaos: {stats.faults_injected} faults injected "
+              f"{dict(stats.faults_by_kind)}, {stats.retries} retries, "
+              f"{stats.sheds} sheds, {stats.quarantined} quarantined, "
+              f"{stats.watchdog_kills} watchdog kills, "
+              f"{stats.stream_errors} stream errors, "
+              f"{stats.journal_replays} journal replays, "
+              f"{stats.stragglers} straggler waves")
     if args.users > 0:
         print(f"[serve] personalization: {args.users} users, "
               f"{stats.train_waves} train waves "

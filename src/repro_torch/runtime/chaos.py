@@ -1,9 +1,8 @@
 """Deterministic chaos engineering for the serve stack: seeded fault
 schedules, injected failures, and simulated crashes. The port's own copy of
-the reference package's `runtime/chaos.py`; in the port only the checkpoint
-manager draws from it so far (``torn``), and the radix cache's rehydrate
-absorbs its ``InjectedFault``; the serve engine's injection points come with
-ROADMAP queue A item 13b.
+the reference package's `runtime/chaos.py`: the same draws for the same
+seed, rates, ``poison_rids``, ``max_faults`` and ``kill_after``, so a
+schedule replays the same faults in either package's serve engine.
 
 The paper's premise is surviving hard resource limits — skipped gradient
 work, 256KB budgets — and the serve engine inherits the same discipline:

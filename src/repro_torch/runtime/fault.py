@@ -20,9 +20,9 @@ Single-controller implementations with multi-host-shaped interfaces:
 
 This module covers the TRAIN loop. ``runtime/chaos.py`` holds the seeded,
 deterministic fault schedule; the port's checkpoint manager draws its
-``torn`` writes from it. The serve engine's injection points, retries,
-quarantine, load shedding and request journal come with ROADMAP queue A
-item 13b.
+``torn`` writes from it, and the serve engine its page-alloc, step, slow
+and stream faults (`serve/engine.py`, which also feeds a
+``StragglerMonitor`` the time of every engine iteration that ran a step).
 
 `step_fn` is timed with the host clock: on the card it should return only
 after its work is done (synchronize inside it), or the straggler monitor

@@ -34,14 +34,21 @@ Prefix reuse (``paging.RadixPrefixCache``, the default; the
 copy-on-write, ring and recurrent-state families restore a snapshot at the
 deepest shared page boundary, and evicted prefixes spill to a host
 ``SpillTier`` that outlives a run and, with ``prefix_persist``, a restart.
-The request journal and chaos injection come with ROADMAP queue A item
-13b.
+
+Robustness (``runtime/chaos.py``): a seeded ``FaultSchedule`` fails page
+allocations, steps and stream callbacks on a replayable schedule, always
+before any launch or pool mutation, so faults delay requests but never
+change their tokens; a faulted slot retries with capped backoff, a poison
+or hung request is quarantined, admission sheds load under a free-page
+watermark, and the ``RequestJournal`` (``journal.py``) lets a restarted
+engine replay the requests a crash left in flight.
 """
 from repro_torch.serve.deltas import DeltaStore, PersonalizationConfig
 from repro_torch.serve.engine import (RequestResult, ServeEngine, ServeStats,
                                       make_branching_prefix_requests,
                                       make_random_requests,
                                       make_shared_prefix_requests)
+from repro_torch.serve.journal import RequestJournal
 from repro_torch.serve.paging import (ChainPrefixCache, MatchResult,
                                       PagePool, RadixPrefixCache, SpillTier)
 from repro_torch.serve.sampling import sample_token
@@ -49,7 +56,8 @@ from repro_torch.serve.scheduler import Request, Scheduler, Slot, SlotState
 
 __all__ = [
     "ChainPrefixCache", "DeltaStore", "MatchResult", "PagePool",
-    "PersonalizationConfig", "RadixPrefixCache", "Request", "RequestResult",
+    "PersonalizationConfig", "RadixPrefixCache", "Request", "RequestJournal",
+    "RequestResult",
     "Scheduler", "ServeEngine", "ServeStats", "Slot", "SlotState",
     "SpillTier", "make_branching_prefix_requests", "make_random_requests",
     "make_shared_prefix_requests", "sample_token",

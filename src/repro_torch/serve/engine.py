@@ -50,9 +50,34 @@ keep only state (rwkv) allocates no pages at all. `flash_decode=True` takes
 the paged layers' softmax page by page (the flash-decoding split); it is
 off by default, as the reference's single-device engine has it.
 
-The reference's robustness features are refused with the ROADMAP item
-that brings them: chaos injection, the request journal, the watchdog and
-load shedding (queue A item 13b), and sharded serving (item 14).
+Robustness (``runtime/chaos.py`` is the serve-side fault story):
+
+- *Deterministic fault injection*: a seeded ``FaultSchedule`` makes page
+  allocations, prefill / decode steps and stream callbacks fail (or run
+  slow) on a replayable schedule. Step faults fire BEFORE the step and
+  alloc faults before any pool mutation, so every injected failure is
+  retryable without state repair: under greedy decoding, faults change
+  latency and counters, never served tokens. A copy-on-write split copies
+  its page's rows in place before the next allocation can fault, so a
+  retried chunk finds the split page whole.
+- *Graceful degradation*: a faulted slot retries with capped exponential
+  backoff (its batch row is masked out, its state kept bit for bit); a
+  request that exhausts ``max_retries``, or trips the hung-request
+  watchdog, is closed as "quarantined", so one poison request never
+  wedges a slot; admission sheds (defers) load when free pages would drop
+  below ``shed_watermark``; stream-callback exceptions are absorbed; every
+  engine iteration that ran a step feeds a ``StragglerMonitor``. Only
+  ``InjectedFault`` is retried: a real error (a failed launch, a kernel
+  that did not build) propagates.
+- *Crash safety*: with ``journal=...`` every admission and completion is
+  fsynced to an append-only request journal (``serve/journal.py``);
+  ``recover_requests()`` on a restarted engine replays the requests left
+  in flight, and the prefix spill tier (flushed on a clean exit and on
+  the crash unwind) turns their prefill into prefix and snapshot hits.
+  ``InjectedCrash`` (``kill_after``) simulates the hard kill end to end.
+
+Sharded serving (``rules=``) is refused with the ROADMAP item that brings
+it (queue A item 14).
 
 Embedding-input archs (musicgen, qwen2-vl): a request carries its prompt
 as `embeds` [prompt_len, d_model], and each decode step feeds every slot a
@@ -83,18 +108,18 @@ from repro_torch.checkpoint.manager import (CheckpointCorruptError,
 from repro_torch.core.sparse_update import SelSpec, tree_leaves, tree_map
 from repro_torch.models import decoding as D
 from repro_torch.models.transformer import dtype_of
+from repro_torch.runtime.chaos import FaultKind, InjectedCrash, InjectedFault
+from repro_torch.runtime.fault import StragglerMonitor
 from repro_torch.serve.deltas import DeltaStore, PersonalizationConfig
+from repro_torch.serve.journal import RequestJournal
 from repro_torch.serve.paging import (ChainPrefixCache, PagePool,
                                       RadixPrefixCache, SpillTier)
 from repro_torch.serve.sampling import sample_token
-from repro_torch.serve.scheduler import Request, Scheduler, Slot
+from repro_torch.serve.scheduler import Request, Scheduler, Slot, SlotState
 
 __all__ = ["RequestResult", "ServeEngine", "ServeStats",
            "make_random_requests", "make_shared_prefix_requests",
            "make_branching_prefix_requests"]
-
-_A13B = "ROADMAP queue A item 13b"
-
 
 def _graft_like(tpl, blob):
     """Re-attach the empty subtrees that checkpoint serialization drops:
@@ -117,7 +142,7 @@ class RequestResult:
     rid: int
     tokens: list            # sampled token ids, in order
     latency_s: float        # submit -> completion (includes queueing)
-    status: str = "completed"   # completed | cancelled
+    status: str = "completed"   # completed | cancelled | quarantined
 
 
 @dataclasses.dataclass
@@ -157,6 +182,17 @@ class ServeStats:
     train_wave_s: float = 0.0       # wall time spent in train waves
     wave_losses: list = dataclasses.field(default_factory=list)
     # (user, pre-update loss) per wave, in wave order
+    # robustness / chaos (all zero without a FaultSchedule / journal)
+    faults_injected: int = 0        # chaos draws that fired during this run
+    faults_by_kind: dict = dataclasses.field(default_factory=dict)
+    retries: int = 0                # transient faults absorbed by backoff
+    sheds: int = 0                  # requests deferred by the load-shed watermark
+    quarantined: int = 0            # requests closed as poison
+    tokens_quarantined: int = 0
+    watchdog_kills: int = 0         # quarantines from the hung-request watchdog
+    stream_errors: int = 0          # stream-callback exceptions absorbed
+    journal_replays: int = 0        # re-admissions recovered from the journal
+    stragglers: int = 0             # engine iterations flagged as stragglers
     # phase-split throughput: wall time inside the step (synchronized) and
     # tokens processed, prefill vs decode
     prefill_s: float = 0.0
@@ -216,25 +252,43 @@ class ServeEngine:
                  spill_entries: int = 4096, snapshot_budget: int = 256,
                  max_tree_nodes: int = 4096,
                  personalization: Optional[PersonalizationConfig] = None,
-                 chaos=None, shed_watermark: float = 0.0,
-                 watchdog_s: Optional[float] = None, journal=None,
+                 chaos=None, max_retries: int = 3,
+                 retry_backoff_s: float = 0.005,
+                 retry_backoff_cap_s: float = 0.1,
+                 shed_watermark: float = 0.0,
+                 watchdog_s: Optional[float] = None,
+                 journal=None, straggler_factor: float = 2.5,
                  rules=None, flash_decode: Optional[bool] = None):
         assert num_slots >= 1 and max_len >= 2 and page_size >= 1
         assert prefix_mode in ("radix", "chain", "off")
+        assert max_retries >= 0 and 0.0 <= shed_watermark < 1.0
         if personalization is not None and cfg.embed_inputs:
             raise ValueError("personalization trains on token streams; "
                              "embed-input frontends have none")
-        for what, given in (("chaos (fault injection)", chaos is not None),
-                            ("shed_watermark > 0", shed_watermark > 0.0),
-                            ("watchdog_s", watchdog_s is not None),
-                            ("journal", journal is not None)):
-            if given:
-                _refuse(what, _A13B)
         if rules is not None:
             _refuse("sharded serving (rules)", "ROADMAP queue A item 14")
+        # robustness knobs (the module docstring's Robustness section);
+        # `chaos` is a runtime.chaos.FaultSchedule or None: every injection
+        # point is gated on it, so a chaos-free engine runs the fault-free
+        # code path
+        self.chaos = chaos
+        self.max_retries = max_retries
+        self.retry_backoff_s = float(retry_backoff_s)
+        self.retry_backoff_cap_s = float(retry_backoff_cap_s)
+        self.shed_watermark = float(shed_watermark)
+        self.watchdog_s = watchdog_s
+        self._straggler_factor = straggler_factor
+        self._journal = RequestJournal(journal) if isinstance(journal, str) \
+            else journal
+        self._stream_errors = 0
         self.cfg = cfg
         self.params = params
         self.device = tree_leaves(params)[0].device
+        if watchdog_s is not None and self.device.type == "cuda":
+            # nvcc builds a kernel at its first use (~8 s a source): build
+            # them now, or a fresh process's first steps would look hung
+            from repro_torch.kernels import build
+            build.build_all()
         self.num_slots = num_slots
         self.max_len = max_len
         self.page_size = page_size
@@ -569,6 +623,53 @@ class ServeEngine:
             save_spill_tier(self._persist_path, self._spill,
                             meta=self._persist_meta())
 
+    # -- robustness --------------------------------------------------------
+
+    def _transient_fault(self, slot: Slot) -> bool:
+        """Absorb one transient fault on `slot`'s request: count the retry
+        and schedule capped exponential backoff. Returns True when the
+        retry budget is exhausted: the caller quarantines the request, so
+        a poison request can never wedge the slot forever."""
+        slot.retries += 1
+        self._retry_events += 1
+        if slot.retries > self.max_retries:
+            return True
+        back = min(self.retry_backoff_cap_s,
+                   self.retry_backoff_s * (2 ** (slot.retries - 1)))
+        slot.retry_at = time.perf_counter() + back
+        return False
+
+    def _wrap_stream(self, req: Request):
+        """Guard a request's stream callback: injected stream faults AND
+        exceptions the callback raises are absorbed (counted in
+        `stream_errors`, treated as "keep generating"): a broken client
+        degrades its own stream, it never crashes the engine or changes
+        the served tokens. Returning False still cancels."""
+        inner = req.stream
+        if inner is None or getattr(inner, "_chaos_guarded", False):
+            return inner
+
+        def guarded(rid, tok):
+            try:
+                if self.chaos is not None:
+                    self.chaos.maybe_raise(FaultKind.STREAM, site=rid)
+                return inner(rid, tok)
+            except Exception:
+                self._stream_errors += 1
+                return None
+        guarded._chaos_guarded = True
+        return guarded
+
+    def recover_requests(self) -> list[Request]:
+        """In-flight requests from the journal: admitted by a previous
+        (crashed) engine, never completed. Feed them back through `run()`;
+        with `prefix_persist` their already-prefilled pages come back as
+        prefix and snapshot hits instead of recomputation. [] when the
+        engine has no journal."""
+        if self._journal is None:
+            return []
+        return self._journal.pending_requests()
+
     # -- serve loop --------------------------------------------------------
 
     def run(self, requests: list[Request],
@@ -576,9 +677,10 @@ class ServeEngine:
         try:
             return self._run(requests, verbose)
         except BaseException:
-            # a failed run still flushes the radix tree to the spill tier
-            # (and disk, with prefix_persist), so a restarted engine finds
-            # a warm prefix cache instead of a cold one
+            # a failed run, InjectedCrash included (no `except Exception`
+            # can swallow it), still flushes the radix tree to the spill
+            # tier (and disk, with prefix_persist), so a restarted engine
+            # replays journaled requests against a warm prefix cache
             self._persist_prefix_state()
             raise
 
@@ -597,8 +699,22 @@ class ServeEngine:
                 f"request {r.rid} needs {self._pages_needed(r)} pages; "
                 f"pool has {self.num_pages}")
         sched = Scheduler(self.num_slots, eos_id=self.eos_id)
+        # rids journaled by a previous (crashed) engine and admitted again
+        # in this run count as journal replays
+        replay_rids = (self._journal.pending_rids()
+                       if self._journal is not None else set())
         for r in requests:
+            r.stream = self._wrap_stream(r)
             sched.submit(r)
+        chaos = self.chaos
+        faults0 = chaos.faults_injected if chaos is not None else 0
+        kinds0 = dict(chaos.faults_by_kind) if chaos is not None else {}
+        self._retry_events = 0
+        self._stream_errors = 0
+        self._watchdog_kills = 0
+        journal_replays = 0
+        shed_rids: set[int] = set()
+        mon = StragglerMonitor(factor=self._straggler_factor)
         self._prefill_s = self._decode_s = 0.0
         self._prefill_tokens = self._decode_tokens = 0
         decode_step_s = []
@@ -607,7 +723,8 @@ class ServeEngine:
             self.cfg, self.num_slots, self.max_len, max(1, self.num_pages),
             self.page_size, device=self.device)
         self._pt = np.full((self.num_slots, self.max_pages), -1, np.int32)
-        self._pool = PagePool(max(1, self.num_pages), self.page_size)
+        self._pool = PagePool(max(1, self.num_pages), self.page_size,
+                              chaos=chaos)
         if self.prefix_mode == "radix":
             self._cache = RadixPrefixCache(
                 self._pool, has_pages=self.has_pages,
@@ -641,18 +758,43 @@ class ServeEngine:
                 req.rid, list(slot.out_tokens),
                 time.perf_counter() - t0, status)
             self._release_slot(slot)
+            if self._journal is not None:
+                self._journal.done(req.rid, status)
+            # the injected crash fires AFTER the journal records this
+            # request done and its slot is released: the completed request
+            # is never replayed, and the pool's accounting stays whole for
+            # the crash unwind's prefix flush
+            if chaos is not None and status == "completed" \
+                    and chaos.crash_due(sched.requests_completed):
+                raise InjectedCrash(
+                    f"injected crash after {sched.requests_completed} "
+                    f"completed request(s)")
             if verbose and status == "completed":
                 print(f"[serve] completed {sched.requests_completed}"
                       f"/{len(requests)} requests", flush=True)
 
+        it_prev, it_work = None, False
         while not sched.done:
             now = time.perf_counter()
-            # 1) deadlines: cancel overdue slots, drop overdue queued ones
+            # the straggler record: only iterations that ran a step count
+            # (idle and backoff spins are sub-ms and would drag the median
+            # down until every real iteration looked like a straggler)
+            if it_prev is not None and it_work:
+                mon.record(now - it_prev)
+            it_prev, it_work = now, False
+            # 1) deadlines: cancel overdue slots, drop overdue queued ones;
+            # the watchdog quarantines slots that stopped progressing
             for slot in sched.live_slots():
                 dl = deadline[slot.request.rid]
                 if dl is not None and now > dl:
                     sched.cancel(slot)
                     close(slot, "cancelled")
+                    continue
+                if (self.watchdog_s is not None
+                        and now - slot.last_progress > self.watchdog_s):
+                    self._watchdog_kills += 1
+                    sched.quarantine(slot)
+                    close(slot, "quarantined")
             for req in [q for q in sched.queue
                         if deadline[q.rid] is not None
                         and now > deadline[q.rid]]:
@@ -680,18 +822,39 @@ class ServeEngine:
                     matched[-1][1] < self.page_size
                 need = self._pages_needed(req) - len(matched) \
                     + int(has_partial)
-                if self.has_pages and self._headroom(sched) < need:
+                pressure = self.has_pages and self._headroom(sched) < need
+                # load shedding: admitting would drop free pages below the
+                # watermark, so defer while anything is in flight. The shed
+                # request stays queued and keeps ticking toward its own
+                # timeout_s (the queued-deadline drop above accounts for
+                # it): never silently dropped
+                shed = (not pressure and self.has_pages
+                        and self.shed_watermark > 0.0
+                        and bool(sched.live_slots())
+                        and self._headroom(sched) - need
+                        < self.shed_watermark * self.num_pages)
+                if pressure or shed:
                     if mr is not None:              # roll the match back
                         self._cache.abandon(mr, req.prompt_len)
                         mr, matched, covered = None, [], 0
                     if sched.live_slots():
+                        if shed:
+                            shed_rids.add(req.rid)  # counted once per rid
                         break   # retry when an in-flight request frees pages
                     # nothing in flight will ever free pages: admit WITHOUT
                     # sharing. With no live slot every cache page is
                     # evictable, so pages_needed <= num_pages always fits
+                    # (the watermark never blocks this path: a degraded
+                    # trickle of admissions beats a deadlock)
                     assert self._headroom(sched) >= self._pages_needed(req)
                     has_partial = False
                 sched.commit_admission(slot, prefilled=covered)
+                slot.last_progress = time.perf_counter()
+                if self._journal is not None:
+                    if req.rid in replay_rids:
+                        journal_replays += 1
+                        replay_rids.discard(req.rid)
+                    self._journal.admit(req)
                 slot.match = mr     # pinned until the slot closes
                 slot.page_ids = [pid for pid, _ in matched]
                 slot.registered_pages = len(matched) - int(has_partial)
@@ -717,67 +880,89 @@ class ServeEngine:
             # 3) chunked prefill: one page-sized chunk per PREFILL slot
             for slot in sched.prefill_slots():
                 req = slot.request
-                ps = self.page_size
-                shareable = (self._cache is not None
-                             and req.tokens is not None and req.user is None)
-                toks = np.asarray(req.tokens) if shareable else None
-                # chunk-time adoption: a page a CONCURRENT slot registered
-                # since our admission is attached instead of recomputed
-                # (same-wave admissions of a common prefix share this way).
-                # State archs skip it: adopting K/V rows without the
-                # recurrent state at that boundary would lose the state
-                # those tokens should have produced.
-                while (shareable and not self._need_state
-                       and slot.pos % ps == 0
-                       and slot.pos + ps <= req.prompt_len - 1
-                       and slot.pos // ps == len(slot.page_ids)):
-                    pid = self._cache.match_page(toks, slot.pos)
-                    if pid is None:
-                        break
-                    slot.page_ids.append(pid)
-                    self._pt[slot.index, len(slot.page_ids) - 1] = pid
-                    slot.pos += ps
-                    slot.registered_pages = len(slot.page_ids)
-                size = min(ps, req.prompt_len - slot.pos)
-                self._pools = self._ensure_writable(
-                    slot, slot.pos, slot.pos + size, self._pools)
-                st_row = D.cache_extract_row(state, slot.index)
-                pt_row = self._tensor(self._pt[slot.index:slot.index + 1])
-                d_row = None if self._dbatch is None else \
-                    D.cache_extract_row(self._dbatch, slot.index)
-                ts = time.perf_counter()
-                logits, st_row, self._pools = self._step(
-                    self.params, self._chunk_batch(req, slot.pos, size),
-                    st_row, self._pools, pt_row, d_row)
-                self._sync()
-                self._prefill_s += time.perf_counter() - ts
-                self._prefill_tokens += size
-                state = D.cache_insert_row(state, st_row, slot.index)
-                slot.pos += size
-                prefill_chunks += 1
-                if shareable and self.has_pages:
-                    slot.registered_pages = self._cache.insert_pages(
-                        toks, slot.pos // ps, slot.page_ids,
-                        slot.registered_pages)
-                if (shareable and self._need_state and slot.pos % ps == 0
-                        and self._cache.wants_snapshot(toks, slot.pos)):
-                    # the recurrent state at this page boundary, copied to
-                    # the host: a later shared-prefix request resumes from
-                    # it instead of prefilling again
-                    self._cache.insert_snapshot(
-                        toks, slot.pos,
-                        _to_host(D.cache_extract_row(state, slot.index)))
-                if slot.pos == req.prompt_len:
-                    sched.finish_prefill(slot)
-                    if shareable and self.has_pages \
-                            and not self._need_state \
-                            and self._headroom(sched) >= 1:
-                        self._cache.insert_partial(toks, slot.page_ids[-1])
-                    outcome = sched.record_token(slot,
-                                                 self._sample(logits)[0])
-                    if outcome is not None:
-                        close(slot, "completed" if outcome == "done"
-                              else "cancelled")
+                if now < slot.retry_at:
+                    continue        # backing off after a transient fault
+                # faults are injected BEFORE the step and before any pool
+                # mutation, so absorbing one and retrying next iteration
+                # replays the identical chunk: injected faults can delay a
+                # request but never change its tokens
+                try:
+                    if chaos is not None:
+                        chaos.maybe_raise(FaultKind.STEP, site=req.rid)
+                        if chaos.draw(FaultKind.SLOW, site=req.rid):
+                            time.sleep(chaos.slow_s)
+                    ps = self.page_size
+                    shareable = (self._cache is not None
+                                 and req.tokens is not None
+                                 and req.user is None)
+                    toks = np.asarray(req.tokens) if shareable else None
+                    # chunk-time adoption: a page a CONCURRENT slot
+                    # registered since our admission is attached instead of
+                    # recomputed (same-wave admissions of a common prefix
+                    # share this way). State archs skip it: adopting K/V
+                    # rows without the recurrent state at that boundary
+                    # would lose the state those tokens should have made.
+                    while (shareable and not self._need_state
+                           and slot.pos % ps == 0
+                           and slot.pos + ps <= req.prompt_len - 1
+                           and slot.pos // ps == len(slot.page_ids)):
+                        pid = self._cache.match_page(toks, slot.pos)
+                        if pid is None:
+                            break
+                        slot.page_ids.append(pid)
+                        self._pt[slot.index, len(slot.page_ids) - 1] = pid
+                        slot.pos += ps
+                        slot.registered_pages = len(slot.page_ids)
+                    size = min(ps, req.prompt_len - slot.pos)
+                    self._pools = self._ensure_writable(
+                        slot, slot.pos, slot.pos + size, self._pools)
+                    st_row = D.cache_extract_row(state, slot.index)
+                    pt_row = self._tensor(self._pt[slot.index:slot.index + 1])
+                    d_row = None if self._dbatch is None else \
+                        D.cache_extract_row(self._dbatch, slot.index)
+                    ts = time.perf_counter()
+                    logits, st_row, self._pools = self._step(
+                        self.params, self._chunk_batch(req, slot.pos, size),
+                        st_row, self._pools, pt_row, d_row)
+                    self._sync()
+                    self._prefill_s += time.perf_counter() - ts
+                    self._prefill_tokens += size
+                    state = D.cache_insert_row(state, st_row, slot.index)
+                    slot.pos += size
+                    prefill_chunks += 1
+                    it_work = True
+                    slot.last_progress = time.perf_counter()
+                    if shareable and self.has_pages:
+                        slot.registered_pages = self._cache.insert_pages(
+                            toks, slot.pos // ps, slot.page_ids,
+                            slot.registered_pages)
+                    if (shareable and self._need_state and slot.pos % ps == 0
+                            and self._cache.wants_snapshot(toks, slot.pos)):
+                        # the recurrent state at this page boundary, copied
+                        # to the host: a later shared-prefix request
+                        # resumes from it instead of prefilling again
+                        self._cache.insert_snapshot(
+                            toks, slot.pos,
+                            _to_host(D.cache_extract_row(state, slot.index)))
+                    if slot.pos == req.prompt_len:
+                        sched.finish_prefill(slot)
+                        if shareable and self.has_pages \
+                                and not self._need_state \
+                                and self._headroom(sched) >= 1:
+                            self._cache.insert_partial(toks,
+                                                       slot.page_ids[-1])
+                        outcome = sched.record_token(
+                            slot, self._sample(logits)[0])
+                        if outcome is not None:
+                            close(slot, "completed" if outcome == "done"
+                                  else "cancelled")
+                except InjectedFault:
+                    # progress made before the fault (adopted pages, pages
+                    # allocated, a split page copied in place) is recorded
+                    # on the slot, so the retry resumes from it
+                    if self._transient_fault(slot):
+                        sched.quarantine(slot)
+                        close(slot, "quarantined")
 
             active = sched.active_slots()
             if not active:
@@ -788,14 +973,37 @@ class ServeEngine:
                 continue
 
             # 4) one decode step over the full fixed-shape batch; each slot
-            # consumes its last sampled token at position slot.pos
+            # consumes its last sampled token at position slot.pos. Slots
+            # backing off after a transient fault, or drawing one now, are
+            # masked out of active_row: an inactive row keeps its state and
+            # cache bit for bit, so the retried step feeds identical inputs
+            # and, greedy, samples the identical token.
+            runnable = []
             for slot in active:
-                self._pools = self._ensure_writable(
-                    slot, slot.pos, slot.pos + 1, self._pools)
-            run_idx = {s.index for s in active}
+                if now < slot.retry_at:
+                    continue
+                try:
+                    if chaos is not None:
+                        rid = slot.request.rid
+                        chaos.maybe_raise(FaultKind.STEP, site=rid)
+                        if chaos.draw(FaultKind.SLOW, site=rid):
+                            time.sleep(chaos.slow_s)
+                    self._pools = self._ensure_writable(
+                        slot, slot.pos, slot.pos + 1, self._pools)
+                except InjectedFault:
+                    if self._transient_fault(slot):
+                        sched.quarantine(slot)
+                        close(slot, "quarantined")
+                    continue
+                runnable.append(slot)
+            if not runnable:
+                time.sleep(0.0005)  # everyone backing off: don't busy-spin
+                continue
+            run_idx = {s.index for s in runnable}
             tokens_row = [s.last_token for s in sched.slots]
             pos_row = [min(s.pos, self.max_len - 1) for s in sched.slots]
-            active_row = [s.index in run_idx for s in sched.slots]
+            active_row = [s.state is SlotState.ACTIVE and s.index in run_idx
+                          for s in sched.slots]
             ts = time.perf_counter()
             logits, state, self._pools = self._step(
                 self.params,
@@ -804,10 +1012,12 @@ class ServeEngine:
             self._sync()
             decode_step_s.append(time.perf_counter() - ts)
             self._decode_s += decode_step_s[-1]
-            self._decode_tokens += len(active)
+            self._decode_tokens += len(runnable)
+            it_work = True
             toks = self._sample(logits)
-            for slot in active:       # inactive rows: sampled, discarded
+            for slot in runnable:     # inactive rows: sampled, discarded
                 slot.pos += 1         # the fed token is now cached
+                slot.last_progress = time.perf_counter()
                 outcome = sched.record_token(slot, toks[slot.index])
                 if outcome is not None:
                     close(slot, "completed" if outcome == "done"
@@ -820,6 +1030,14 @@ class ServeEngine:
         p13n = self._p13n is not None
         c = self._cache
         count = lambda name: getattr(c, name) if c is not None else 0
+        # the robustness counts are this run's: the schedule's counters
+        # run on across runs, so take their deltas
+        d_faults, d_kinds = 0, {}
+        if chaos is not None:
+            d_faults = chaos.faults_injected - faults0
+            d_kinds = {k: v - kinds0.get(k, 0)
+                       for k, v in chaos.faults_by_kind.items()
+                       if v - kinds0.get(k, 0)}
         return ServeStats(
             requests_completed=sched.requests_completed,
             requests_cancelled=sched.requests_cancelled,
@@ -854,6 +1072,16 @@ class ServeEngine:
             train_waves=self._wave_count if p13n else 0,
             train_wave_s=self._wave_s if p13n else 0.0,
             wave_losses=list(self._wave_losses) if p13n else [],
+            faults_injected=d_faults,
+            faults_by_kind=d_kinds,
+            retries=self._retry_events,
+            sheds=len(shed_rids),
+            quarantined=sched.requests_quarantined,
+            tokens_quarantined=sched.tokens_quarantined,
+            watchdog_kills=self._watchdog_kills,
+            stream_errors=self._stream_errors,
+            journal_replays=journal_replays,
+            stragglers=len(mon.flagged),
             prefill_s=self._prefill_s,
             decode_s=self._decode_s,
             prefill_tokens=self._prefill_tokens,

@@ -82,7 +82,7 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 
-from repro_torch.runtime.chaos import InjectedFault
+from repro_torch.runtime.chaos import FaultKind, InjectedFault
 
 __all__ = ["PagePool", "RadixPrefixCache", "ChainPrefixCache", "SpillTier",
            "MatchResult"]
@@ -91,17 +91,17 @@ __all__ = ["PagePool", "RadixPrefixCache", "ChainPrefixCache", "SpillTier",
 class PagePool:
     """Fixed set of `num_pages` refcounted pages of `page_size` token rows.
 
-    `chaos` (the reference's fault injection on `alloc`) is refused until
-    the robustness slice (ROADMAP queue A item 13b)."""
+    `chaos` is an optional ``runtime.chaos.FaultSchedule``: when set, its
+    ``alloc`` draws make `alloc` raise ``InjectedFault`` BEFORE any state
+    changes — the deterministic stand-in for a transient allocation
+    failure, which callers (the engine's retry path) must absorb without
+    corrupting the refcount discipline."""
 
     def __init__(self, num_pages: int, page_size: int, chaos=None):
         assert num_pages >= 1 and page_size >= 1
-        if chaos is not None:
-            raise NotImplementedError(
-                "PagePool(chaos=...): fault injection comes with the "
-                "robustness slice, ROADMAP queue A item 13b")
         self.num_pages = num_pages
         self.page_size = page_size
+        self.chaos = chaos
         self.ref = np.zeros((num_pages,), np.int32)
         # LIFO free list: reuse the hottest page first
         self._free = list(range(num_pages - 1, -1, -1))
@@ -119,7 +119,10 @@ class PagePool:
     def alloc(self) -> int:
         """Take a free page (refcount 1). Raises when exhausted — callers
         gate allocations on reservations + cache eviction, so running
-        dry here is a bookkeeping bug."""
+        dry here is a bookkeeping bug. An injected ``alloc`` fault raises
+        before any mutation, so a caught fault leaves the pool intact."""
+        if self.chaos is not None:
+            self.chaos.maybe_raise(FaultKind.ALLOC)
         if not self._free:
             raise RuntimeError("page pool exhausted (reservation bug)")
         pid = self._free.pop()

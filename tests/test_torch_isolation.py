@@ -43,6 +43,7 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
             "repro_torch.serve", "repro_torch.serve.engine",
             "repro_torch.serve.scheduler", "repro_torch.serve.paging",
             "repro_torch.serve.deltas", "repro_torch.serve.sampling",
+            "repro_torch.serve.journal",
             "repro_torch.launch.serve", "repro_torch.models.rwkv6",
             "repro_torch.configs.rwkv6_3b", "repro_torch.models.mamba",
             "repro_torch.configs.gemma3_4b",

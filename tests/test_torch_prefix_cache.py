@@ -605,8 +605,28 @@ def test_tree_nbytes_counts_torch_and_numpy():
 
 
 def test_page_pool_chaos_names_item_13b():
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        PagePool(2, PS, chaos=object())
+    """Item 13b's alloc faults: every alloc draw fires, in the port's pool
+    and the reference's, before any change to the pool; a copy-on-write
+    split's alloc too. Without faults both go on as before."""
+    from repro.runtime import FaultSchedule as JFaultSchedule
+    from repro_torch.runtime import FaultSchedule, InjectedFault
+    from repro.runtime import InjectedFault as JInjectedFault
+    pools = ((PagePool(3, PS, chaos=FaultSchedule(0)), InjectedFault),
+             (JP.PagePool(3, PS, chaos=JFaultSchedule(0)), JInjectedFault))
+    for pool, Fault in pools:
+        shared = pool.alloc()
+        pool.incref(shared)
+        pool.chaos.rates["alloc"] = 1.0
+        before = (pool.ref.tolist(), list(pool._free), pool.peak_in_use)
+        for op in (pool.alloc, lambda: pool.cow_split(shared)):
+            with pytest.raises(Fault, match="injected alloc fault"):
+                op()
+            assert (pool.ref.tolist(), list(pool._free),
+                    pool.peak_in_use, pool.cow_splits) == before + (0,)
+        pool.chaos.rates["alloc"] = 0.0
+        assert pool.cow_split(shared) == 1 and pool.ref.tolist() == [1, 1, 0]
+        assert pool.chaos.sequence() == [("alloc", 1, None),
+                                         ("alloc", 2, None)]
 
 
 # ---------------------------------------------------------------------------

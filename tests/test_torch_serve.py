@@ -23,6 +23,7 @@ jax = pytest.importorskip("jax")
 
 from repro import configs as JCF  # noqa: E402
 from repro.models import transformer as JT  # noqa: E402
+from repro.runtime import FaultSchedule as JFaultSchedule  # noqa: E402
 from repro.serve import PagePool as JPagePool  # noqa: E402
 from repro.serve import PersonalizationConfig as JP13n  # noqa: E402
 from repro.serve import Request as JRequest  # noqa: E402
@@ -33,8 +34,11 @@ from repro_torch import configs as PCF  # noqa: E402
 from repro_torch.core.delta import apply_delta_tree  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.models import decoding as PD  # noqa: E402
+from repro_torch.runtime import (FaultSchedule, InjectedCrash,  # noqa: E402
+                                 InjectedFault)
 from repro_torch.serve import (PagePool, PersonalizationConfig, Request,  # noqa: E402
-                               Scheduler, ServeEngine, sample_token)
+                               RequestJournal, Scheduler, ServeEngine,
+                               sample_token)
 from repro_torch.train.steps import merge_params  # noqa: E402
 
 PAGE = 4
@@ -277,8 +281,26 @@ def test_page_pool_matches_reference_on_random_ops(seed):
         assert ours.ref.tolist() == ref.ref.tolist()
         assert (ours.free_pages, ours.peak_in_use, ours.cow_splits) == \
             (ref.free_pages, ref.peak_in_use, ref.cow_splits)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        PagePool(2, PAGE, chaos=object())
+    # with alloc faults drawn from one schedule: the same ops fault in both
+    # pools, and a faulted alloc (or copy-on-write split) changes nothing
+    rates = {"alloc": 0.4}
+    ours = PagePool(6, PAGE, chaos=FaultSchedule(seed, rates=rates))
+    ref = JPagePool(6, PAGE, chaos=JFaultSchedule(seed, rates=rates))
+    state = lambda p: (p.ref.tolist(), list(p._free), p.peak_in_use,
+                       p.cow_splits)
+    name = lambda r: r.__name__ if isinstance(r, type) else r
+    fired = 0
+    for _ in range(150):
+        op, pid = int(rng.integers(0, 4)), int(rng.integers(0, 6))
+        before = state(ours)
+        got = _pool_op(ours, op, pid)
+        assert name(got) == name(_pool_op(ref, op, pid))
+        if got is InjectedFault:
+            fired += 1
+            assert state(ours) == before
+        ours.check()
+        assert state(ours) == state(ref)
+    assert fired > 0 and ours.chaos.sequence() == ref.chaos.sequence()
 
 
 def test_scheduler_matches_reference():
@@ -358,14 +380,54 @@ def test_cli_exact_counts(capsys):
         capsys.readouterr().out
 
 
+@pytest.fixture(scope="module")
+def cli_plain():
+    """The flag-free CLI run the robustness flags are held against."""
+    return launch_serve.main(_argv("--requests", "4", "--batch", "2"))
+
+
 @pytest.mark.parametrize("flag", [
     ["--fault-rate", "0.1"],
     ["--kill-after", "1"], ["--journal", "x"], ["--watchdog-s", "1"],
     ["--shed-watermark", "0.1"], ["--mesh-model", "2"],
 ], ids=lambda f: f[0].lstrip("-") + (f"={f[1]}" if len(f) > 1 else ""))
-def test_cli_refuses_unported_flags(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item"):
-        launch_serve.main(_argv("--requests", "1", *flag))
+def test_cli_refuses_unported_flags(flag, cli_plain, tmp_path, monkeypatch,
+                                    capsys):
+    """Only `--mesh-model > 1` (sharded serving, item 14) is refused. Each
+    robustness flag reaches the engine and serves the flag-free run's
+    tokens: faults retried, a journal written (its file in the working
+    directory), the watchdog and the watermark on, and `--kill-after 1`
+    crashing after the first completion with that request journaled
+    done."""
+    monkeypatch.chdir(tmp_path)
+    argv = _argv("--requests", "4", "--batch", "2", *flag)
+    if flag[0] == "--mesh-model":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue A item 14"):
+            launch_serve.main(argv)
+        return
+    want = {k: r.tokens for k, r in cli_plain.results.items()}
+    if flag[0] == "--kill-after":
+        argv += ["--journal", "j.jsonl"]
+        with pytest.raises(InjectedCrash, match="after 1 completed"):
+            launch_serve.main(argv)
+        pending = RequestJournal("j.jsonl").pending_requests()
+        assert 0 < len(pending) < 4
+        return
+    stats = launch_serve.main(argv + ["--max-retries", "20"])
+    assert stats.requests_completed == 4 and stats.quarantined == 0
+    assert {k: r.tokens for k, r in stats.results.items()} == want
+    out = capsys.readouterr().out
+    if flag[0] == "--fault-rate":
+        assert stats.faults_injected > 0 and stats.retries > 0
+        assert f"[serve] chaos: {stats.faults_injected} faults injected" \
+            in out
+    if flag[0] == "--journal":
+        assert "0 journal replays" in out
+        assert RequestJournal("x").pending_rids() == set()
+        assert len(open("x").read().splitlines()) == 8
+    if flag[0] == "--watchdog-s":
+        assert stats.watchdog_kills == 0
 
 
 def test_cli_flash_decode_serves(capsys):
@@ -391,11 +453,16 @@ def test_cli_defaults_to_the_card():
             launch_serve.build_engine(args)
 
 
-def test_engine_refuses_unported_options(model):
+def test_engine_refuses_unported_options(model, tmp_path):
+    """`rules=` (sharded serving) is refused with its item; the robustness
+    options construct and serve."""
     _, cfg, _, params = model
-    for kw in ({"chaos": object()}, {"journal": "j"}, {"watchdog_s": 1.0},
-               {"shed_watermark": 0.1}, {"rules": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            ServeEngine(cfg, params, num_slots=1, max_len=8, **kw)
-    assert dataclasses.is_dataclass(ServeEngine(
-        cfg, params, num_slots=1, max_len=8).run([]))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
+        ServeEngine(cfg, params, num_slots=1, max_len=8, rules=object())
+    for kw in ({"chaos": FaultSchedule(0)},
+               {"journal": str(tmp_path / "j")}, {"watchdog_s": 1.0},
+               {"shed_watermark": 0.1}, {}):
+        stats = ServeEngine(cfg, params, num_slots=1, max_len=8, **kw).run(
+            [Request(0, 2, tokens=np.arange(3, dtype=np.int32))])
+        assert dataclasses.is_dataclass(stats)
+        assert stats.requests_completed == 1
