@@ -33,7 +33,20 @@ Phases (any failure exits non-zero and prints no result):
 5. one more LM step under torch.profiler: device time by op and the
    device's idle share;
 6. compact against dense-scatter on the card: SGD, 2 fixed-phase steps,
-   trainable params bitwise equal;
+   trainable params bitwise equal; each run's first step measured (the
+   peak device bytes less those allocated before it, and the bytes held
+   where its backward begins and ends) and its second under the
+   full-gradient audit (`launch.trace_analysis`); then one dense step of
+   the same model (every layer trainable, SGD, the same batch) measured
+   and audited the same way: each figure beside the analytic model
+   (`training_extra_bytes` at K = 2, `dense_training_extra_bytes` at 0
+   optimizer slots) and the compact-over-dense share; held bytes compact
+   < dense-scatter < dense, the dense peak above both sparse peaks, no
+   full-size weight gradient in the compact step and one a selectable
+   leaf or more in the dense-scatter and dense steps (in the backward,
+   which autograd runs on a thread of its own), the compact step's
+   launches exactly its plan's (K x 7 dW on the TMA + wgmma instance, 7
+   optimizer) and none in the dense step;
 7. the CNN path: MobileNetV2 + GroupNorm at full width (224 x 224, width
    1.0), batch 32, the `dynamic` method for 12 steps (fixed 4 / dynamic 4 /
    fixed 4) through `repro_torch.launch.cnn_transfer`, counts zeroed just
@@ -99,7 +112,9 @@ Phases (any failure exits non-zero and prints no result):
    (SGD, 2 steps) bitwise, cut further to a super-block of 4 layers and
    2 experts (the dense-scatter path's full-shape gradients and updated
    copy of every trainable leaf do not fit beside the 8-layer one);
-13. the serving path: full-width llama3-8b (32 layers, bf16) through
+13. the serving path: llama3-8b at full width cut to SERVE_LAYERS = 8
+   of its 32 layers (bf16; every serving phase 13-15 and 24-29 runs its
+   model cut so, for the run's time) through
    `repro_torch.launch.serve`'s `build_engine`, 4 slots, pages of 16, 8
    requests of 128 + 32 tokens, greedy, twice on one copy of the weights,
    counts zeroed just before each run and read just after. Run A plain:
@@ -146,8 +161,8 @@ Phases (any failure exits non-zero and prints no result):
    checks (launches as its plan derives them, one profiled step with the
    flash path's share, frozen params against a fresh init, compact
    against dense-scatter bitwise): nemotron-4-15b (layernorm, squared
-   ReLU) cut 32 -> 16 layers with AdamW; command-r-35b (layernorm, tied
-   embeddings) cut 40 -> 16 layers, AdamW (the cuts keep the whole run
+   ReLU) cut 32 -> 8 layers with AdamW; command-r-35b (layernorm, tied
+   embeddings) cut 40 -> 8 layers, AdamW (the cuts keep the whole run
    inside its time limit); llama4-scout-17b-a16e
    (MoE in every layer, 16 experts top-1 + 1 shared) cut 48 -> 8 layers
    with all 16 experts, SGD lr 0.1, its dropped share and every expert
@@ -183,8 +198,9 @@ Phases (any failure exits non-zero and prints no result):
    intact step; the codec, file bytes, save and restore seconds and the
    host's peak RSS.
 
-24. gemma3-4b served at full width (34 layers: the 29 local ones from
-   per-slot rings of 1024 slots, the 5 global ones from pages of 64)
+24. gemma3-4b served at full width cut 34 -> 8 layers (one super-block
+   of 5 local + 1 global, then 2 local: the 7 local ones from per-slot
+   rings of 1024 slots, the global one from pages of 64)
    through the serve launcher's `build_engine`: 4 slots, prefix_mode
    off, greedy, 4 requests of 1088 + 32 tokens (every ring wraps in
    prefill) and 4 of 128 + 32; all complete, no port kernel launched;
@@ -192,11 +208,13 @@ Phases (any failure exits non-zero and prints no result):
    requests (the 1088-token prompt and two of 128) on 2 slots against
    the contiguous prefill + decode_step oracle, every sampled step's
    top-2 gap probed;
-25. rwkv6-3b served at full width (32 layers, state only: no pages), 4
-   slots, pages of 16, 8 requests of 128 + 32: exactly 32 wkv6 launches
-   (the forward's state form) a prefill chunk and a decode step, no
+25. rwkv6-3b served at full width cut 32 -> 8 layers (state only: no
+   pages), 4 slots, pages of 16, 8 requests of 128 + 32: exactly 8 wkv6
+   launches (the forward's state form) a prefill chunk and a decode step,
+   no
    other port kernel; the oracle at 4 layers in f32;
-26. deepseek-moe-16b at full width and the jamba cut of phase 12e (one
+26. deepseek-moe-16b at full width cut 28 -> 8 layers and the jamba
+   cut of phase 12e (one
    super-block of 8 layers: 7 mamba layers with per-slot state, the
    attention layer on pages; 4 of 16 experts) with one more request of
    a 3-token prompt (shorter than d_conv - 1), the same traffic as phase
@@ -205,13 +223,14 @@ Phases (any failure exits non-zero and prints no result):
    (no choice dropped on either side) and the router near-tie probe: a
    difference where some routing's k-th and (k+1)-th probabilities lie
    within 1e-5 is reported, not failed;
-27. flash-decoding: phase 13's run A (full-width llama3-8b, 8 x (128 +
-   32)) plain and with `--flash-decode` on one copy of the weights: the
+27. flash-decoding: phase 13's run A (llama3-8b cut to 8 layers, 8 x
+   (128 + 32)) plain and with `--flash-decode` on one copy of the weights: the
    plain run's tokens bitwise run A's, the flash run's equal except at a
    printed near tie (the plain top-2 gap at the first differing token no
    larger than twice the two runs' largest logit difference there); the
    decode-step medians side by side;
-28. prefix reuse on full-width llama3-8b (bf16, 4 slots, pages of 16),
+28. prefix reuse on llama3-8b cut to 8 layers (bf16, 4 slots, pages of
+   16),
    one copy of the weights: the shared-prefix workload (8 requests of
    128 + 32 tokens, the first 96 shared) under `--prefix-mode` off, chain
    and radix: tokens bitwise equal, radix hits and fewer prefill chunks,
@@ -243,16 +262,24 @@ Phases (any failure exits non-zero and prints no result):
    phase 13's 7 / 14 / 7 scatter / dW / optimizer launches. Each run
    prints its wall seconds, decode median and robustness counts.
 
+30. the dry run (`launch.dryrun`), last: llama3-8b's train_4k cell with
+   `--device cuda` (its step on the card at batch 1 x 4096: peak and
+   extra bytes beside the analytic model, the launches its plan
+   derives), then every (arch, shape) cell on `meta`, the train cells
+   sparse and dense, in worker processes: bytes of the state, batch and
+   cache, the analytic extra, FLOPs, whether it fits the card; every
+   cell the reference runs OK, the others SKIP with its reason.
+
 Phases 24-26 also run the shared-prefix workload of phase 28 on the
 weights they hold, `off` then `radix` (pages of 16; MoE layers at capacity
 E / k, the dropped share printed): tokens bitwise equal, fewer prefill
 chunks under radix, snapshot hits for gemma3-4b, rwkv6-3b and the jamba
 cut, each run's prefix counts, snapshots stored times `snapshot_row_bytes`
-and the host's RSS; rwkv's wkv6 launches exactly 32 x (prefill chunks +
+and the host's RSS; rwkv's wkv6 launches exactly 8 x (prefill chunks +
 decode steps) in both modes (added to the kernels line). Phase 25 also
 runs rwkv6-3b's shared-prefix workload `off` under `--fault-rate 0.1`: the
 fault-free off run's tokens bitwise, faults fired, the wkv6 launches
-again exactly 32 x (prefill chunks + decode steps) that ran (a faulted
+again exactly 8 x (prefill chunks + decode steps) that ran (a faulted
 attempt launches nothing; added to the kernels line).
 
 Each serving phase prints the decode-step median, prefill and decode
@@ -286,6 +313,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -293,6 +321,7 @@ import time
 from pathlib import Path
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -343,7 +372,7 @@ JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--steps", "6", "--batch",
               str(JAMBA_J), "--phase-k", "2", "--log-every", "1",
               "--seed", "0"]
 # the reference's other text-only archs at its train_4k shape, batch 1,
-# K = 2: nemotron-4-15b cut 32 -> 16 layers and command-r-35b cut 40 -> 16
+# K = 2: nemotron-4-15b cut 32 -> 8 layers and command-r-35b cut 40 -> 8
 # (the whole run must end well inside its time limit: every layer of a
 # stack is the same code, and the checks read the last K; command-r's
 # uncut 60.6 GB of bf16 params, the tied head's 8.4 GB fp32 copy in the
@@ -353,9 +382,9 @@ JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--steps", "6", "--batch",
 # 2.2 B-param layer alone is ~17.6 GB). The cuts pass to the launcher as
 # `model=`; the config files keep the published depths.
 TEXT_ARGV = ["--steps", "6", "--batch", "1", "--seq", "4096"] + MAIN_ARGV[8:]
-NEMOTRON_LAYERS = 16
+NEMOTRON_LAYERS = 8
 NEMOTRON_ARGV = ["--arch", "nemotron-4-15b"] + TEXT_ARGV
-COMMAND_R_LAYERS = 16
+COMMAND_R_LAYERS = 8
 COMMAND_R_ARGV = ["--arch", "command-r-35b"] + TEXT_ARGV
 SCOUT_LAYERS = 8
 SCOUT_J = 2                # the first fixed phase of the llama4-scout run
@@ -1804,10 +1833,73 @@ def phase_profile(tc, out, tag: str = "one fixed-phase step",
                         attention)
 
 
+class _HeldBytes(TorchDispatchMode):
+    """Device bytes allocated where the step's backward begins (what the
+    forward left for it: saved activations, checkpoints) and where it
+    ends (the gradients, before the optimizer): the first op inside an
+    autograd node, and the first op outside one after that."""
+
+    def __init__(self):
+        super().__init__()
+        self.after_forward = self.after_backward = None
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        inside = torch._C._current_autograd_node() is not None
+        if inside and self.after_forward is None:
+            self.after_forward = torch.cuda.memory_allocated()
+        elif (not inside and self.after_forward is not None
+              and self.after_backward is None):
+            self.after_backward = torch.cuda.memory_allocated()
+        return func(*args, **(kwargs or {}))
+
+
+def _measured_step(step, state, batch, audit=None):
+    """One step on the card: (its result, {"extra": the peak less what was
+    allocated before the step, "held": the larger of the bytes allocated
+    where the backward begins and where it ends, less the same, "forward"
+    / "backward": those two}, the launches it made). audit: a
+    `FullGradientAudit` to run the step under as well (it holds no tensor,
+    so the bytes are the same)."""
+    from repro_torch.launch.trace_analysis import launch_breakdown
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    held = _HeldBytes()
+    with held, (audit or contextlib.nullcontext()):
+        out, launches = launch_breakdown(lambda: step(state, batch))
+    torch.cuda.synchronize()
+    fwd, bwd = held.after_forward - base, held.after_backward - base
+    return out, {"extra": torch.cuda.max_memory_allocated() - base,
+                 "held": max(fwd, bwd), "forward": fwd,
+                 "backward": bwd}, launches
+
+
+def _audit_for(state, plan):
+    """A full-gradient audit of the plan's selectable weights in `state`,
+    every param of the state counted as a param."""
+    from repro_torch.core.sparse_update import tree_leaves
+    from repro_torch.launch.trace_analysis import (FullGradientAudit,
+                                                   selectable_weights)
+    return FullGradientAudit(
+        selectable_weights(plan, state["params_trainable"]),
+        tree_leaves(state["params_trainable"])
+        + tree_leaves(state["params_frozen"]))
+
+
+def _audited(step, state, batch, plan):
+    """One step under the full-gradient audit: (its result, the audit)."""
+    audit = _audit_for(state, plan)
+    with audit:
+        out = step(state, batch)
+    return out, audit
+
+
 def phase_compact_vs_dense(cfg, tag: str = "compact-vs-dense",
                            k: int = K_LAYERS, batch: int = 4,
                            seq: int = 1024, one_at_a_time: bool = False,
-                           batches=None):
+                           batches=None, memory: bool = False):
     """`cfg` from seed 1, `k` trainable scan steps: 2 fixed-phase SGD steps
     of the compact path and of the dense-scatter path from one start (on
     the first two batches of `batches`, a `batches=` stream, else of the
@@ -1816,11 +1908,16 @@ def phase_compact_vs_dense(cfg, tag: str = "compact-vs-dense",
     compact run first, its trainable leaves kept on the host, then the
     dense-scatter run from a fresh init of the same seed (for a model
     whose params, a copy of the trainable ones and the dense-scatter
-    path's full-shape gradients do not fit the card together)."""
+    path's full-shape gradients do not fit the card together).
+    memory: each run's first step measured (`_measured_step`'s bytes, its
+    launches) and its second under the full-gradient audit; returns
+    {"compact" | "dense_scatter": {"extra", "held", "forward", "backward",
+    "launches", "dw_instances", "audit", "loss"}} and the plan."""
     from repro_torch.configs import (OptimizerConfig, ShapeConfig,
                                      SparseUpdateConfig, TrainConfig)
     from repro_torch.core.sparse_update import tree_leaves, tree_map
     from repro_torch.data import lm_batches
+    from repro_torch.kernels import ops
     from repro_torch.train import make_train_state, make_train_step
 
     tc = TrainConfig(model=cfg, shape=ShapeConfig("smoke", seq, batch,
@@ -1837,12 +1934,26 @@ def phase_compact_vs_dense(cfg, tag: str = "compact-vs-dense",
         batches = [{key: torch.from_numpy(v).cuda() for key, v in b.items()}
                    for _, b in zip(range(2), lm_batches(
                        batch, seq, cfg.vocab_size, seed=1))]
+    measured = {}
 
     def run(state, plan, compact):
         step = make_train_step(tc, plan, compact_grads=compact)
         losses = []
-        for b in batches:
-            state, m = step(state, b)
+        for i, b in enumerate(batches):
+            if memory and i == 0:
+                inst = dict(ops.DW_INSTANCES)
+                (state, m), mem, launches = _measured_step(step, state, b)
+                measured["compact" if compact else "dense_scatter"] = {
+                    **mem, "launches": launches,
+                    "dw_instances": {n: ops.DW_INSTANCES[n] - inst[n]
+                                     for n in inst},
+                    "loss": float(m["loss"])}
+            elif memory:
+                (state, m), audit = _audited(step, state, b, plan)
+                measured["compact" if compact else "dense_scatter"][
+                    "audit"] = audit
+            else:
+                state, m = step(state, b)
             losses.append(float(m["loss"]))
         return state, losses
 
@@ -1880,6 +1991,148 @@ def phase_compact_vs_dense(cfg, tag: str = "compact-vs-dense",
     print(f"[{tag}] {cfg.name} {cfg.num_layers} layers, K={k}, batch "
           f"{batch} x seq {seq}, sgd, 2 fixed-phase steps: all {n} trainable "
           f"leaves bitwise equal", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (measured, plan) if memory else None
+
+
+def phase_memory(measured: dict, plan):
+    """Phase 6's memory figures. One dense step of the same model (seed 1,
+    every layer trainable, dense gradients, SGD, phase 6's first batch) is
+    measured the same way, under the audit; then each run's
+    extra bytes beside the analytic model (`training_extra_bytes` at K = 2
+    for compact and dense-scatter, `dense_training_extra_bytes` at 0
+    optimizer slots for dense) and their ratio, and the compact-over-dense
+    share (the paper's headline for this model). Gates: compact <
+    dense-scatter < dense extra bytes; the audit finds no full-size weight
+    gradient in the compact step, at least one a selectable leaf in the
+    dense-scatter step, and the dense step's full-shape dW among the
+    backward's ops (autograd runs the card's backward on a thread of its
+    own); the compact step launches exactly the plan's dW and optimizer
+    kernels, every dW on the TMA + wgmma instance, and the dense step
+    launches none."""
+    from repro_torch.configs import (OptimizerConfig, ShapeConfig,
+                                     SparseUpdateConfig, TrainConfig,
+                                     get_config)
+    from repro_torch.core import memory as memmod
+    from repro_torch.data import lm_batches
+    from repro_torch.launch.trace_analysis import (per_leaf_counts,
+                                                   plan_launches,
+                                                   selectable_weights,
+                                                   weight_gradient_tensors)
+    from repro_torch.models.registry import abstract_params
+    from repro_torch.train import make_train_state, make_train_step
+
+    cfg = get_config("llama3-8b")
+    batch, seq = 4, 1024
+    tc = TrainConfig(model=cfg, shape=ShapeConfig("smoke", seq, batch,
+                                                  "train"),
+                     sparse=SparseUpdateConfig(enabled=False),
+                     optimizer=OptimizerConfig(kind="sgd", learning_rate=0.1),
+                     seed=1)
+    first = next(lm_batches(batch, seq, cfg.vocab_size, seed=1))
+    first = {key: torch.from_numpy(v).cuda() for key, v in first.items()}
+    state, dplan = make_train_state(tc, device="cuda")
+    step = make_train_step(tc, dplan)
+    # one dense step, measured and audited at once: a second one needs
+    # the old params, the new ones, the gradients and the fp32 sweep in a
+    # cache the first has fragmented, which can exceed an 80 GB card
+    audit = _audit_for(state, dplan)
+    t0 = time.perf_counter()
+    (state, m), mem, launches = _measured_step(step, state, first, audit)
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    dense_loss = float(m["loss"])
+    dense_weights = selectable_weights(
+        dplan, {"segments": abstract_params(cfg)["segments"]})
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    measured["dense"] = {**mem, "launches": launches, "loss": dense_loss,
+                         "audit": audit}
+
+    tokens = batch * seq
+    sp = SparseUpdateConfig(update_ratio=0.2, num_update_layers=K_LAYERS,
+                            channel_block=128)
+    analytic = {
+        "compact": (memmod.training_extra_bytes(cfg, sp, K_LAYERS, tokens, 0),
+                    f"training_extra_bytes(K={K_LAYERS})"),
+        "dense_scatter": (memmod.training_extra_bytes(cfg, sp, K_LAYERS,
+                                                      tokens, 0),
+                          f"training_extra_bytes(K={K_LAYERS})"),
+        "dense": (memmod.dense_training_extra_bytes(cfg, tokens, 0),
+                  "dense_training_extra_bytes(optimizer_slots=0)")}
+    card = card_line()
+    for run in ("compact", "dense_scatter", "dense"):
+        got = measured[run]
+        want, name = analytic[run]
+        print(f"[memory] {cfg.name} batch {batch} x {seq}, sgd, {run}: "
+              f"extra (peak) {got['extra']} B ({got['extra'] / 1e9:.3f} GB), "
+              f"held {got['held']} B ({got['held'] / 1e9:.3f} GB: "
+              f"{got['forward']} B where the backward begins, "
+              f"{got['backward']} B where it ends); {name} = {want} B "
+              f"({want / 1e9:.3f} GB); peak / analytic "
+              f"{got['extra'] / want:.3f}, held / analytic "
+              f"{got['held'] / want:.3f} ({card})", flush=True)
+    for key in ("extra", "held"):
+        share = measured["compact"][key] / measured["dense"][key]
+        print(f"[memory] compact / dense, {key} bytes: {share:.4f} (saving "
+              f"{1 - share:.4f})", flush=True)
+    print(f"[memory] analytic compact / dense "
+          f"{analytic['compact'][0] / analytic['dense'][0]:.4f}; dense step "
+          f"{dense_ms:.1f} ms under the audit; step-1 losses compact "
+          f"{measured['compact']['loss']:.6f} dense {dense_loss:.6f} (equal: "
+          f"{measured['compact']['loss'] == dense_loss})", flush=True)
+    # held bytes: the update's own (activations kept, gradients); the peak
+    # adds the fp32 CE's transient logits and head copy, the same in the
+    # compact and the dense-scatter step, so only dense must exceed it
+    check(measured["compact"]["held"] < measured["dense_scatter"]["held"]
+          < measured["dense"]["held"],
+          "phase 6: the held bytes are not compact < dense-scatter < dense")
+    check(max(measured["compact"]["extra"],
+              measured["dense_scatter"]["extra"])
+          < measured["dense"]["extra"],
+          "phase 6: a sparse step's peak is not below the dense step's")
+
+    # the leaves' names (per_leaf_counts reads only those)
+    sparse_weights = selectable_weights(
+        plan, {"segments": abstract_params(cfg)["segments"]})
+    for run, weights in (("compact", sparse_weights),
+                         ("dense_scatter", sparse_weights),
+                         ("dense", dense_weights)):
+        audit = measured[run]["audit"]
+        grads = weight_gradient_tensors(audit)
+        counts = per_leaf_counts(grads, weights)
+        print(f"[audit] {run}: {audit.ops_seen} aten ops, "
+              f"{audit.backward_ops} in the backward; {len(grads)} full-size "
+              f"weight-gradient tensors ({sum(r['bytes'] for r in grads)} B); "
+              f"per leaf min {min(counts.values())} max "
+              f"{max(counts.values())}; ops "
+              f"{sorted({r['op'] for r in grads})}", flush=True)
+        if run == "compact":
+            check(grads == [], f"the compact step materialized full-size "
+                  f"weight gradients: {grads[:4]}")
+        else:
+            check(min(counts.values()) >= 1, f"the {run} step's audit lost "
+                  f"a leaf's full-size gradient: {counts}")
+            check(audit.backward_ops > 0 and all(r["backward"]
+                                                 for r in grads),
+                  f"the audit saw no backward op of the {run} step")
+
+    want = plan_launches(cfg, plan)
+    got = measured["compact"]["launches"]
+    print(f"[launches] compact step {got} (plan {want}); dW instances "
+          f"{measured['compact']['dw_instances']}; dense-scatter "
+          f"{measured['dense_scatter']['launches']}; dense "
+          f"{measured['dense']['launches']}", flush=True)
+    check(got == want and want["block_sparse_dw"] == K_LAYERS * 7
+          and want["fused_block_opt"] == 7,
+          f"the compact step launched {got}, its plan derives {want}")
+    check(measured["compact"]["dw_instances"] == {
+        "grid": 0, "pipelined": K_LAYERS * 7},
+        "the compact step's dW left the TMA + wgmma instance")
+    check(not any(measured["dense"]["launches"].values()),
+          "the dense step launched a port kernel")
+    del measured
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2472,41 +2725,12 @@ def phase_rwkv_frozen(tc, out):
           f"{tc.model.num_layers - K_LAYERS} frozen layers)", flush=True)
 
 
-def plan_per_step(cfg, plan) -> dict:
-    """Launches a step of a compact path, derived from its plan: the dW
-    once per selectable leaf and trainable scan step (`batched_dw` for a
-    stacked expert leaf [steps, E, fan_in, out], `block_sparse_dw` for the
-    rest; a super-block's sub-layers are leaves of their own), and the fused
-    optimizer once per selectable stacked leaf (norms, routers and the
-    mamba leaves outside the selection take the plain dense rule). No other
-    kernel of the port runs on an attention / mamba / MoE path."""
-    from repro_torch.core.sparse_update import SelSpec
-    from repro_torch.kernels import ops
-    from repro_torch.models.registry import abstract_params
-    want = {k: 0 for k in ops.LAUNCHES}
-    shapes = abstract_params(cfg)["segments"]
-
-    def walk(spec, shape, steps):
-        if isinstance(spec, SelSpec):
-            want["batched_dw" if shape.dim() == 4
-                 else "block_sparse_dw"] += steps
-            want["fused_block_opt"] += 1
-            return
-        for name in spec:
-            walk(spec[name], shape[name], steps)
-
-    for seg, steps in plan.seg_trainable.items():
-        if steps:
-            walk(plan.spec[seg], shapes[seg], steps)
-    return want
-
-
 def _train_path(tag: str, argv, watch: str, model=None, extra=None,
                 extra_launches=None, batches=None):
     """6 compact steps through the launcher (`model` replaces the arch's
     config, `batches` its token stream), counts zeroed just before and
-    read just after: every step
-    launches exactly `plan_per_step` plus `extra_launches` (the path's
+    read just after: every step launches exactly its plan's launches
+    (`trace_analysis.plan_launches`) plus `extra_launches` (the path's
     other kernels), every bf16 dW on the pipelined instance, the loss
     finite, and the unselected blocks of the `watch` leaf (a path below
     the segments) unchanged every step, its selected blocks moved.
@@ -2522,7 +2746,8 @@ def _train_path(tag: str, argv, watch: str, model=None, extra=None,
     plan = build_plan(cfg, tc.sparse,
                       tc.shape.global_batch * tc.shape.seq_len)
     spec = _leaf(plan.spec, watch)
-    want = plan_per_step(cfg, plan)
+    from repro_torch.launch.trace_analysis import plan_launches
+    want = plan_launches(cfg, plan)
     want.update(extra_launches or {})
     print(f"[{tag}] trainable {plan.seg_trainable}, {args.optimizer} lr "
           f"{args.lr}, batch {args.batch} x seq {args.seq}, selected share "
@@ -2964,6 +3189,23 @@ def phase_text_arch(results: dict, tag: str, argv, watch: str, model=None,
 # the serving path: full-width llama3-8b, 4 slots, pages of 16 tokens, 8
 # requests of 128 prompt + 32 new tokens (max_len 160, 40 pages), greedy;
 # run B adds 2 users with the reference launcher's personalization defaults
+# the serving phases (13-15, 24-29) run their models at published widths
+# cut to SERVE_LAYERS: a decode step's host time grows with the layers it
+# loops over, and on a slow host the full depths alone took past the run's
+# time limit (phases 24-29 ~538 s against ~381 s on another host's NVIDIA
+# H100 80GB HBM3, 700.00 W); every check of those
+# phases compares runs of the same model with each other or with an
+# oracle already cut to 4-6 layers
+SERVE_LAYERS = 8
+
+
+def serve_cut(arch: str):
+    """`arch` at published widths cut to SERVE_LAYERS layers (gemma3-4b:
+    one super-block of 5 local + 1 global, then 2 local)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_layers=SERVE_LAYERS)
+
+
 SERVE_ARGV = ["--arch", "llama3-8b", "--requests", "8", "--batch", "4",
               "--prompt-len", "128", "--gen-len", "32", "--page-size", "16",
               "--prefix-mode", "off", "--seed", "0"]
@@ -3026,20 +3268,21 @@ def _record_logits(engine):
 
 
 def phase_serve(results: dict):
-    """Paged serving of full-width llama3-8b through the serve launcher's
-    `build_engine`, twice on one copy of the weights. Run A: plain. Run B:
+    """Paged serving of llama3-8b (cut to SERVE_LAYERS) through the serve
+    launcher's `build_engine`, twice on one copy of the weights. Run A: plain. Run B:
     2 users, online waves; counts zeroed just before each run and read just
     after."""
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
     ap = serve.add_serve_args(__import__("argparse").ArgumentParser())
     args_a = ap.parse_args(SERVE_ARGV + ["--users", "0"])
-    cfg, eng_a = serve.build_engine(args_a)
+    cfg, eng_a = serve.build_engine(args_a, serve_cut("llama3-8b"))
     params = eng_a.params
     n_param_bytes = sum(t.numel() * t.element_size()
                         for t in _leaves(params))
-    print(f"[serve] llama3-8b full width, {cfg.num_layers} layers (no depth "
-          f"cut), {cfg.dtype}, params {n_param_bytes} bytes, 4 slots, page "
+    print(f"[serve] llama3-8b full width, {cfg.num_layers} layers (cut 32 "
+          f"-> {SERVE_LAYERS}: the run's time), {cfg.dtype}, params "
+          f"{n_param_bytes} bytes, 4 slots, page "
           f"16, prefix_mode off, greedy, 8 requests x (128 prompt + 32 new)",
           flush=True)
 
@@ -3824,33 +4067,35 @@ def _family_oracle(tag, cfg, specs, page_size, moe_probe=False):
 
 
 def phase_serve_gemma(results: dict):
-    """Phase 24: full-width gemma3-4b (34 layers: 5 super-blocks of 5
-    local + 1 global, 4 local in the tail; window 1024, tied vocab
-    262144): the 29 local layers serve from 1024-slot rings, the 5 global
-    ones from pages of 64. No port kernel on the path. Then the oracle at
+    """Phase 24: gemma3-4b at published widths cut to SERVE_LAYERS (8: one
+    super-block of 5 local + 1 global, 2 local in the tail; window 1024,
+    tied vocab 262144): the 7 local layers serve from 1024-slot rings,
+    the global one from pages of 64. No port kernel on the path. Then the oracle at
     published widths cut to one super-block (6 layers), f32, the
     1088-token prompt (its rings wrap) and a 128-token one."""
     from repro_torch.configs import get_config
     arch, page, specs = GEMMA_SERVE
-    _serve_family("serve gemma3-4b", arch, page, specs, results)
+    _serve_family("serve gemma3-4b", arch, page, specs, results,
+                  model=serve_cut(arch), cut=f" (cut 34 -> {SERVE_LAYERS})")
     cfg = dataclasses.replace(get_config(arch), num_layers=6,
                               dtype="float32")
     _family_oracle("serve gemma3-4b", cfg, [(1, 1088, 8), (2, 128, 8)], page)
 
 
 def phase_serve_rwkv(results: dict):
-    """Phase 25: full-width rwkv6-3b (32 layers; state only, no pages):
-    exactly 32 wkv6 launches (the state form) a prefill chunk and a decode
-    step, nothing else. Then the oracle at 4 layers, f32."""
+    """Phase 25: rwkv6-3b at published widths cut to SERVE_LAYERS (state
+    only, no pages): exactly one wkv6 launch (the state form) a layer a
+    prefill chunk and a decode step, nothing else. Then the oracle at 4 layers, f32."""
     from repro_torch.configs import get_config
 
     def watch(tag, stats, counts):
-        _wkv_launches(tag, stats, counts, results)
+        _wkv_launches(tag, stats, counts, results, SERVE_LAYERS)
         check(stats.pages_total == stats.pages_peak == 0,
               f"{tag}: a state-only arch allocated pages")
 
     _serve_family("serve rwkv6-3b", "rwkv6-3b", 16, FAMILY_SERVE, results,
-                  watch=watch)
+                  model=serve_cut("rwkv6-3b"), watch=watch,
+                  cut=f" (cut 32 -> {SERVE_LAYERS})")
     cfg = dataclasses.replace(get_config("rwkv6-3b"), num_layers=4,
                               dtype="float32")
     _family_oracle("serve rwkv6-3b", cfg, [(3, 40, 8)], 16)
@@ -3863,8 +4108,8 @@ def _no_drop(cfg):
 
 
 def phase_serve_moe(results: dict):
-    """Phase 26: full-width deepseek-moe-16b (28 layers, 64 experts top-6
-    + 2 shared; its capacity factor as configured), then the jamba cut of
+    """Phase 26: deepseek-moe-16b at published widths cut to SERVE_LAYERS
+    (64 experts top-6 + 2 shared; its capacity factor as configured), then the jamba cut of
     the train phase (published widths, one super-block of 8 layers: 7
     mamba with per-slot state, attention at index 4 on pages, MoE of 4 of
     16 experts on the odd FFNs) with one more request of a 3-token prompt
@@ -3874,7 +4119,8 @@ def phase_serve_moe(results: dict):
     probe."""
     from repro_torch.configs import get_config
     _serve_family("serve deepseek-moe-16b", "deepseek-moe-16b", 16,
-                  FAMILY_SERVE, results)
+                  FAMILY_SERVE, results, model=serve_cut("deepseek-moe-16b"),
+                  cut=f" (cut 28 -> {SERVE_LAYERS})")
     _serve_family("serve jamba", "jamba-1.5-large-398b", 16,
                   FAMILY_SERVE + [(1, 3, 32)], results, model=jamba_cut(),
                   cut=f" (cut 72 -> {JAMBA_LAYERS}, experts 16 -> "
@@ -3917,8 +4163,8 @@ def _capture_request_logits(engine):
 
 
 def phase_flash_decode(results: dict):
-    """Phase 27: serve run A of phase 13 (full-width llama3-8b, 8 x (128 +
-    32), bf16) again, plain and with --flash-decode, on one copy of the
+    """Phase 27: serve run A of phase 13 (llama3-8b cut to SERVE_LAYERS, 8
+    x (128 + 32), bf16) again, plain and with --flash-decode, on one copy of the
     weights. The plain run's tokens equal phase 13's run A bitwise; the
     flash run's equal them except where a request first differs at a near
     tie: the plain run's top-2 logit gap at that step no larger than twice
@@ -3931,7 +4177,7 @@ def phase_flash_decode(results: dict):
     ap = serve.add_serve_args(argparse.ArgumentParser())
     args_a = ap.parse_args(SERVE_ARGV + ["--users", "0"])
     args_f = ap.parse_args(SERVE_ARGV + ["--users", "0", "--flash-decode"])
-    cfg, eng_a = serve.build_engine(args_a)
+    cfg, eng_a = serve.build_engine(args_a, serve_cut("llama3-8b"))
     _, eng_f = serve.build_engine(args_f, cfg, params=eng_a.params)
     check(eng_f.flash_decode and not eng_a.flash_decode,
           "--flash-decode did not reach the engine")
@@ -4088,17 +4334,18 @@ def _same_tokens(tag, a, b, what):
     check(not differ, f"{tag}: {what}: requests {differ} differ")
 
 
-def _wkv_launches(tag, stats, counts, results):
-    """rwkv: exactly 32 wkv6 launches (the state form) a prefill chunk
-    and a decode step, no other port kernel; added to the kernels line."""
+def _wkv_launches(tag, stats, counts, results, layers: int):
+    """rwkv: exactly one wkv6 launch (the state form) a layer a prefill
+    chunk and a decode step, no other port kernel; added to the kernels
+    line."""
     steps = stats.prefill_chunks + len(stats.decode_step_s)
-    check(counts["wkv6"] == 32 * steps,
-          f"{tag}: {counts['wkv6']} wkv6 launches, want 32 x "
+    check(counts["wkv6"] == layers * steps,
+          f"{tag}: {counts['wkv6']} wkv6 launches, want {layers} x "
           f"({stats.prefill_chunks} prefill chunks + "
           f"{len(stats.decode_step_s)} decode steps)")
     check(sum(counts.values()) == counts["wkv6"],
           f"{tag}: another port kernel launched: {counts}")
-    print(f"[{tag}] wkv6 launches {counts['wkv6']} = 32 x "
+    print(f"[{tag}] wkv6 launches {counts['wkv6']} = {layers} x "
           f"({stats.prefill_chunks} prefill chunks + "
           f"{len(stats.decode_step_s)} decode steps)", flush=True)
     results["launches"]["wkv6"] += counts["wkv6"]
@@ -4123,7 +4370,8 @@ def phase_prefix_family(tag, arch, cfg, params, results):
         eng, stats, counts, drop = _prefix_run(tag, arch, PREFIX_ARGV, cfg,
                                                params, mode, moe=moe)
         if arch == "rwkv6-3b":
-            _wkv_launches(f"{tag} {mode}", stats, counts, results)
+            _wkv_launches(f"{tag} {mode}", stats, counts, results,
+                          cfg.num_layers)
         else:
             _no_port_kernel(f"{tag} {mode}", stats, counts)
         if moe:
@@ -4146,7 +4394,8 @@ def phase_prefix_family(tag, arch, cfg, params, results):
             tag, arch, PREFIX_ARGV, cfg, params, "off",
             extra=["--fault-rate", "0.1", "--max-retries", "10"])
         del eng
-        _wkv_launches(f"{tag} off chaos", chaos, counts, results)
+        _wkv_launches(f"{tag} off chaos", chaos, counts, results,
+                      cfg.num_layers)
         _same_tokens(tag, chaos, off, "off under 10% faults against off")
         check(chaos.faults_injected > 0, f"{tag}: no fault fired at 10%")
         print(f"[{tag}] chaos: tokens == the fault-free off run's; "
@@ -4167,8 +4416,8 @@ def phase_prefix_family(tag, arch, cfg, params, results):
 
 
 def phase_prefix(results: dict):
-    """Phase 28: prefix reuse on full-width llama3-8b (bf16), one copy of
-    the weights. The shared-prefix workload under off, chain and radix:
+    """Phase 28: prefix reuse on llama3-8b cut to SERVE_LAYERS (bf16), one
+    copy of the weights. The shared-prefix workload under off, chain and radix:
     tokens bitwise equal, radix hits and fewer prefill chunks, no port
     kernel launched. The branching workload twice on one radix engine with
     a 24-page pool: wave 1 spills, wave 2 rehydrates, both waves' tokens
@@ -4186,9 +4435,10 @@ def phase_prefix(results: dict):
     from repro_torch.models import transformer as T
     from repro_torch.serve import SpillTier
     tag = "prefix llama3-8b"
-    cfg = get_config("llama3-8b")
+    cfg = serve_cut("llama3-8b")
     params = T.init_params(cfg, 0, "cuda")
-    print(f"[{tag}] {cfg.num_layers} layers (no depth cut), {cfg.dtype}, 4 "
+    print(f"[{tag}] {cfg.num_layers} layers (cut 32 -> {SERVE_LAYERS}), "
+          f"{cfg.dtype}, 4 "
           f"slots, pages of 16, 8 requests x (128 prompt + 32 new), shared "
           f"prefix 96, greedy [{card_line()}]", flush=True)
     runs = {}
@@ -4639,6 +4889,77 @@ def _tree_to(tree, device):
     return tree_map(lambda a: a.to(device), tree)
 
 
+# of the card's host's 8 cores: 8 workers beside the main process ran
+# slower than 7 (336 against 279 CPU-s of records, NVIDIA H100 80GB HBM3,
+# 700.00 W)
+DRYRUN_WORKERS = 7
+
+
+def _dryrun_cell(arch: str, shape: str, mode: str, device_bytes: int):
+    """One cell of the `meta` dry run, in a worker process."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun
+    return dryrun.safe_run_cell(arch, shape, mode, device_bytes=device_bytes)
+
+
+def phase_dryrun():
+    """The last phase: `launch.dryrun` on `meta` for every (arch, shape)
+    cell, its train cells in both modes (a serving cell trains nothing, so
+    its record is the same in both: it runs once), in DRYRUN_WORKERS
+    worker processes, each record held against the card's memory; one
+    line a cell and the phase's wall time. Every cell the reference runs
+    must be OK and every other SKIP with its reason. Before it, one
+    `--device cuda` cell: llama3-8b train_4k sparse, its step on the card
+    at batch 1 x 4096, the launches its plan derives."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch.configs import SHAPES, all_cells, cell_is_skipped
+    from repro_torch.launch import dryrun
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    rec = dryrun.run_cell("llama3-8b", "train_4k", "sparse", device="cuda",
+                          batch=1, device_bytes=total)
+    print(f"[dryrun] llama3-8b__train_4k__1__sparse --device cuda: "
+          f"{dryrun.summary(rec)} ({card_line()})", flush=True)
+    card = rec["cuda"]
+    check(rec["status"] == "OK" and card["status"] == "OK"
+          and card["launches"] == card["plan_launches"],
+          f"dryrun --device cuda: {card}")
+
+    t0 = time.perf_counter()
+    cells = [(a, s, m) for a, s in all_cells()
+             for m in (("sparse", "dense") if SHAPES[s].kind == "train"
+                       else ("sparse",))]
+    cost = {"prefill": 0, "train": 1, "decode": 2}     # longest first
+    cells.sort(key=lambda c: cost[SHAPES[c[1]].kind])
+    ctx = multiprocessing.get_context("spawn")
+    workers = max(1, min(DRYRUN_WORKERS, len(os.sched_getaffinity(0))))
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=ctx) as pool:
+        futures = [pool.submit(_dryrun_cell, a, s, m, total)
+                   for a, s, m in cells]
+        records = [f.result() for f in futures]
+    wall = time.perf_counter() - t0
+    bad = []
+    for (arch, shape, mode), rec in sorted(zip(cells, records)):
+        modes = mode if SHAPES[shape].kind == "train" else "sparse = dense"
+        print(f"[dryrun] {arch}__{shape}__1__{modes}: "
+              f"{dryrun.summary(rec)}", flush=True)
+        skip = cell_is_skipped(arch, shape)
+        if rec["status"] != ("SKIP" if skip else "OK") or \
+                rec.get("skip_reason") != skip:
+            bad.append((arch, shape, mode, rec.get("error")))
+    ok = sum(r["status"] == "OK" for r in records)
+    fits = sum(bool(r.get("fits_one_h100")) for r in records)
+    print(f"[dryrun] {len(records)} records ({ok} OK, {fits} fit one card "
+          f"of {total} B) on meta in {wall:.1f} s wall, {workers} "
+          f"workers; the records' meta seconds sum to "
+          f"{sum(r.get('meta_s', 0) for r in records):.1f}", flush=True)
+    check(not bad, f"dryrun cells not as the reference runs them: {bad}")
+
+
 def kernels_line(results: dict) -> dict:
     """The kernels' JSON line. Times: block_sparse_dw summed over the 7 leaf
     shapes of one trainable LM layer, fused_block_opt over the 7 leaves of
@@ -4701,7 +5022,8 @@ def main() -> int:
     phase_profile(tc, out)
     del out
     torch.cuda.empty_cache()
-    phase_compact_vs_dense(get_config("llama3-8b"))
+    phase_memory(*phase_compact_vs_dense(get_config("llama3-8b"),
+                                         memory=True))
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[chip_smoke] LM phases done at {time.perf_counter() - t0:.0f} s;"
@@ -4790,8 +5112,8 @@ def main() -> int:
                     model=command_r_cut(),
                     cut=f"cut 40 -> {COMMAND_R_LAYERS}: the uncut bf16 "
                         f"params, the tied head's fp32 copy and AdamW's "
-                        f"state leave no room for a step; 16 for the "
-                        f"run's time limit")
+                        f"state leave no room for a step; "
+                        f"{COMMAND_R_LAYERS} for the run's time limit")
     phase_compact_vs_dense(command_r_cut(), "command-r-compact-vs-dense",
                            batch=1, seq=4096, one_at_a_time=True)
     phase_text_arch(results, "scout", SCOUT_ARGV, "blocks/attn/wo",
@@ -4825,6 +5147,11 @@ def main() -> int:
     phase_robust(results, *held)
     del held
     print(f"[chip_smoke] phase_robust done at {time.perf_counter() - t0:.0f}"
+          f" s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_dryrun()
+    print(f"[chip_smoke] phase_dryrun done at {time.perf_counter() - t0:.0f}"
           f" s", flush=True)
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t0:.0f} s",
           flush=True)

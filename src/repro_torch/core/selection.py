@@ -138,6 +138,7 @@ def random_selection(plan: SelectionPlan, seed: int, step: int,
     seeded by (seed, step, segment, leaf), so a draw depends on nothing
     carried across steps and a resumed run draws the same. Returns the idx
     tree: segment -> nested {leaf: int32 [K, n_shards, n_sel]}."""
+    meta = torch.device(device).type == "meta"   # shapes only: no draw
     idx = {}
     for seg_name, steps in plan.seg_trainable.items():
         if steps == 0:
@@ -145,7 +146,7 @@ def random_selection(plan: SelectionPlan, seed: int, step: int,
             continue
         tree: dict = {}
         for path, sp in _spec_leaves(plan.spec[seg_name]):
-            gen = torch.Generator(device=device).manual_seed(
+            gen = None if meta else torch.Generator(device=device).manual_seed(
                 draw_seed(seed, step, seg_name, path))
             u = torch.rand((steps, sp.n_shards, sp.n_blocks), generator=gen,
                            device=device)

@@ -22,11 +22,13 @@ Two backward forms, as in the reference package:
 
 - dense-scatter (`_SMM`): the compact dW is scattered into a zero [K, N]
   buffer, the weight's full-shape gradient, and the optimizer sweeps it.
-- compact (`_SMMCompact`): the train step gathers the selected blocks of
-  each selectable weight into `w_sel` [K, n_shards, n_sel, block] and
-  differentiates with respect to it; the full weight enters the forward
-  detached. The backward hands the compact dW to `w_sel` directly, and
-  `optim.apply_updates_mixed` updates the selected blocks in place.
+- compact (`_SMMCompact`): the train step differentiates with respect to
+  `w_sel`, a tensor of the selected blocks' shape [K, n_shards, n_sel,
+  block] (the reference gathers the blocks into it; the forward never
+  reads them, so the port's holds no storage: `selected_grad_targets`);
+  the full weight enters the forward detached. The backward hands the
+  compact dW to `w_sel` directly, and `optim.apply_updates_mixed` updates
+  the selected blocks in place.
 
 The equivalence guarantees between the two are the reference's: SGD
 (momentum 0, no weight decay) bitwise; momentum / AdamW identical under a
@@ -271,6 +273,30 @@ def gather_selected_tree(segments, idx_tree, spec_tree):
             out[seg] = None
             continue
         out[seg] = walk(segments[seg], idx_tree[seg], spec)
+    return out
+
+
+def selected_grad_targets(segments, idx_tree, spec_tree):
+    """The compact gradient's targets: for each SelSpec leaf, a leaf tensor
+    requiring grad with the shape and dtype of its gathered selected blocks
+    (`gather_selected_tree`'s) but no storage: a stride-0 view of one zero.
+    The compact matmuls never read `w_sel`'s values, only hand it the
+    compact dW, so the step need not hold a gathered copy of the selected
+    blocks (2 x 87 MB at llama3-8b's K = 2, r = 0.2)."""
+    def walk(stack, spec):
+        if isinstance(spec, SelSpec):
+            shape = tuple(stack.shape[:-1]) + (spec.n_shards, spec.n_sel,
+                                               spec.block)
+            return torch.zeros((), dtype=stack.dtype, device=stack.device
+                               ).expand(shape).requires_grad_(True)
+        return {key: walk(stack[key], spec[key]) for key in spec}
+
+    out = {}
+    for seg, spec in spec_tree.items():
+        if idx_tree.get(seg) is None or seg not in segments or not spec:
+            out[seg] = None
+            continue
+        out[seg] = walk(segments[seg], spec)
     return out
 
 

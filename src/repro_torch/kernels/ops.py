@@ -480,6 +480,8 @@ def wkv6_fwd(r, k, v, w, u, s0=None, want_state: bool = False):
                  f"wkv6: s0 must be float32 [B, H, D, D] = {(b, h, d, d)}, "
                  f"contiguous, on {r.device}; got {s0.dtype} "
                  f"{tuple(s0.shape)} on {s0.device}")
+    if r.is_meta:
+        return ref.wkv6_meta(r, k, v, w, u, s0=s0, want_state=want_state)
     if not r.is_cuda:
         return ref.wkv6_ref(r, k, v, w, u, s0=s0, want_state=want_state)
     from repro_torch.kernels.build import load
@@ -502,6 +504,8 @@ def wkv6_bwd(r, k, v, w, u, dy):
     dw, du), du [H, D]. The kernels write du per batch row and chunk of
     time; its sum over both is taken here, in a fixed order."""
     _check_wkv("wkv6_bwd", (r, k, v, w, dy), u)
+    if r.is_meta:
+        return ref.wkv6_bwd_meta(r, k, v, w, u, dy)
     if not r.is_cuda:
         return ref.wkv6_bwd_ref(r, k, v, w, u, dy)
     from repro_torch.kernels.build import load

@@ -178,6 +178,19 @@ def wkv6_ref(r, k, v, w, u, s0=None, want_state: bool = False):
     return (y, s) if want_state else y
 
 
+def wkv6_meta(r, k, v, w, u, s0=None, want_state: bool = False):
+    """`wkv6_ref` on `meta` tensors (a dry run): its per-step products as
+    one batched product over every step, so the outputs' shapes and the
+    matmul FLOPs a `FlopCounterMode` counts are the step loop's, without
+    its T iterations. No values: the states are uninitialized."""
+    b, t, h, d = r.shape
+    states = torch.empty((b, t, h, d, d), dtype=torch.float32,
+                         device=r.device)
+    y = torch.einsum("bthd,bthde->bthe", r.float(), states)
+    s = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
+    return (y, s) if want_state else y
+
+
 def wkv6_bwd_ref(r, k, v, w, u, dy):
     """The gradient of `wkv6_ref`, written out (no autograd): the states
     S_0..S_{T-1} forward, then dS backward in time,
@@ -215,3 +228,16 @@ def wkv6_bwd_ref(r, k, v, w, u, dy):
         du = du + (rt * kt * dyv).sum(0)
         g = rt[..., :, None] * dyt[..., None, :] + wt[..., :, None] * g
     return dr, dk, dv, dw, du
+
+
+def wkv6_bwd_meta(r, k, v, w, u, dy):
+    """`wkv6_bwd_ref` on `meta` tensors, as `wkv6_meta`: its three
+    per-step products (dr, dk, dv) batched over every step."""
+    b, t, h, d = r.shape
+    states = torch.empty((b, t, h, d, d), dtype=torch.float32,
+                         device=r.device)
+    dr = torch.einsum("bthde,bthe->bthd", states, dy.float())
+    dk = torch.einsum("bthde,bthe->bthd", states, v.float())
+    dv = torch.einsum("bthde,bthd->bthe", states, k.float())
+    return dr, dk, dv, torch.empty_like(dr), torch.empty(
+        u.shape, dtype=torch.float32, device=r.device)

@@ -145,6 +145,8 @@ def selective_scan(a, dt, xc, b_ssm, c, h0):
     if s % q:
         raise ValueError(f"mamba: sequence {s} is not a multiple of the "
                          f"scan's chunk of {q} steps")
+    if dt.is_meta:
+        return _selective_scan_meta(a, dt, xc, b_ssm, c, h0, q)
     h = h0
     ys = []
     for i in range(0, s, q):
@@ -156,6 +158,26 @@ def selective_scan(a, dt, xc, b_ssm, c, h0):
             h, y = _ssm_chunk(*args)
         ys.append(y)
     return torch.cat(ys, dim=1), h
+
+
+def _selective_scan_meta(a, dt, xc, b_ssm, c, h0, q: int):
+    """`selective_scan` on `meta` tensors (a dry run): every chunk at once,
+    as a batch of S / q chunks, each from h0. The shapes and the matmul
+    FLOPs a `FlopCounterMode` counts are the chunk loop's (the chunk's
+    product is linear in the batch), without its S / q iterations. No
+    values."""
+    b, s, d = dt.shape
+    n_chunks = s // q
+    chunks = lambda t: t.reshape((b * n_chunks, q) + tuple(t.shape[2:]))
+    h0s = h0[:, None].expand((b, n_chunks) + tuple(h0.shape[1:])).reshape(
+        (b * n_chunks,) + tuple(h0.shape[1:]))
+    args = (a, h0s, chunks(dt), chunks(xc), chunks(b_ssm), chunks(c))
+    if torch.is_grad_enabled():
+        h, y = checkpoint(_ssm_chunk, *args, use_reentrant=False)
+    else:
+        h, y = _ssm_chunk(*args)
+    h_last = h.reshape((b, n_chunks) + tuple(h.shape[1:]))[:, -1]
+    return y.reshape(b, s, d), h_last
 
 
 def apply_mamba(p, cfg, x, sel=None, cache=None, length=None):

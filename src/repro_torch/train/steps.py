@@ -25,8 +25,8 @@ from repro_torch.configs.base import (ShapeConfig, SparseUpdateConfig,
 from repro_torch.core.schedule import maybe_reselect
 from repro_torch.core.selection import (SelectionPlan, build_plan,
                                         magnitude_selection, random_selection)
-from repro_torch.core.sparse_update import (gather_selected_tree,
-                                            map_selectable, merge_stack,
+from repro_torch.core.sparse_update import (map_selectable, merge_stack,
+                                            selected_grad_targets,
                                             split_stack, tree_leaves,
                                             tree_map)
 from repro_torch.models import transformer as T
@@ -158,10 +158,8 @@ def make_train_step(tc: TrainConfig, plan: SelectionPlan,
             # gradient arrives compactly via `wsel`
             t_tree = map_selectable(t_tree, {"segments": plan.spec},
                                     lambda a: a.detach())
-            wsel = gather_selected_tree(trainable.get("segments", {}),
-                                        sel_idx, plan.spec)
-            wsel = tree_map(lambda a: None if a is None
-                            else a.requires_grad_(True), wsel)
+            wsel = selected_grad_targets(trainable.get("segments", {}),
+                                         sel_idx, plan.spec)
             loss, metrics = T.loss_fn(cfg, (frozen, t_tree), batch,
                                       sel=(sel_idx, plan.spec, wsel),
                                       remat=remat)

@@ -56,7 +56,9 @@ def test_importing_every_port_module_loads_neither_jax_nor_repro():
             "repro_torch.checkpoint.manager",
             "repro_torch.checkpoint.msgpack", "repro_torch.runtime",
             "repro_torch.runtime.fault",
-            "repro_torch.runtime.chaos"} <= set(mods)
+            "repro_torch.runtime.chaos", "repro_torch.launch.specs",
+            "repro_torch.launch.dryrun",
+            "repro_torch.launch.trace_analysis"} <= set(mods)
     assert len(mods) > 15
     code = (
         "import importlib, sys\n"

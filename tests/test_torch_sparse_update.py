@@ -153,6 +153,31 @@ def test_map_selectable_and_gather_selected_tree():
                                   spec_tree) == {"blocks": None}
 
 
+def test_selected_grad_targets_have_the_gathered_shape_and_no_storage():
+    """The compact step's gradient targets: the shape and dtype of
+    `gather_selected_tree`'s blocks, leaves requiring grad, every stride 0
+    (one element of storage, whatever the shape)."""
+    spec = P.SelSpec(block=4, n_shards=2, n_sel=1, n_blocks=3)
+    stack = {"mlp": {"w_up": torch.zeros((2, 5, 24), dtype=torch.bfloat16)},
+             "moe": {"w_gate": torch.zeros((2, 3, 5, 24))}}
+    spec_tree = {"blocks": {"mlp": {"w_up": spec}, "moe": {"w_gate": spec}}}
+    idx = {"blocks": {"mlp": {"w_up": torch.zeros((2, 2, 1),
+                                                  dtype=torch.int32)},
+                      "moe": {"w_gate": torch.zeros((2, 2, 1),
+                                                    dtype=torch.int32)}}}
+    want = P.gather_selected_tree({"blocks": stack}, idx, spec_tree)
+    got = P.selected_grad_targets({"blocks": stack}, idx, spec_tree)
+    for name in (("mlp", "w_up"), ("moe", "w_gate")):
+        g = got["blocks"][name[0]][name[1]]
+        w = want["blocks"][name[0]][name[1]]
+        assert (g.shape, g.dtype) == (w.shape, w.dtype)
+        assert g.is_leaf and g.requires_grad
+        assert set(g.stride()) == {0} and g.untyped_storage().nbytes() == \
+            g.element_size()
+    assert P.selected_grad_targets({"blocks": stack}, {"blocks": None},
+                                   spec_tree) == {"blocks": None}
+
+
 @pytest.mark.parametrize("n_trainable", [0, 1, 2, 3, 5])
 def test_split_merge_stack_match_reference(n_trainable):
     rng = np.random.default_rng(n_trainable)
