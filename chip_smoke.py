@@ -262,13 +262,29 @@ Phases (any failure exits non-zero and prints no result):
    phase 13's 7 / 14 / 7 scatter / dW / optimizer launches. Each run
    prints its wall seconds, decode median and robustness counts.
 
-30. the dry run (`launch.dryrun`), last: llama3-8b's train_4k cell with
+30. the dry run (`launch.dryrun`): llama3-8b's train_4k cell with
    `--device cuda` (its step on the card at batch 1 x 4096: peak and
    extra bytes beside the analytic model, the launches its plan
    derives), then every (arch, shape) cell on `meta`, the train cells
    sparse and dense, in worker processes: bytes of the state, batch and
    cache, the analytic extra, FLOPs, whether it fits the card; every
    cell the reference runs OK, the others SKIP with its reason.
+31. the compact train step on a (data, model) process mesh
+   (`launch.mesh_train` in 4 ranks spawned once, sharing cuda:0 over
+   gloo: one card, so no time is a tensor-parallel speed figure), tensor,
+   vocab and expert parallel over `model`, the compact dW all-reduced
+   over `data`: (a) f32 parity, llama3-8b at full width cut to 2 layers,
+   mesh (2, 2), batch 2 x 256, 3 compact momentum steps against the same
+   step on one process (losses, every rank's selected blocks, unselected
+   and frozen blocks bitwise, each rank's launches its plan's); (b)
+   full-width, full-depth bf16 llama3-8b on (2, 2), batch 4 x 1024 with
+   phase 4's flags: its losses against phase 4's, per rank the steady
+   step ms, peak bytes, launches and bytes all-reduced a step by kind
+   (the compact dW's equal to the rank's compact tensors'); (c) the
+   dense-scatter step on (a)'s mesh with compact_allreduce off and on:
+   equal updates, the dW bytes r of the full gradient's; (d)
+   deepseek-moe-16b cut to 4 layers on (1, 2) (32 experts a rank)
+   against the one-process step: losses and the dropped share.
 
 Phases 24-26 also run the shared-prefix workload of phase 28 on the
 weights they hold, `off` then `radix` (pages of 16; MoE layers at capacity
@@ -313,6 +329,7 @@ import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -494,8 +511,10 @@ def _rows(prof) -> list:
 
 # windows that lose kernels come at random, more often late in a long
 # process (PERF.md §6-7): a window that lost one is profiled again, up to
-# this many windows in all
-PROFILE_ATTEMPTS = 8
+# this many windows in all (8 until one run's 8 windows of a replay all
+# lost kernels, and a later run needed 6; a window costs milliseconds to
+# a few seconds, and only when the one before it lost kernels)
+PROFILE_ATTEMPTS = 24
 
 
 def device_ms(fn, reps: int = 20, warmup: int = 2, flush=None,
@@ -511,18 +530,26 @@ def device_ms(fn, reps: int = 20, warmup: int = 2, flush=None,
     window must hold all reps x launches of it, else it is profiled again
     (at most PROFILE_ATTEMPTS times): a profiler window on the card can
     lose kernels (PERF.md §6), and one that did would time fewer calls
-    than reps."""
-    from torch.profiler import ProfilerActivity, profile
+    than reps. A window profiled again first runs the reps once under a
+    schedule that discards them (windows have lost their first kernels,
+    the same number window after window), then records the next reps."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if flush is not None:
-                    flush.zero_()
-                fn()
-            torch.cuda.synchronize()
+    for attempt in range(PROFILE_ATTEMPTS):
+        sched = None if attempt == 0 else schedule(wait=0, warmup=1,
+                                                   active=1, repeat=1)
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=sched) as prof:
+            for _ in range(1 if sched is None else 2):
+                for _ in range(reps):
+                    if flush is not None:
+                        flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+                if sched is not None:
+                    prof.step()
         rows = _rows(prof)
         if kernel is None:
             break
@@ -4905,7 +4932,7 @@ def _dryrun_cell(arch: str, shape: str, mode: str, device_bytes: int):
 
 
 def phase_dryrun():
-    """The last phase: `launch.dryrun` on `meta` for every (arch, shape)
+    """Phase 30: `launch.dryrun` on `meta` for every (arch, shape)
     cell, its train cells in both modes (a serving cell trains nothing, so
     its record is the same in both: it runs once), in DRYRUN_WORKERS
     worker processes, each record held against the card's memory; one
@@ -4960,6 +4987,398 @@ def phase_dryrun():
     check(not bad, f"dryrun cells not as the reference runs them: {bad}")
 
 
+MESH = (2, 2)                # (data, model)
+MESH_DEVICE = "cuda"         # every rank on cuda:0
+MESH_TIMEOUT_S = 300         # a collective waiting longer fails the phase
+MESH_PARITY_LAYERS = 2       # (a), (c): llama3-8b at full width, f32
+MESH_PARITY_BATCH = (2, 256)  # global batch x seq of (a) and (c)
+MESH_MOE_LAYERS = 4          # (d): deepseek-moe-16b cut as phase 12
+MESH_MOE_BATCH = (2, 1024)
+# bounds: f32 losses relative, f32 updated blocks absolute (the CPU mesh
+# tests' bounds). bf16 losses relative, 2x the readings (bf16 rounds the
+# row-parallel partial sums before the all-reduce adds them; one device
+# adds in fp32 inside one matmul): they guard the forward and its
+# collectives, not the update, whose effect on the loss over these few
+# steps is below that rounding (a run with no update reads less; both are
+# printed). The update is guarded by the selected blocks against one
+# process's: their column sums' difference over the update's, below a
+# rank that skips its update (1). The dropped share absolute, below a
+# rank that sizes its capacity for all experts.
+MESH_LOSS_F32 = 1e-5
+MESH_BLOCKS_F32 = 1e-5
+MESH_LOSS_B = 3e-5           # (b) against one process and phase 4
+MESH_LOSS_D = 2.5e-4         # (d) against one process
+MESH_BLOCKS_B = 0.3
+MESH_BLOCKS_D = 0.6
+MESH_DROPPED = 0.005
+
+
+def _mesh_tc(cfg, batch: int, seq: int, steps: int, kind: str, lr: float,
+             k: int, compact: bool = True):
+    """A TrainConfig whose selection stays fixed for all `steps`."""
+    from repro_torch.configs import (OptimizerConfig, ShapeConfig,
+                                     SparseUpdateConfig, TrainConfig)
+    return TrainConfig(
+        model=cfg, shape=ShapeConfig("mesh", seq, batch, "train"),
+        sparse=SparseUpdateConfig(update_ratio=0.2, num_update_layers=k,
+                                  channel_block=128,
+                                  phase_fixed_early=steps, phase_dynamic=0,
+                                  seed=0),
+        optimizer=OptimizerConfig(kind=kind, learning_rate=lr,
+                                  momentum=0.9 if kind == "momentum"
+                                  else 0.0),
+        steps=steps, seed=0, compact_grads=compact)
+
+
+def _single_rank(tc, shape, batches) -> dict:
+    """The same step on one process on the card, under the plan the mesh's
+    rules give (a fake mesh of the mesh's shape): {"losses", "dropped"
+    (shares), "sel" (the start selection as numpy), "plan", "control"
+    (the start params' loss on the last batch, forward only: what a run
+    that skips every update reads at its last step), for MoE
+    "control_dropped" (the start params' dropped share on the last batch
+    with the capacity a rank would size for its local experts as if they
+    were all), "blocks" and "start" (the selected blocks at the end, and
+    the start params' at the same places, on the card)}."""
+    from types import SimpleNamespace
+    from repro_torch import sharding as SH
+    from repro_torch.core.sparse_update import gather_selected_tree, tree_map
+    from repro_torch.launch.specs import rules_for
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.train import make_train_state, make_train_step
+    fake = SimpleNamespace(shape={"data": shape[0], "model": shape[1]},
+                           axis_names=("data", "model"))
+    with SH.use_rules(rules_for(fake, tc.model, tc.shape)):
+        state, plan = make_train_state(tc, device=MESH_DEVICE)
+    out = {"plan": plan, "losses": [], "dropped": [], "sel": {
+        s: None if t is None else tree_map(lambda a: a.cpu().numpy(), t)
+        for s, t in state["sel_idx"].items()}}
+    start = tree_map(torch.clone, state["params_trainable"]["segments"])
+
+    def on_card(b):
+        return {k: torch.from_numpy(v).to(MESH_DEVICE) for k, v in b.items()}
+    pair = (state["params_frozen"], state["params_trainable"])
+    with torch.no_grad():
+        loss, _ = T.loss_fn(tc.model, pair, on_card(batches[-1]),
+                            remat=False)
+        out["control"] = float(loss)
+        if tc.model.moe is not None:
+            # a rank that sizes its capacity for its local experts as if
+            # they were all of them: shape[1] times the capacity
+            moe = tc.model.moe
+            faulty = dataclasses.replace(tc.model, moe=dataclasses.replace(
+                moe, capacity_factor=moe.capacity_factor * shape[1]))
+            with MOE.record_routing() as routing:
+                T.loss_fn(faulty, pair, on_card(batches[-1]), remat=False)
+            out["control_dropped"] = sum(int(d) for d, _ in routing) / \
+                sum(n for _, n in routing)
+    step = make_train_step(tc, plan)
+    for b in batches:
+        with MOE.record_routing() as routing:
+            state, m = step(state, on_card(b))
+        out["losses"].append(float(m["loss"]))
+        if routing:
+            out["dropped"].append(sum(int(d) for d, _ in routing)
+                                  / sum(n for _, n in routing))
+    out["blocks"] = gather_selected_tree(
+        state["params_trainable"]["segments"], state["sel_idx"], plan.spec)
+    out["start"] = gather_selected_tree(start, state["sel_idx"], plan.spec)
+    del state, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves_by_path(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_leaves_by_path(v, f"{prefix}/{k}"))
+        return out
+    return {} if tree is None else {prefix: tree}
+
+
+def _mesh_blocks_diff(ref: dict, rank, tc, shape, key: str = "blocks"):
+    """A rank's selected blocks against its view of the one-process run's
+    (`_single_rank`): (the largest |difference|, the
+    difference's norm over the norm of the one-process update, that is its
+    end blocks less its start blocks at the same places). A rank that skips
+    its update reads 1 on the second. key "block_sums": the rank returned
+    each block's column sums (`mesh_train`), and both sides are compared
+    as those sums."""
+    from types import SimpleNamespace
+    from repro_torch.launch.mesh_train import block_shardings
+    from repro_torch.launch.specs import (rules_for, shard_local,
+                                          tree_shardings)
+    from repro_torch.models.registry import abstract_params
+    from repro_torch.models.specs import param_logical_specs
+    from repro_torch.train.steps import split_params
+    fake = SimpleNamespace(shape={"data": shape[0], "model": shape[1]},
+                           axis_names=("data", "model"))
+    plan = ref["plan"]
+    _, trainable = split_params(abstract_params(tc.model), plan)
+    psh = tree_shardings(trainable, param_logical_specs(tc.model),
+                         rules_for(fake, tc.model, tc.shape))["segments"]
+    bsh = block_shardings(psh, plan.spec)
+    want, start = (_leaves_by_path(shard_local(
+        {s: ref[part][s] for s in bsh}, bsh, fake.shape, rank["coords"]))
+        for part in ("blocks", "start"))
+    got = _leaves_by_path({s: rank[key][s] for s in bsh})
+    check(set(got) == set(want), f"mesh blocks: leaves {sorted(got)} "
+          f"against {sorted(want)}")
+    big, diff2, upd2 = 0.0, 0.0, 0.0
+    for path, w in want.items():
+        s0 = start[path]
+        if key == "block_sums":
+            w, s0 = w.float().sum(-1), s0.float().sum(-1)
+        w = w.to(torch.float64)
+        d = got[path].to(w.device, torch.float64) - w
+        big = max(big, float(d.abs().max()))
+        diff2 += float((d * d).sum())
+        u = w - s0.to(torch.float64)
+        upd2 += float((u * u).sum())
+    return big, math.sqrt(diff2 / upd2)
+
+
+def phase_mesh(results: dict, main_losses: list):
+    """Phase 31: the compact train step on a (data, model) process mesh,
+    tensor / vocab / expert parallel over `model`, the compact dW
+    all-reduced over `data` (`launch.mesh_train` in ranks spawned once,
+    `launch.mesh.spawn`). The ranks share cuda:0 over gloo: this is one
+    card, so no time here is a speed figure for tensor parallelism.
+    Each run is held against the same step on one process on the card
+    under the mesh's own plan (`_single_rank`: same params from the seed,
+    same batches; (a), (c), (d) the same selection too).
+    (a) f32 parity: llama3-8b at full width cut to 2 layers (K = 1), mesh
+    (2, 2), global batch 2 x 256, 3 compact momentum steps: losses, every
+    rank's selected blocks, unselected and frozen blocks bitwise, launches
+    per rank equal to the plan's. (b) the slice's path at full width:
+    full-depth bf16 llama3-8b, mesh (2, 2), global batch 4 x 1024, phase
+    4's flags (K = 2, r = 0.2, block 128, AdamW, 6 steps, j = k = 2, the
+    ranks selecting by magnitude on their shards): losses against the one
+    process's and phase 4's, every rank's selected blocks (as their column
+    sums) against the one process's, data twins bitwise equal, steady step
+    ms, peak bytes, launches (the plan's every step) and the bytes
+    all-reduced a step by kind, the compact dW's equal to the rank's
+    compact tensors'. (c) the dense-scatter step on (a)'s mesh,
+    compact_allreduce off and on: the same updates bitwise, the dW bytes r
+    of the full-shape gradient's. (d) expert parallelism: deepseek-moe-16b
+    at full width cut to 4 layers, mesh (1, 2) (32 of 64 experts a rank),
+    3 compact AdamW steps: losses, the dropped share and every rank's
+    selected blocks (column sums). Faulted controls are read in every run
+    and printed beside the bounds (see MESH_LOSS_B)."""
+    import itertools
+    from repro_torch.configs import get_config
+    from repro_torch.data import lm_batches
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as MESHES
+    from repro_torch.launch import mesh_train, train
+    from repro_torch.launch.trace_analysis import plan_launches
+
+    t0 = time.perf_counter()
+    build.build_all()            # the ranks load these libraries
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mesh] {MESH[0] * MESH[1]} ranks share cuda:0 over gloo (one "
+          f"card: no time here is a speed figure for tensor parallelism); "
+          f"{card_line()}", flush=True)
+
+    def batches(cfg, b, s, n):
+        return list(itertools.islice(lm_batches(b, s, cfg.vocab_size,
+                                                seed=0), n))
+
+    # the one-process runs first, their memory freed after (their blocks
+    # stay on the card for the comparisons)
+    cfg_a = dataclasses.replace(get_config("llama3-8b"),
+                                num_layers=MESH_PARITY_LAYERS,
+                                dtype="float32")
+    tc_a = _mesh_tc(cfg_a, *MESH_PARITY_BATCH, 3, "momentum", 0.05, 1)
+    b_a = batches(cfg_a, *MESH_PARITY_BATCH, 3)
+    ref_a = _single_rank(tc_a, MESH, b_a)
+    tc_c = _mesh_tc(cfg_a, *MESH_PARITY_BATCH, 2, "sgd", 0.1, 1,
+                    compact=False)
+    cfg_d = dataclasses.replace(get_config("deepseek-moe-16b"),
+                                num_layers=MESH_MOE_LAYERS)
+    tc_d = _mesh_tc(cfg_d, *MESH_MOE_BATCH, 3, "adamw", 1e-3, 2)
+    b_d = batches(cfg_d, *MESH_MOE_BATCH, 3)
+    ref_d = _single_rank(tc_d, (1, 2), b_d)
+    # (b): phase 4's flags and batches, on one process under the mesh's plan
+    tc_b = train.train_config(train.build_argparser().parse_args(MAIN_ARGV))
+    b_b = batches(tc_b.model, tc_b.shape.global_batch, tc_b.shape.seq_len,
+                  tc_b.steps)
+    ref_b = _single_rank(tc_b, MESH, b_b)
+    t_ref = time.perf_counter() - t0
+    common = dict(device=MESH_DEVICE, rules="train")
+    jobs = [
+        dict(name="a", cfg=cfg_a, mesh=MESH, tc=tc_a, steps=3, params=None,
+             sel_idx=ref_a["sel"], batches=b_a,
+             returns=("blocks", "unselected", "frozen"), **common),
+        dict(name="c-off", cfg=cfg_a, mesh=MESH, tc=tc_c, steps=2,
+             compact=False, params=None, sel_idx=ref_a["sel"], batches=b_a,
+             returns=("blocks_digest", "unselected"), **common),
+        dict(name="c-on", cfg=cfg_a, mesh=MESH, tc=tc_c, steps=2,
+             compact=False, cgr=True, params=None, sel_idx=ref_a["sel"],
+             batches=b_a, returns=("blocks_digest", "unselected"), **common),
+        dict(name="d", cfg=cfg_d, mesh=(1, 2), tc=tc_d, steps=3,
+             params=None, sel_idx=ref_d["sel"], batches=b_d,
+             returns=("block_sums",), **common),
+        dict(name="b", cfg=tc_b.model, mesh=MESH, tc=tc_b, steps=6,
+             params=None, sel_idx=None, batches=b_b,
+             returns=("block_sums", "blocks_digest"), **common),
+    ]
+    t1 = time.perf_counter()
+    ranks = MESHES.spawn(mesh_train.run_jobs, MESH[0] * MESH[1],
+                         args=(jobs,), timeout_s=MESH_TIMEOUT_S)
+    t_ranks = time.perf_counter() - t1
+    res = {job["name"]: [r[i] for r in ranks if r[i] is not None]
+           for i, job in enumerate(jobs)}
+
+    def rel(losses, want):
+        return max(abs(x - y) / abs(y) for x, y in zip(losses, want))
+
+    def control(ref, want_last):
+        # the start params' loss at the last step against that step's
+        return abs(ref["control"] - want_last) / abs(want_last)
+
+    # (a)
+    want_a = plan_launches(cfg_a, ref_a["plan"])
+    for r in res["a"]:
+        losses = [s["loss"] for s in r["steps"]]
+        la = rel(losses, ref_a["losses"])
+        big, urel = _mesh_blocks_diff(ref_a, r, tc_a, MESH)
+        print(f"[mesh a] rank {r['coords']}: losses {losses} (one process "
+              f"{ref_a['losses']}; largest relative difference {la:.3e}, "
+              f"bound {MESH_LOSS_F32}, a run with no update "
+              f"{control(ref_a, ref_a['losses'][-1]):.3e}); selected "
+              f"blocks' largest |difference| {big:.3e} (bound "
+              f"{MESH_BLOCKS_F32}), relative to the update {urel:.3e}; "
+              f"unselected unchanged {r['unselected_unchanged']}, frozen "
+              f"unchanged {r['frozen_unchanged']}; launches a step "
+              f"{[s['launches'] for s in r['steps']][0]} (plan {want_a})",
+              flush=True)
+        check(la <= MESH_LOSS_F32, f"mesh (a) rank {r['coords']}: losses "
+              f"{losses} against {ref_a['losses']}")
+        check(big <= MESH_BLOCKS_F32, f"mesh (a) rank {r['coords']}: "
+              f"selected blocks differ by {big}")
+        check(r["unselected_unchanged"] and r["frozen_unchanged"],
+              f"mesh (a) rank {r['coords']}: an unselected or frozen block "
+              f"changed")
+        check(all(s["launches"] == want_a for s in r["steps"]),
+              f"mesh (a) rank {r['coords']}: launches "
+              f"{[s['launches'] for s in r['steps']]}, want {want_a}")
+    check(len(res["a"]) == MESH[0] * MESH[1], "mesh (a): a rank is missing")
+
+    # (c)
+    for off, on in zip(res["c-off"], res["c-on"]):
+        # the updated blocks' bytes, compared by their sha256 on the ranks
+        same = off["blocks_digest"] == on["blocks_digest"]
+        full = off["steps"][0]["bytes"]
+        comp = on["steps"][0]["bytes"]
+        ratio = comp.get("dw", 0) / full.get("grad_full", 1)
+        print(f"[mesh c] rank {off['coords']}: dense-scatter updates equal "
+              f"with and without compact_allreduce {same}; unselected "
+              f"unchanged {off['unselected_unchanged']} / "
+              f"{on['unselected_unchanged']}; bytes a step off {full}, on "
+              f"{comp}: dW {ratio:.4f} of the full-shape gradient's (r = "
+              f"{tc_c.sparse.update_ratio}; the compact tensors' bytes "
+              f"{on['compact_bytes']})", flush=True)
+        check(same and off["unselected_unchanged"]
+              and on["unselected_unchanged"],
+              f"mesh (c) rank {off['coords']}: updates differ")
+        check(comp.get("dw") == on["compact_bytes"]
+              and "grad_full" not in comp and "dw" not in full,
+              f"mesh (c): dW bytes {comp} against the compact tensors' "
+              f"{on['compact_bytes']}")
+
+    # (d)
+    ctl_d = control(ref_d, ref_d["losses"][-1])
+    ctl_drop = abs(ref_d["control_dropped"] - ref_d["dropped"][-1])
+    for r in res["d"]:
+        losses = [s["loss"] for s in r["steps"]]
+        drops = [s["dropped"] for s in r["steps"]]
+        ld = rel(losses, ref_d["losses"])
+        dd = max(abs(x - y) for x, y in zip(drops, ref_d["dropped"]))
+        _, urel = _mesh_blocks_diff(ref_d, r, tc_d, (1, 2), "block_sums")
+        print(f"[mesh d] deepseek-moe-16b cut to {MESH_MOE_LAYERS} layers, "
+              f"mesh (1, 2), rank {r['coords']}: losses {losses} (one "
+              f"process {ref_d['losses']}; relative {ld:.3e}, bound "
+              f"{MESH_LOSS_D}; a run with no update {ctl_d:.3e}); dropped "
+              f"{drops} (one process {ref_d['dropped']}; largest difference "
+              f"{dd:.4f}, bound {MESH_DROPPED}; capacity sized for all "
+              f"experts on each rank {ctl_drop:.4f}); selected blocks' "
+              f"column sums relative to the update's {urel:.3e} (bound "
+              f"{MESH_BLOCKS_D}; a rank that skips its update reads 1); "
+              f"launches a step {r['steps'][0]['launches']}; bytes a step "
+              f"{r['steps'][0]['bytes']}", flush=True)
+        check(ld <= MESH_LOSS_D, f"mesh (d) rank {r['coords']}: losses "
+              f"{losses} against {ref_d['losses']}")
+        check(dd <= MESH_DROPPED < ctl_drop, f"mesh (d) rank "
+              f"{r['coords']}: dropped {drops} against {ref_d['dropped']} "
+              f"(capacity fault {ctl_drop})")
+        check(urel <= MESH_BLOCKS_D, f"mesh (d) rank {r['coords']}: "
+              f"selected blocks {urel} of the update off")
+    check(len(res["d"]) == 2, "mesh (d): a rank is missing")
+
+    # (b)
+    from repro_torch.core.selection import build_plan
+    want_b = plan_launches(tc_b.model, build_plan(tc_b.model, tc_b.sparse))
+    ctl_b = control(ref_b, ref_b["losses"][-1])
+    ctl_4 = control(ref_b, main_losses[-1])
+    totals = {}
+    for r in res["b"]:
+        losses = [s["loss"] for s in r["steps"]]
+        lb, l4 = rel(losses, ref_b["losses"]), rel(losses, main_losses)
+        _, urel = _mesh_blocks_diff(ref_b, r, tc_b, MESH, "block_sums")
+        twin = [o for o in res["b"] if o["coords"]["model"] ==
+                r["coords"]["model"]]
+        same = all(o["blocks_digest"] == r["blocks_digest"] for o in twin)
+        steady = [s["step_ms"] for s in r["steps"][1:]]
+        peak = max(s.get("max_memory_allocated", 0) for s in r["steps"])
+        kinds = r["steps"][-1]["bytes"]
+        print(f"[mesh b] llama3-8b full width and depth, bf16, mesh {MESH}, "
+              f"rank {r['coords']}: losses {losses} (one process under the "
+              f"mesh's plan {ref_b['losses']}: largest relative difference "
+              f"{lb:.3e}, bound {MESH_LOSS_B}; phase 4, whose plan selects "
+              f"per weight where this one selects per model shard, "
+              f"{main_losses}: {l4:.3e}, bound {MESH_LOSS_B}; a run with no "
+              f"update {ctl_b:.3e} / {ctl_4:.3e}); selected blocks' column "
+              f"sums relative to the update's {urel:.3e} (bound "
+              f"{MESH_BLOCKS_B}; a rank that skips its update reads 1), "
+              f"bitwise its data twin's {same}; step_ms "
+              f"{[round(s['step_ms'], 1) for s in r['steps']]} steady "
+              f"median {statistics.median(steady):.1f}; "
+              f"max_memory_allocated {peak}; launches a step "
+              f"{r['steps'][0]['launches']} (plan {want_b}); bytes "
+              f"all-reduced a step {kinds} (activations act + ce, compact "
+              f"dW dw = the rank's compact tensors' {r['compact_bytes']} "
+              f"B); {card_line()}, 4 ranks on one card", flush=True)
+        check(lb <= MESH_LOSS_B and l4 <= MESH_LOSS_B, f"mesh (b) rank "
+              f"{r['coords']}: losses {losses} against {ref_b['losses']} "
+              f"and phase 4's {main_losses}")
+        check(urel <= MESH_BLOCKS_B and same, f"mesh (b) rank "
+              f"{r['coords']}: selected blocks {urel} of the update off, "
+              f"bitwise the data twin's {same}")
+        for s in r["steps"]:
+            check(s["launches"] == want_b, f"mesh (b) rank {r['coords']}: "
+                  f"launches {s['launches']}, want {want_b}")
+            check(s["bytes"].get("dw") == r["compact_bytes"],
+                  f"mesh (b) rank {r['coords']}: dw bytes {s['bytes']} "
+                  f"against the compact tensors' {r['compact_bytes']}")
+            for k, n in s["launches"].items():
+                totals[k] = totals.get(k, 0) + n
+    check(len(res["b"]) == MESH[0] * MESH[1], "mesh (b): a rank is missing")
+    _add_launches(results, totals)
+    setup = {name: round(max(r["setup_s"] for r in rs), 1)
+             for name, rs in res.items()}
+    steps = {name: round(sum(s["step_ms"] for s in rs[0]["steps"]) / 1e3, 1)
+             for name, rs in res.items()}
+    print(f"[mesh] launches of (b) over its ranks and 6 steps: {totals}; "
+          f"phase 31 took {time.perf_counter() - t0:.1f} s (one-process "
+          f"runs {t_ref:.1f} s, ranks {t_ranks:.1f} s: set-up s by job "
+          f"{setup}, steps s by job {steps})", flush=True)
+
+
 def kernels_line(results: dict) -> dict:
     """The kernels' JSON line. Times: block_sparse_dw summed over the 7 leaf
     shapes of one trainable LM layer, fused_block_opt over the 7 leaves of
@@ -4980,7 +5399,9 @@ def kernels_line(results: dict) -> dict:
     (6 steps; block_sparse_dw, fused_block_opt), the jamba path's (6
     steps; block_sparse_dw, batched_dw, fused_block_opt) and the train_4k,
     nemotron, command-r, llama4-scout, musicgen-medium and qwen2-vl-7b
-    runs' (6 steps each; the scout's batched_dw too)."""
+    runs' (6 steps each; the scout's batched_dw too), and the mesh run's
+    over its 4 ranks (phase 31b, 6 steps; block_sparse_dw,
+    fused_block_opt)."""
     dtypes = {"block_sparse_dw": "bfloat16", "batched_dw": "bfloat16"}
     rows = []
     for name, (route, source, replaces, _) in SOURCES.items():
@@ -5017,6 +5438,7 @@ def main() -> int:
     print(f"[chip_smoke] kernels checked at {time.perf_counter() - t0:.0f} s",
           flush=True)
     tc, out = phase_main_path(results)
+    main_losses = list(out["losses"])
     print(f"[chip_smoke] LM path done at {time.perf_counter() - t0:.0f} s",
           flush=True)
     phase_profile(tc, out)
@@ -5152,6 +5574,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_dryrun()
     print(f"[chip_smoke] phase_dryrun done at {time.perf_counter() - t0:.0f}"
+          f" s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_mesh(results, main_losses)
+    print(f"[chip_smoke] phase_mesh done at {time.perf_counter() - t0:.0f}"
           f" s", flush=True)
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t0:.0f} s",
           flush=True)

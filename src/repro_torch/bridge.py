@@ -16,6 +16,11 @@ no `rng`), so a train state saved by either package restores in the other.
 Serve state (page pools, page tables, delta batches) is nested dicts of
 arrays too, so `to_torch` / `to_numpy` carry it; a user's `DeltaState`
 goes with `delta_to_torch` / `delta_to_numpy`.
+
+On a mesh, `params_to_rank` / `state_to_rank` carry the reference's whole
+params or train state to one rank's shards (`launch.specs.shard_local`
+under the rules), and the selection to the rank's shards of it
+(`core.selection.local_selection`).
 """
 from __future__ import annotations
 
@@ -105,3 +110,52 @@ def delta_to_numpy(state) -> dict:
     """The port's `DeltaState` -> {"idx", "vals"} trees of numpy arrays,
     the layout of the reference's `DeltaState.to_tree()`."""
     return to_numpy(state.to_tree())
+
+
+def params_to_rank(params, cfg, rules, device="cpu"):
+    """A whole param tree (numpy or JAX arrays) -> this rank's shards under
+    `rules` (a process mesh's), as tensors on `device`."""
+    from repro_torch.launch.specs import shard_local, tree_shardings
+    from repro_torch.models.specs import param_logical_specs
+    sh = tree_shardings(params, param_logical_specs(cfg), rules)
+    return to_torch(shard_local(params, sh, rules.mesh.shape,
+                                rules.mesh.coords), device)
+
+
+def selection_to_rank(plan, sel_idx, rules, device="cpu"):
+    """A selection in the plan's layout (numpy or JAX arrays) -> this
+    rank's shards of it, as tensors on `device`."""
+    from repro_torch.core.selection import local_selection
+    shard = rules.mesh.coords[rules.model_axis] if rules.model_axis else 0
+    sel = {seg: (None if t is None else _numpy_tree(t))
+           for seg, t in sel_idx.items()}
+    return to_torch(local_selection(plan, sel, shard), device)
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    return None if tree is None else np.asarray(tree)
+
+
+def state_to_rank(state, cfg, plan, rules, seed: int = 0, device="cpu"):
+    """A reference train state -> this rank's (`state_to_torch` on the
+    rank's shards of its params, optimizer state and selection)."""
+    from repro_torch.launch.specs import shard_local, tree_shardings
+    from repro_torch.models.specs import param_logical_specs
+    logical = param_logical_specs(cfg)
+    out = {"step": int(np.asarray(state["step"])), "rng": seed}
+    for key in ("params_trainable", "params_frozen"):
+        tree = _numpy_tree(state[key])
+        out[key] = to_torch(shard_local(
+            tree, tree_shardings(tree, logical, rules), rules.mesh.shape,
+            rules.mesh.coords), device)
+    out["opt"] = {}
+    for key, tree in (state["opt"] or {}).items():
+        tree = _numpy_tree(tree)
+        out["opt"][key] = to_torch(shard_local(
+            tree, tree_shardings(tree, logical, rules), rules.mesh.shape,
+            rules.mesh.coords), device)
+    out["sel_idx"] = None if state["sel_idx"] is None else \
+        selection_to_rank(plan, state["sel_idx"], rules, device)
+    return out

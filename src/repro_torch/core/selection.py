@@ -3,8 +3,15 @@
 Later layers first, with a constant channel-block update ratio r, sized so
 the backward working set fits the memory budget M. No target-dataset
 statistics are used. Channels are selected in blocks, equally many per
-output shard of each weight (the paper's equal-sparsity-per-PE rule); the
-port runs one shard until its multi-GPU slice.
+output shard of each weight (the paper's equal-sparsity-per-PE rule, as
+tensor-parallel load balance).
+
+On a mesh the plan is the reference's under the same rules: a weight whose
+out dim is split over the model axis has `n_shards` = the axis' size, and
+its selection [K, n_shards, n_sel] holds block indices local to each shard.
+A rank keeps its own shard of it (`local_selection`) and runs the local
+plan (`local_spec_tree`: n_shards 1), so its kernels see its own blocks
+only.
 """
 from __future__ import annotations
 
@@ -19,6 +26,8 @@ from repro_torch.core import memory as memmod
 from repro_torch.core.sparse_update import SelSpec, tree_leaves
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import abstract_params
+from repro_torch.sharding import (all_reduce_, current_rules, model_group,
+                                  model_index)
 
 # weight leaves that take part in channel selection (out-channel blocks)
 SELECTABLE = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
@@ -50,18 +59,35 @@ def _largest_divisor_leq(n: int, k: int) -> int:
     return 1
 
 
-def _build_spec_tree(seg_stack_abs, ratio: float, block_req: int) -> dict:
+def _sharded_out(path_names: tuple, leaf_shape) -> int:
+    """Shard count of a weight's out dim under the current rules, from its
+    logical spec (1 with no rules or no mesh)."""
+    from repro_torch.models.specs import spec_of
+    spec = spec_of(path_names, len(leaf_shape))
+    rules = current_rules()
+    if rules is None or rules.mesh is None:
+        return 1
+    mesh_axis = rules.rules.get(spec[-1]) if spec[-1] else None
+    if mesh_axis is None:
+        return 1
+    size = rules.mesh.shape[mesh_axis]
+    return size if leaf_shape[-1] % size == 0 else 1
+
+
+def _build_spec_tree(seg_stack_abs, ratio: float, block_req: int,
+                     path_prefix: tuple = ()) -> dict:
     """Walk a segment's abstract stacked params; SelSpec per selectable leaf."""
     out = {}
     for name, sub in seg_stack_abs.items():
         if isinstance(sub, dict):
-            child = _build_spec_tree(sub, ratio, block_req)
+            child = _build_spec_tree(sub, ratio, block_req,
+                                     path_prefix + (name,))
             if child:
                 out[name] = child
             continue
         if name in EXCLUDED or name not in SELECTABLE or sub.dim() < 3:
             continue  # dim<3: a stacked 1-D param, not a matmul weight
-        n_shards = 1
+        n_shards = _sharded_out(path_prefix + (name,), tuple(sub.shape[1:]))
         loc = sub.shape[-1] // n_shards
         block = _largest_divisor_leq(loc, block_req)
         n_blocks = loc // block
@@ -156,9 +182,54 @@ def random_selection(plan: SelectionPlan, seed: int, step: int,
     return idx
 
 
-def magnitude_selection(plan: SelectionPlan, params) -> dict:
+def local_spec(sp: SelSpec) -> SelSpec:
+    """A rank's SelSpec of a weight: one shard (its own) where the plan
+    splits the out dim over the model axis."""
+    return sp._replace(n_shards=1) if sp.n_shards > 1 else sp
+
+
+def local_spec_tree(spec_tree):
+    """`local_spec` over a plan's spec tree (segment -> nested leaves)."""
+    if isinstance(spec_tree, SelSpec):
+        return local_spec(spec_tree)
+    return {k: local_spec_tree(v) for k, v in spec_tree.items()}
+
+
+def local_selection(plan: SelectionPlan, sel_idx, shard: int):
+    """A plan's selection [K, n_shards, n_sel] -> the rank at model
+    coordinate `shard`'s: its own shard of a weight whose out dim is split
+    over the model axis, the whole of any other."""
+    def walk(spec, idx):
+        if isinstance(spec, SelSpec):
+            if spec.n_shards == 1:
+                return idx
+            own = idx[:, shard:shard + 1]
+            # the kernels take contiguous indices
+            return own.contiguous() if isinstance(own, torch.Tensor) \
+                else own
+        return {k: walk(spec[k], idx[k]) for k in spec}
+    if sel_idx is None:
+        return None
+    return {seg: (None if idx is None else walk(plan.spec[seg], idx))
+            for seg, idx in sel_idx.items()}
+
+
+def magnitude_selection(plan: SelectionPlan, params, cfg=None) -> dict:
     """Initial selection: per shard, the n_sel blocks with the largest weight
-    L2 norm (the paper's offline importance — no target data needed)."""
+    L2 norm (the paper's offline importance — no target data needed).
+
+    On a mesh (`params` a rank's shards, `cfg` required) the rank selects
+    for its own shard of a weight split on its out dim; a weight split on
+    another dim (a row-parallel one, an expert stack) holds only part of
+    each block, so its squared norms are summed over the model group before
+    the sort, and every rank picks the blocks one device would."""
+    group = model_group()
+    full = None
+    if group is not None:
+        if cfg is None:
+            raise ValueError("magnitude_selection on a mesh needs cfg (the "
+                             "leaves' full shapes)")
+        full = abstract_params(cfg)["segments"]
     idx = {}
     for seg_name, steps in plan.seg_trainable.items():
         if steps == 0:
@@ -166,21 +237,31 @@ def magnitude_selection(plan: SelectionPlan, params) -> dict:
             continue
         stack = params["segments"][seg_name]
         k_slice = lambda a: a[a.shape[0] - steps:]
-        idx[seg_name] = _magnitude_tree(plan.spec[seg_name], stack, k_slice)
+        idx[seg_name] = _magnitude_tree(
+            plan.spec[seg_name], stack, k_slice,
+            None if full is None else full[seg_name], group)
     return idx
 
 
-def _magnitude_tree(spec_tree, stack, k_slice):
+def _magnitude_tree(spec_tree, stack, k_slice, full=None, group=None):
     out = {}
     for name, sub in spec_tree.items():
         if isinstance(sub, dict):
-            out[name] = _magnitude_tree(sub, stack[name], k_slice)
+            out[name] = _magnitude_tree(sub, stack[name], k_slice,
+                                        None if full is None else full[name],
+                                        group)
             continue
         sp: SelSpec = sub
         w = k_slice(stack[name])                       # [K, ..., out]
         k = w.shape[0]
+        if group is not None:
+            sp = local_spec(sp)
         wb = w.reshape(k, -1, sp.n_shards, sp.n_blocks, sp.block)
-        norms = torch.sqrt((wb.float() ** 2).sum(dim=(1, 4)))
+        sq = (wb.float() ** 2).sum(dim=(1, 4))
+        if full is not None and \
+                tuple(w.shape[1:-1]) != tuple(full[name].shape[1:-1]):
+            all_reduce_(sq, group, "aux")
+        norms = torch.sqrt(sq)
         # stable, as jnp.argsort: ties keep the lower block index first
         order = torch.argsort(-norms, dim=-1, stable=True)
         out[name] = order[..., : sp.n_sel].to(torch.int32)

@@ -38,12 +38,18 @@ state of deselected blocks.
 Stacked expert weights [E, K, N] (the MoE layer's routed experts, one
 selection shared by every expert) take the batched forms, `_SMMBatched` and
 `_SMMBatchedCompact`, whose dW is one `batched_dw` launch for all experts.
-`compress_grads` and the compact all-reduce come with the multi-GPU slice.
+
+Data parallelism (a mesh's data axes): the compact step all-reduces the
+compact dW it already has, [K, n_shards, n_sel, block] per leaf, and
+nothing full-size. The dense-scatter step all-reduces the full-shape
+gradient, or, under `compact_allreduce`, only its selected blocks
+(`compress_grads`: gather, reduce, scatter back), r x the bytes.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -57,6 +63,63 @@ class SelSpec(NamedTuple):
     n_shards: int     # TP shards of the out dim
     n_sel: int        # selected blocks per shard
     n_blocks: int     # total blocks per shard
+
+
+class _Flags:
+    cgr = False
+
+
+_FLAGS = _Flags()
+
+
+@contextlib.contextmanager
+def compact_allreduce(enabled: bool = True):
+    """Gradient compression (beyond the paper, the reference's): the
+    dense-scatter step's data-parallel reduction of dW runs on the COMPACT
+    selected-block tensor, r x the bytes of the full-shape gradient; the
+    scatter back to full shape then needs no further collective."""
+    prev = _FLAGS.cgr
+    _FLAGS.cgr = enabled
+    try:
+        yield
+    finally:
+        _FLAGS.cgr = prev
+
+
+def compact_allreduce_enabled() -> bool:
+    return _FLAGS.cgr
+
+
+def compress_grads(grads_segments: dict, sel_idx: dict, spec_tree: dict,
+                   reduce=None):
+    """The gradient-compression rewrite (under compact_allreduce):
+
+        dw  ->  scatter(reduce(gather(dw, idx)), idx)
+
+    The selected blocks hold dw's only nonzero content, so the rewrite is
+    exact. `reduce` (the data-parallel all-reduce; None = identity) runs on
+    the compact [K, *lead, n_shards, n_sel, block] tensor of each leaf."""
+    def leaf(dw, idx, spec: SelSpec):
+        dw_sel = gather_param_blocks(dw, idx, spec)
+        if reduce is not None:
+            dw_sel = reduce(dw_sel)
+        return scatter_param_blocks(torch.zeros_like(dw), dw_sel, idx, spec)
+
+    def walk(g, i, s):
+        if isinstance(s, SelSpec):
+            return leaf(g, i, s)
+        if isinstance(s, dict):
+            return {k: (walk(g[k], i[k], s[k]) if k in s else g[k])
+                    for k in g}
+        return g
+
+    out = {}
+    for seg, g in grads_segments.items():
+        if sel_idx.get(seg) is None or seg not in spec_tree:
+            out[seg] = g
+            continue
+        out[seg] = walk(g, sel_idx[seg], spec_tree[seg])
+    return out
 
 
 # ---------------------------------------------------------------------------

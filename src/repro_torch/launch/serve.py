@@ -51,7 +51,7 @@ from repro_torch.serve import (PersonalizationConfig, ServeEngine,
 # flag -> (is it set?, the ROADMAP item that brings it)
 _REFUSED = {
     "--mesh-model > 1": (lambda a: a.mesh_model > 1,
-                         "ROADMAP queue A item 14"),
+                         "ROADMAP queue A item 14b"),
 }
 
 

@@ -1,14 +1,19 @@
-"""Dry-run plumbing on one device: abstract inputs, caches and the step
-functions of every (arch x shape) cell, as tensors on the `meta` device
-(or on a device the caller names).
+"""Dry-run plumbing: abstract inputs, caches and the step functions of
+every (arch x shape) cell, as tensors on the `meta` device (or on a device
+the caller names), and the sharding of params, batches and train states on
+a mesh.
 
-The single-device half of the reference's `launch/specs.py`: its sharding
-half (`resolve_pspec`, `tree_shardings`, `batch_shardings`,
-`cache_shardings`, `state_shardings`, `rules_for`) waits for the port's
-multi-GPU slice (ROADMAP item 14). On `meta` nothing is allocated and every
-kernel wrapper takes its plain path, so a cell of any size builds and runs
-here for its shapes and FLOPs. Modality frontends ([audio] / [vlm]) are
-stubs, as in the reference: the batch carries frame / patch embeddings.
+On `meta` nothing is allocated and every kernel wrapper takes its plain
+path, so a cell of any size builds and runs here for its shapes and FLOPs.
+Modality frontends ([audio] / [vlm]) are stubs, as in the reference: the
+batch carries frame / patch embeddings.
+
+A sharding here is what the reference's `NamedSharding` holds: one entry
+per dim, None (replicated) or a tuple of mesh axes the dim is split over.
+`shard_local` cuts a full tree into one rank's slices by them (what placing
+an array under a `NamedSharding` does in the reference) and
+`gather_shards` puts the ranks' slices back together. `cache_shardings`
+comes with sharded serving (ROADMAP item 14b).
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from repro_torch.configs.base import (ModelConfig, OptimizerConfig,
                                       TrainConfig)
 from repro_torch.models import decoding as D
 from repro_torch.models import transformer as T
+from repro_torch.models.specs import param_logical_specs
+from repro_torch.sharding import AxisRules, default_rules, seq_sharded_rules
 
 
 def _empty(shape, dtype, device):
@@ -108,3 +115,169 @@ def make_prefill_cell(cfg: ModelConfig, shape: ShapeConfig, device="meta",
         return D.prefill(cfg, params, batch)
 
     return prefill_step, (params, input_specs(cfg, shape, device))
+
+
+# ---------------------------------------------------------------------------
+# shardings
+# ---------------------------------------------------------------------------
+
+def resolve_pspec(shape: tuple, logical: tuple, rules: AxisRules) -> tuple:
+    """Logical axes -> per-dim sharding (None or a tuple of mesh axes),
+    with the reference's divisibility fallback: a dim its axes' sizes do
+    not divide stays replicated."""
+    out = []
+    for dim, name in zip(shape, logical):
+        axes = rules.rules.get(name) if name else None
+        if axes is None:
+            out.append(None)
+            continue
+        if isinstance(axes, str):
+            axes = (axes,)
+        size = 1
+        for a in axes:
+            size *= rules.mesh.shape[a]
+        out.append(tuple(axes) if dim % size == 0 else None)
+    return tuple(out)
+
+
+def _is_logical(x) -> bool:
+    return isinstance(x, tuple) and all(isinstance(i, (str, type(None)))
+                                        for i in x)
+
+
+def tree_shardings(abs_tree, logical_tree, rules: AxisRules):
+    """Sharding tree for a tree of tensors (any device, `meta` included)
+    and its logical-axes tree. A leaf whose logical tuple is missing or of
+    another rank is replicated."""
+    if isinstance(abs_tree, dict):
+        lt = logical_tree if isinstance(logical_tree, dict) else {}
+        return {k: tree_shardings(v, lt.get(k), rules)
+                for k, v in abs_tree.items()}
+    if abs_tree is None:
+        return None
+    shape = tuple(abs_tree.shape)
+    if not _is_logical(logical_tree) or len(logical_tree) != len(shape):
+        logical_tree = (None,) * len(shape)
+    return resolve_pspec(shape, logical_tree, rules)
+
+
+def batch_shardings(cfg, shape: ShapeConfig, rules: AxisRules) -> dict:
+    """The batch's keys -> shardings: the batch axis over the data axes."""
+    def spec_for(key, leaf):
+        if key == "positions" and cfg.mrope:
+            return resolve_pspec(leaf.shape, (None, "batch", None), rules)
+        return resolve_pspec(leaf.shape, ("batch",) + (None,) *
+                             (len(leaf.shape) - 1), rules)
+    return {k: spec_for(k, v)
+            for k, v in input_specs(cfg, shape, "meta").items()}
+
+
+def state_shardings(cfg, plan, state_abs, rules: AxisRules) -> dict:
+    """Shardings of a train state's tensors: params and optimizer state by
+    their leaves' logical axes; `sel_idx` as the plan lays it out (its
+    shard axis over the model axis where the weight's out dim is split, as
+    the rank keeps it: `core.selection.local_selection`). `step` and `rng`
+    are host values."""
+    logical = param_logical_specs(cfg)
+    sh = {"params_trainable": tree_shardings(state_abs["params_trainable"],
+                                             logical, rules),
+          "params_frozen": tree_shardings(state_abs["params_frozen"],
+                                          logical, rules),
+          "opt": {k: tree_shardings(v, logical, rules)
+                  for k, v in (state_abs["opt"] or {}).items()}}
+    from repro_torch.core.sparse_update import SelSpec
+
+    def sel(spec, idx):
+        if isinstance(spec, SelSpec):
+            model = (rules.model_axis,) if spec.n_shards > 1 else None
+            return (None, model, None)
+        return {k: sel(spec[k], idx[k]) for k in spec}
+    sh["sel_idx"] = None if state_abs["sel_idx"] is None else {
+        seg: (None if idx is None else sel(plan.spec[seg], idx))
+        for seg, idx in state_abs["sel_idx"].items()}
+    return sh
+
+
+def rules_for(mesh, cfg: ModelConfig, shape: ShapeConfig) -> AxisRules:
+    """Sharding rules per cell, the reference's: batch over the batch axes,
+    tensor / expert / vocab parallelism over the model axis, kv heads
+    replicated (head counts rarely divide the model axis; the GQA
+    expansion then reads the rank's own query heads' kv heads), the kv
+    cache's sequence over the model axis for decode and prefill, and for
+    long_500k (batch 1) over the batch axes too."""
+    r = seq_sharded_rules(mesh) if shape.name == "long_500k" \
+        else default_rules(mesh)
+    rules = dict(r.rules)
+    rules["kv_heads"] = None
+    if shape.kind in ("decode", "prefill"):
+        prev = rules.get("cache_seq")
+        prev_axes = (prev,) if isinstance(prev, str) else tuple(prev or ())
+        model = (r.model_axis,) if r.model_axis else ()
+        rules["cache_seq"] = prev_axes + model or None
+    return AxisRules(rules, mesh=r.mesh, batch_axes=r.batch_axes,
+                     model_axis=r.model_axis)
+
+
+def _dim_slice(size: int, axes, mesh_shape: dict, coords: dict) -> slice:
+    if axes is None:
+        return slice(None)
+    n, i = 1, 0
+    for a in axes:
+        n *= mesh_shape[a]
+        i = i * mesh_shape[a] + coords[a]
+    step = size // n
+    return slice(i * step, (i + 1) * step)
+
+
+def shard_leaf(x, sharding, mesh_shape: dict, coords: dict):
+    """One rank's slice of a full tensor or array (a view)."""
+    if sharding is None:
+        return x
+    index = tuple(_dim_slice(size, axes, mesh_shape, coords)
+                  for size, axes in zip(x.shape, sharding))
+    return x[index]
+
+
+def shard_local(tree, shardings, mesh_shape: dict, coords: dict):
+    """A full tree (numpy arrays or tensors) -> the rank at `coords`'
+    slices (views), by a `tree_shardings`-shaped tree."""
+    if isinstance(tree, dict):
+        return {k: shard_local(v, shardings[k], mesh_shape, coords)
+                for k, v in tree.items()}
+    if tree is None:
+        return None
+    return shard_leaf(tree, shardings, mesh_shape, coords)
+
+
+def gather_shards(trees: list, coords: list, shardings, mesh_shape: dict):
+    """The inverse of shard_local: the ranks' slice trees (numpy arrays,
+    with each rank's coords) -> the full tree. A replicated dim is read
+    from the ranks at coordinate 0 on its axes."""
+    import numpy as np
+
+    if isinstance(trees[0], dict):
+        return {k: gather_shards([t[k] for t in trees], coords,
+                                 shardings[k], mesh_shape)
+                for k in trees[0]}
+    if trees[0] is None:
+        return None
+    sharding = shardings or (None,) * trees[0].ndim
+    split = {a for axes in sharding if axes for a in axes}
+    parts = {}
+    for t, c in zip(trees, coords):
+        if any(c[a] for a in mesh_shape if a not in split):
+            continue
+        parts[tuple(c[a] for a in mesh_shape if a in split)] = t
+
+    def build(dim: int, fixed: dict):
+        if dim == len(sharding):
+            return parts[tuple(fixed[a] for a in mesh_shape if a in split)]
+        axes = sharding[dim]
+        if axes is None:
+            return build(dim + 1, fixed)
+        import itertools
+        pieces = [build(dim + 1, {**fixed, **dict(zip(axes, combo))})
+                  for combo in itertools.product(
+                      *(range(mesh_shape[a]) for a in axes))]
+        return np.concatenate(pieces, axis=dim)
+    return build(0, {})

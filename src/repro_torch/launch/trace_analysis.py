@@ -18,7 +18,7 @@
 Not ported: `parse_hlo`, `collective_bytes`, `while_trip_counts` and the
 text form of `kernel_launch_count` read XLA's HLO text, which the port
 does not have; `replicated_matmul_leaves` audits a sharded serve step and
-waits for the multi-GPU slice (ROADMAP item 14).
+waits for sharded serving (ROADMAP item 14b).
 """
 from __future__ import annotations
 

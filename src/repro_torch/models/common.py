@@ -7,17 +7,27 @@ draws differ from the reference's `jax.random` ones for the same seed, so
 tests that compare the two packages carry the reference's parameters over
 with `repro_torch.bridge`.
 
-`col_matmul` / `row_matmul` are the reference's parallel linears in their
-single-device form: `smm(x, w)` plus a per-user compact delta
-(`delta_matmul_add`). Their tensor-parallel forms come with the multi-GPU
-slice (ROADMAP queue A item 14).
+`col_matmul` / `row_matmul` / `vocab_parallel_gather` are the reference's
+parallel primitives. Off a mesh they are their single-device forms
+(`smm(x, w)` plus a per-user compact delta, `delta_matmul_add`; an
+embedding lookup). On a rank of a process mesh (`sharding.model_group()`)
+they take the collective a weight that arrived sharded needs, found by
+its shape: a weight that arrived whole (its dim did not divide the model
+axis) takes none. The collective in front of a column-parallel block
+(`sharding.copy_to_model`, all-reduce backward) is the block's caller's:
+one for all of a block's column-parallel products. Per-user deltas on
+sharded weights (`_delta_local_col`) come with sharded serving (ROADMAP
+item 14b).
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.core.sparse_update import smm
 
 
@@ -83,13 +93,51 @@ def delta_matmul_add(y, x, delta, name: str):
     return yb.reshape(b, s, n).to(y.dtype)
 
 
-def col_matmul(x, w, sel, name: str, delta=None):
-    """Column-parallel linear, single-device form: `smm(x, w)` plus the
-    rider delta of `name`, if any."""
+def _no_sharded_delta(w, delta, name: str, full: int, dim: int) -> None:
+    if delta is not None and name in delta["val"] and full is not None \
+            and w.shape[dim] != full and SH.model_group() is not None:
+        raise NotImplementedError(
+            f"a per-user delta on the sharded weight {name!r}: sharded "
+            f"serving is ROADMAP item 14b")
+
+
+def col_matmul(x, w, sel, name: str, delta=None, *,
+               full_out: Optional[int] = None):
+    """Column-parallel linear: the weight split on its OUTPUT axis, so the
+    local product needs no collective and the result stays split on its
+    last axis. `smm(x, w)` plus the rider delta of `name`, if any."""
+    _no_sharded_delta(w, delta, name, full_out, -1)
     return delta_matmul_add(smm(x, w, sel, name), x, delta, name)
 
 
-def row_matmul(x, w, sel, name: str, delta=None):
-    """Row-parallel linear, single-device form: the same as `col_matmul`
-    (off a mesh the input axis is whole, so no reduction follows)."""
-    return delta_matmul_add(smm(x, w, sel, name), x, delta, name)
+def row_matmul(x, w, sel, name: str, delta=None, *,
+               full_in: Optional[int] = None):
+    """Row-parallel linear: the weight split on its INPUT axis (x holds
+    the matching slice), and one all-reduce over the model group
+    (`psum_mapped`) reassembles the output. Off a mesh, or for a weight
+    that arrived whole (`w.shape[-2] == full_in`), `smm(x, w)` plus the
+    rider delta."""
+    _no_sharded_delta(w, delta, name, full_in, -2)
+    y = delta_matmul_add(smm(x, w, sel, name), x, delta, name)
+    if full_in is not None and w.shape[-2] != full_in:
+        SH.require_model_group(f"row-parallel weight {name!r}")
+        return SH.psum_mapped(y)
+    return y
+
+
+def vocab_parallel_gather(emb, ids, vocab_size: int):
+    """Embedding lookup on a vocab-sharded table: the rank gathers the rows
+    it owns (other ids read row 0, masked to exact zero) and an all-reduce
+    over the model group reassembles the rows: each token's row lives on
+    one rank, so the sum is exact. A plain lookup off a mesh or when the
+    table arrived whole."""
+    v_loc = emb.shape[0]
+    if v_loc == vocab_size:
+        return F.embedding(ids.long(), emb)
+    SH.require_model_group("the token table")
+    local = ids.long() - SH.model_index() * v_loc
+    own = (local >= 0) & (local < v_loc)
+    rows = F.embedding(torch.where(own, local, 0), emb)
+    rows = torch.where(own[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                         device=rows.device))
+    return SH.psum_mapped(rows)

@@ -16,7 +16,7 @@ recurrent state). `CACHE_FAMILIES` describes each role's per-row snapshot
 `snapshot_row_bytes` prices one slot's. `read_pool_rows` /
 `write_pool_rows` move a page's token rows out of and back into every
 layer's pool (the device half of the host spill tier). The sharded step
-comes with ROADMAP queue A item 14 and raises until then.
+comes with ROADMAP queue A item 14b and raises until then.
 
 The serve engine splits per-layer caches into two trees: `state` (per-slot
 leaves [steps, B, ...]: ring k/v and recurrent state) and `pools` (for
@@ -296,7 +296,7 @@ def write_pool_rows(pools, rows, dst_row: int):
 
 
 def make_sharded_paged_step(*args, **kwargs):
-    raise NotImplementedError("sharded serving: ROADMAP queue A item 14 "
+    raise NotImplementedError("sharded serving: ROADMAP queue A item 14b "
                               "(not ported yet)")
 
 

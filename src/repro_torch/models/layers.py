@@ -6,7 +6,13 @@ serving, the flash-decoding split softmax), MLP variants.
 Params are plain dicts of tensors with the reference package's key names.
 Matmuls that take part in the sparse update go through
 `repro_torch.core.sparse_update.smm`, so the backward pass skips unselected
-output-channel blocks. The numerics follow the reference: norms and RoPE in
+output-channel blocks.
+
+On a rank of a process mesh, attention and the MLP run tensor-parallel
+over the model axis when their weights arrived sharded: the query heads
+(and the kv heads, unless `rules_for` keeps them whole) and the FFN hidden
+dim split, one `copy_to_model` in front of the block, one `psum_mapped`
+after its row-parallel product. The numerics follow the reference: norms and RoPE in
 fp32, attention scores in fp32 (its `preferred_element_type`), probabilities
 cast to the activation dtype before the PV product.
 """
@@ -18,6 +24,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.core.sparse_update import smm
 from repro_torch.models.common import col_matmul, dense_init, row_matmul
 
@@ -163,6 +170,60 @@ def _expand_kv(k, hq: int):
         return k
     rep = hq // hkv
     return k[:, :, :, None, :].expand(b, s, hkv, rep, d).reshape(b, s, hq, d)
+
+
+def _tensor_parallel_inputs(p, cfg, x, sel):
+    """Attention on a rank whose query heads are a shard: the input enters
+    through `copy_to_model` (its gradient summed over the model group once,
+    for the q, k and v products together). Where `wk` / `wv` arrived whole
+    (`rules_for`: kv_heads -> None), each rank reads only its own query
+    heads' share of k and v, so their gradient is partial too: the weights
+    (on the compact path, their selected-block gradient targets) pass
+    through `copy_to_model` as well, and their dW is summed over the model
+    group there, once."""
+    SH.require_model_group("attention's wq")
+    tp = SH.model_axis_size()
+    hd = cfg.resolved_head_dim
+    if cfg.num_heads % tp:
+        raise NotImplementedError(
+            f"{cfg.num_heads} query heads do not split over {tp} model "
+            f"shards")
+    x = SH.copy_to_model(x)
+    if p["wk"].shape[-1] == cfg.num_kv_heads * hd:
+        p = dict(p)
+        for name in ("wk", "wv"):
+            p[name] = SH.copy_to_model(p[name], "dw_model")
+        if sel is not None and len(sel) > 2 and sel[2] is not None:
+            wsel = dict(sel[2])
+            for name in ("wk", "wv"):
+                if name in wsel:
+                    wsel[name] = SH.copy_to_model(wsel[name], "dw_model")
+            sel = (sel[0], sel[1], wsel)
+    elif cfg.num_kv_heads % tp:
+        raise NotImplementedError(
+            f"{cfg.num_kv_heads} kv heads split over {tp} model shards "
+            f"would cut a head: keep them whole (rules_for)")
+    return x, p, sel
+
+
+def _rank_kv(cfg, hq: int, k, v):
+    """The kv heads the rank's `hq` query heads read. Whole kv heads
+    (replicated wk / wv): local query head h is global head m * hq + h,
+    which reads kv head (m * hq + h) // (Hq / Hkv); the slice returned
+    holds exactly those, in an order `_expand_kv` maps right. Sharded kv
+    heads already are the rank's own."""
+    if k.shape[2] != cfg.num_kv_heads or hq == cfg.num_heads:
+        return k, v
+    rep = cfg.num_heads // cfg.num_kv_heads
+    first = SH.model_index() * hq
+    if first % rep == 0 and hq % rep == 0:
+        lo, n = first // rep, hq // rep
+    elif rep % hq == 0:
+        lo, n = first // rep, 1
+    else:
+        raise NotImplementedError(
+            f"{hq} query heads a shard against groups of {rep}")
+    return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
 
 
 def _sdpa_dense(q, k, v, window: int = 0):
@@ -340,12 +401,19 @@ def attention(p, cfg, x, positions, *, window: int = 0, sel=None,
     """Full training/prefill attention over a whole sequence: dense up to
     `flash_threshold` tokens, the flash path past it."""
     b, s, _ = x.shape
+    full = cfg.num_heads * cfg.resolved_head_dim
+    sharded = p["wq"].shape[-1] != full
+    if sharded:
+        x, p, sel = _tensor_parallel_inputs(p, cfg, x, sel)
     q, k, v = _qkv(p, cfg, x, positions, sel=sel)
+    if sharded:
+        k, v = _rank_kv(cfg, q.shape[2], k, v)
     if s > flash_threshold:
         out = _sdpa_flash(q, k, v, window)
     else:
         out = _sdpa_dense(q, k, v, window)
-    return smm(out.reshape(b, s, -1), p["wo"], sel, "wo")
+    return row_matmul(out.reshape(b, s, -1), p["wo"], sel, "wo",
+                      full_in=full)
 
 
 def decode_attention(p, cfg, x, positions, cache, *, window: int = 0):
@@ -646,19 +714,26 @@ def init_mlp(gen, cfg, dtype, d_ff: Optional[int] = None, device="cuda"):
     raise ValueError(cfg.mlp_kind)
 
 
-def apply_mlp(p, cfg, x, sel=None, delta=None):
-    """gate/up column-parallel, down row-parallel (single-device forms);
-    `delta` carries per-user compact deltas for serving."""
+def apply_mlp(p, cfg, x, sel=None, delta=None, d_ff: Optional[int] = None):
+    """gate/up column-parallel, down row-parallel; `delta` carries per-user
+    compact deltas for serving. `d_ff` is the FULL hidden width (default
+    cfg.d_ff): on a mesh, weights narrower than it arrived sharded, and
+    the block runs tensor-parallel (`copy_to_model` in front, one
+    all-reduce after w_down)."""
     kind = cfg.mlp_kind
+    ff = d_ff or cfg.d_ff
+    full = None
+    if SH.model_group() is not None and p["w_up"].shape[-1] != ff:
+        x = SH.copy_to_model(x)
+        full = ff
+    col = lambda name: col_matmul(x, p[name], sel, name, delta, full_out=full)
     if kind == "swiglu":
-        h = F.silu(col_matmul(x, p["w_gate"], sel, "w_gate", delta)) * \
-            col_matmul(x, p["w_up"], sel, "w_up", delta)
+        h = F.silu(col("w_gate")) * col("w_up")
     elif kind == "gelu":
-        h = F.gelu(col_matmul(x, p["w_up"], sel, "w_up", delta),
-                   approximate="tanh")
+        h = F.gelu(col("w_up"), approximate="tanh")
     elif kind == "sq_relu":
-        h = torch.relu(col_matmul(x, p["w_up"], sel, "w_up", delta))
+        h = torch.relu(col("w_up"))
         h = h * h
     else:
         raise ValueError(kind)
-    return row_matmul(h, p["w_down"], sel, "w_down", delta)
+    return row_matmul(h, p["w_down"], sel, "w_down", delta, full_in=full)

@@ -33,8 +33,7 @@ chunk convolves [conv tail ++ chunk], scans from h, and keeps the last
 d_conv - 1 valid inputs as the new tail. With per-row valid lengths
 (`length`, padded prefill chunks) dt is forced to 0 on the padded steps, an
 identity transition, so the cache comes back as after the valid prefix.
-The channel-sharded form comes with the multi-GPU slice and raises until
-then.
+On a mesh it raises: the channel-sharded form is ROADMAP item 14c.
 """
 from __future__ import annotations
 
@@ -44,13 +43,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as SH
 from repro_torch.core.sparse_update import smm
 from repro_torch.models.common import dense_init
 
 CHUNK = 64
 
-_MESH = ("channel-sharded mamba (the serve mesh): ROADMAP queue A item 14 "
-         "(not ported yet)")
+_MESH = ("mamba on a mesh (the channel-sharded scan): ROADMAP queue A item "
+         "14c (not ported yet)")
 
 
 def dt_rank(cfg) -> int:
@@ -188,7 +188,7 @@ def apply_mamba(p, cfg, x, sel=None, cache=None, length=None):
     di = d_inner(cfg)
     ns = cfg.ssm.d_state
     dr = dt_rank(cfg)
-    if p["out_proj"].shape[-2] != di:
+    if p["out_proj"].shape[-2] != di or SH.process_mesh() is not None:
         raise NotImplementedError(_MESH)
 
     xz = smm(x, p["in_proj"], sel, "in_proj")

@@ -1,14 +1,23 @@
-"""Token-choice top-k MoE (deepseek style: routed plus shared experts), on one
-device.
+"""Token-choice top-k MoE (deepseek style: routed plus shared experts).
 
 The router picks each token's top-k experts in fp32; a capacity bound per
 expert drops the overflow; the routed experts run as one batched product
 over capacity-bounded buffers [E, C, d] (sort-based dispatch, no one-hot
 dispatch tensors); the shared experts are a plain MLP every token takes.
-The reference package's expert-parallel `shard_map` body and its serve-mesh
-reduction belong to the multi-GPU slice: expert weights that arrive
-sharded (fewer experts, or a narrower hidden dim, than the config's) are
-refused.
+
+Expert parallelism (a rank of a process mesh whose expert stacks arrived
+split over the model axis, the reference's "local dispatch EP"): tokens
+stay on their data shard, replicated over the model group; every rank
+routes all of them, runs its E / n local experts on the choices they own
+(capacity from the data shard's tokens), and one all-reduce over the
+model group sums the partial outputs. The tokens and the routing weights
+enter the experts through `copy_to_model`, so their gradients are summed
+over the model group; the router and the auxiliary losses see the
+replicated routing and are whole on every rank. Under data parallelism
+the load-balance loss reads the expert counts of the global batch (an
+all-reduce over the data group), and both auxiliary losses are this
+shard's shares of the global ones. The d_ff-parallel serve form is
+ROADMAP item 14b and is refused.
 
 Determinism. No two values are ever added into one place in an order the
 card chooses (`index_add_`, `index_put_(accumulate=True)` and an index's
@@ -38,6 +47,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.core.sparse_update import smm
 from repro_torch.models import layers as L
 from repro_torch.models.common import dense_init
@@ -126,27 +136,37 @@ class _TakeRows(torch.autograd.Function):
         return out, None
 
 
-def _dispatch_combine(cfg, x_flat, ids, weights, wp, sel, capacity: int):
-    """x_flat [T, d]; ids / weights [T, k]; wp: the routed expert weights.
-    Returns (y [T, d], kept [T, k])."""
+def _dispatch_combine(cfg, x_flat, ids, weights, wp, sel, capacity: int,
+                      first: int = 0):
+    """x_flat [T, d]; ids / weights [T, k]; wp: the routed expert weights,
+    experts first .. first + E_loc - 1 of the config's E (all of them off
+    a mesh). Returns (y [T, d]: the local experts' share of the output,
+    kept [T, k]: whether the capacity kept each choice, on any expert)."""
     t, d = x_flat.shape
     k = ids.shape[1]
     e = cfg.moe.num_experts
+    e_loc = wp["w_gate"].shape[0]
     # each token's choices in ascending expert order: the order of the sum
     # below (see the module doc)
     ids, perm = torch.sort(ids, dim=1)
     weights = torch.gather(weights, 1, perm)
     slot, kept = dispatch_slots(ids, e, capacity)
+    own = kept
+    if e_loc != e:
+        # the choices this rank's experts take; the others go to the spare
+        own = kept & (ids >= first) & (ids < first + e_loc)
+        slot = torch.where(own, slot - first * capacity, e_loc * capacity)
     slot = slot.reshape(-1)
 
     rows = x_flat[:, None, :].expand(t, k, d).reshape(t * k, d)
-    buf = x_flat.new_zeros((e * capacity + 1, d)).index_put((slot,), rows)
-    h = _expert_ffn(wp, buf[:-1].reshape(e, capacity, d), sel)
+    buf = x_flat.new_zeros((e_loc * capacity + 1, d)).index_put((slot,),
+                                                                rows)
+    h = _expert_ffn(wp, buf[:-1].reshape(e_loc, capacity, d), sel)
 
-    h_pad = torch.cat([h.reshape(e * capacity, d),
+    h_pad = torch.cat([h.reshape(e_loc * capacity, d),
                        h.new_zeros((1, d))])
     gathered = _TakeRows.apply(h_pad, slot).reshape(t, k, d)
-    w = torch.where(kept, weights, 0.0).to(gathered.dtype)
+    w = torch.where(own, weights, 0.0).to(gathered.dtype)
     contrib = gathered * w[..., None]
     y = contrib[:, 0]
     for j in range(1, k):
@@ -186,33 +206,52 @@ def apply_moe(p, cfg, x, sel=None):
     x_flat = x.reshape(-1, d)
     t = x_flat.shape[0]
     e, k = moe.num_experts, moe.top_k
-    if tuple(p["w_gate"].shape) != (e, d, cfg.d_ff):
+    e_loc = p["w_gate"].shape[0]
+    if tuple(p["w_gate"].shape[1:]) != (d, cfg.d_ff):
         raise NotImplementedError(
-            f"expert weights {tuple(p['w_gate'].shape)} are sharded (the "
-            f"config's are {(e, d, cfg.d_ff)}): expert- and d_ff-parallel "
-            f"MoE come with the multi-GPU slice")
+            f"expert weights {tuple(p['w_gate'].shape)} have their hidden "
+            f"dim sharded (the config's are {(e, d, cfg.d_ff)}): the "
+            f"d_ff-parallel serve form is ROADMAP item 14b")
+    if e_loc != e:
+        SH.require_model_group("the expert stacks")
+        if e_loc * SH.model_axis_size() != e:
+            raise ValueError(f"{e_loc} local experts of {e} on a model axis "
+                             f"of {SH.model_axis_size()}")
 
     logits, probs, weights, ids = route(p["router"], x_flat, k)
 
     # aux losses (switch-style load balance + z-loss)
-    frac_tokens = expert_counts(ids.reshape(-1), e).float() / ids.numel()
-    frac_probs = probs.mean(0)
-    aux = {
-        "load_balance": e * torch.sum(frac_tokens * frac_probs),
-        "router_z": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
-    }
+    counts = expert_counts(ids.reshape(-1), e)
+    # the global batch's fractions: the counts summed over the data group
+    # (no gradient); this shard's share of the probabilities' and the
+    # z-loss's global means (one device: the means themselves)
+    n_data = SH.data_size()
+    SH.all_reduce_(counts, SH.data_group(), "aux")
+    frac_tokens = counts.float() / (ids.numel() * n_data)
+    frac_probs = probs.sum(0) / (t * n_data)
+    router_z = torch.sum(torch.logsumexp(logits, dim=-1) ** 2) / (t * n_data)
+    aux = {"load_balance": e * torch.sum(frac_tokens * frac_probs),
+           "router_z": router_z}
 
+    # capacity from the tokens of this rank's data shard
     capacity = _capacity(t, k, moe.capacity_factor, e)
-    y_flat, kept = _dispatch_combine(
-        cfg, x_flat, ids, weights,
-        {n: p[n] for n in ("w_gate", "w_up", "w_down")}, sel, capacity)
+    wp = {n: p[n] for n in ("w_gate", "w_up", "w_down")}
+    if e_loc != e:
+        y_flat, kept = _dispatch_combine(
+            cfg, SH.copy_to_model(x_flat), ids, SH.copy_to_model(weights),
+            wp, sel, capacity, first=SH.model_index() * e_loc)
+        y_flat = SH.psum_mapped(y_flat)
+    else:
+        y_flat, kept = _dispatch_combine(cfg, x_flat, ids, weights, wp, sel,
+                                         capacity)
     sink = getattr(_ROUTING, "sink", None)
     if sink is not None:
         sink.append(((~kept).sum(), kept.numel()))
 
     y = y_flat.reshape(b, s, d)
     if "shared" in p:
-        y = y + L.apply_mlp(p["shared"], cfg, x, sel=_shared_sel(sel))
+        y = y + L.apply_mlp(p["shared"], cfg, x, sel=_shared_sel(sel),
+                            d_ff=moe.num_shared_experts * cfg.d_ff)
     return y, aux
 
 

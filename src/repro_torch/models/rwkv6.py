@@ -23,14 +23,15 @@ last valid position, so the cache comes back as after the valid prefix.
 
 As in the reference, the five token-shift interpolations use per-channel
 learned mu (RWKV-5 style lerp); the decay keeps its full data-dependent
-low-rank path. The head-sharded form comes with the multi-GPU slice and
-raises until then.
+low-rank path. On a mesh it raises: the head-sharded form is ROADMAP
+item 14c.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.core.sparse_update import smm
 from repro_torch.kernels import ops
 from repro_torch.models.common import dense_init, last_valid, row_matmul
@@ -38,7 +39,8 @@ from repro_torch.models.layers import apply_norm, init_norm
 
 DECAY_LORA = 64
 
-_MESH = "head-sharded rwkv time mix: ROADMAP queue A item 14 (not ported yet)"
+_MESH = ("rwkv on a mesh (the head-sharded time mix): ROADMAP queue A item "
+         "14c (not ported yet)")
 
 
 def num_heads(cfg) -> int:
@@ -113,7 +115,7 @@ def apply_time_mix(p, cfg, x, sel=None, cache=None, length=None):
     valid tokens per row."""
     b, s, d = x.shape
     hd = cfg.rwkv.head_dim
-    if p["wr"].shape[-1] != d:
+    if p["wr"].shape[-1] != d or SH.process_mesh() is not None:
         raise NotImplementedError(_MESH)
 
     xp = _shift(x, None if cache is None else cache["last"])

@@ -21,23 +21,34 @@ saving. Trainable steps are recomputed in backward (`torch.utils.checkpoint`,
 non-reentrant) when `remat` is on, as the reference's `jax.checkpoint`.
 
 `sel` carries the channel-block selection (see core.sparse_update).
+
+On a rank of a process mesh (`sharding.use_rules` with a `launch.mesh`
+mesh, `mapped_model_axis`), the params are the rank's shards
+(`init_params(..., rules=)`, or `launch.specs.shard_local`): attention,
+the MLPs and the experts run tensor- / expert-parallel (layers, moe), the
+token table and the LM head vocab-parallel (`vocab_parallel_gather`,
+`_ce_chunk_vocab_parallel`), and the batch is the rank's data shard. The
+loss then divides by the GLOBAL token count, so the data ranks' losses and
+gradients sum to the single-device ones (the train step all-reduces them).
 """
 from __future__ import annotations
 
+import functools
 import zlib
 from typing import Any, NamedTuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import sharding as SH
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_update import tree_leaves, tree_map
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R
-from repro_torch.models.common import dense_init, embed_init
+from repro_torch.models.common import (dense_init, embed_init,
+                                       vocab_parallel_gather)
 
 CE_CHUNK = 1024
 # weights of the MoE load-balance and router z-losses in the loss (the
@@ -169,16 +180,42 @@ def _dense_ff_first(cfg) -> int:
     return 8 * cfg.d_ff
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
+def _shard_cutter(rules):
+    """cut(path, t): the rank's slice of the full leaf `t` at `path`
+    under `rules` (a copy where it is a slice, so the full draw is freed),
+    or `t` itself with no rules."""
+    if rules is None:
+        return lambda path, t: t
+    from repro_torch.launch.specs import resolve_pspec, shard_leaf
+    from repro_torch.models.specs import spec_of
+    mesh = rules.mesh
+
+    def cut(path, t):
+        sharding = resolve_pspec(tuple(t.shape), spec_of(path, t.dim()),
+                                 rules)
+        local = shard_leaf(t, sharding, mesh.shape, mesh.coords)
+        return local if local.shape == t.shape else local.clone()
+    return cut
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                rules=None) -> dict:
     """Random params from `seed`, drawn on `device` from one generator per
     segment plus one for the embedding and head. `device="meta"` gives
     shapes and dtypes without allocating. Layers are written into their
     stacked [steps, ...] tensors one at a time, so the peak is the stack
-    plus one layer."""
+    plus one layer.
+
+    rules: a process mesh's `AxisRules`: every leaf is drawn whole, in the
+    same order, and only this rank's slice kept (`launch.specs`), so the
+    ranks together hold the numbers one process draws, while none holds
+    the whole model at once (peak: the rank's stacks plus one whole
+    layer)."""
     dtype = dtype_of(cfg)
     segs = segment_layout(cfg)
     device = torch.device(device)
     meta = device.type == "meta"
+    cut = _shard_cutter(rules)
 
     def generator(salt: int):
         if meta:
@@ -190,11 +227,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
     g = generator(0)
     # an embedding-input arch has no token table unless its head is tied
     if not cfg.embed_inputs or cfg.tie_embeddings:
-        params["embed"] = {"tok": embed_init(
-            g, (cfg.vocab_size, cfg.d_model), dtype, device)}
+        params["embed"] = {"tok": cut(("embed", "tok"), embed_init(
+            g, (cfg.vocab_size, cfg.d_model), dtype, device))}
     if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": dense_init(g, (cfg.d_model, cfg.vocab_size),
-                                             dtype=dtype, device=device)}
+        params["lm_head"] = {"w": cut(("lm_head", "w"), dense_init(
+            g, (cfg.d_model, cfg.vocab_size), dtype=dtype, device=device))}
     if cfg.family == "ssm":
         params["ln0"] = L.init_norm(cfg.d_model, "layernorm", dtype, device)
     for seg in segs:
@@ -215,17 +252,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> dict:
                     g, cfg, dtype, device,
                     d_ff=_dense_ff_first(cfg) if seg.name == "first"
                     else None)
+            # each leaf stacked, then cut to the rank's slice
+            block = _cut_block(cut, ("segments", seg.name), block)
             if stack is None:
                 stack = tree_map(lambda a: torch.empty(
-                    (seg.steps,) + tuple(a.shape), dtype=a.dtype,
+                    (seg.steps,) + tuple(a.shape[1:]), dtype=a.dtype,
                     device=device), block)
             if not meta:
-                tree_map(lambda dst, src: dst[i].copy_(src), stack, block)
+                tree_map(lambda dst, src: dst[i].copy_(src[0]), stack, block)
         params["segments"][seg.name] = stack
     params["final_norm"] = L.init_norm(
         cfg.d_model, "layernorm" if cfg.family == "ssm" else cfg.norm_kind,
         dtype, device)
     return params
+
+
+def _cut_block(cut, path: tuple, block):
+    """One layer's tree -> its leaves as [1, ...] stacks cut to the rank's
+    slices (the stacked leaf's logical axes, layers leading)."""
+    if isinstance(block, dict):
+        return {k: _cut_block(cut, path + (k,), v) for k, v in block.items()}
+    return cut(path, block[None])
 
 
 # ---------------------------------------------------------------------------
@@ -255,18 +302,20 @@ def _sub_sel(sel, name):
     return tuple(comp[name] for comp in sel)
 
 
-def _apply_dense_block(cfg, p, x, positions, sel, window: int = 0):
+def _apply_dense_block(cfg, p, x, positions, sel, window: int = 0,
+                       d_ff=None):
     """-> (x, None): a dense layer has no auxiliary losses."""
     h = L.apply_norm(p["attn_ln"], x)
     x = x + L.attention(p["attn"], cfg, h, positions, window=window,
                         sel=_sub_sel(sel, "attn"))
     h = L.apply_norm(p["mlp_ln"], x)
-    return x + L.apply_mlp(p["mlp"], cfg, h, sel=_sub_sel(sel, "mlp")), None
+    return x + L.apply_mlp(p["mlp"], cfg, h, sel=_sub_sel(sel, "mlp"),
+                           d_ff=d_ff), None
 
 
-def _apply_dense_step(cfg, p, x, positions, sel):
+def _apply_dense_step(cfg, p, x, positions, sel, d_ff=None):
     return _apply_dense_block(cfg, p, x, positions, sel,
-                              _window_for(cfg, "dense", 0))
+                              _window_for(cfg, "dense", 0), d_ff)
 
 
 def _apply_moe_block(cfg, p, x, positions, sel):
@@ -345,15 +394,19 @@ def _unstack(tree, steps: int) -> list:
 
 
 def _run_segment(cfg, kind: str, stack, x, positions, sel_idx, sel_spec,
-                 remat: bool = True, sel_wsel=None):
+                 remat: bool = True, sel_wsel=None, d_ff=None):
     """Run a segment's layers in order. sel_idx: stacked [steps, ...] idx
     tree or None; sel_wsel: stacked compact selected-block tree (compact
-    path) or None. Returns (x, aux): aux the sum of the layers' [2]
-    auxiliary losses, None where no layer has any."""
+    path) or None; d_ff: the full MLP width of a dense segment whose MLPs
+    are wider than cfg.d_ff (deepseek's first layer). Returns (x, aux): aux
+    the sum of the layers' [2] auxiliary losses, None where no layer has
+    any."""
     aux = None
     if stack is None:
         return x, aux
     apply = _APPLY[kind]
+    if d_ff is not None:
+        apply = functools.partial(apply, d_ff=d_ff)
     steps = tree_leaves(stack)[0].shape[0]
     layers = _unstack(stack, steps)
     idxs = _unstack(sel_idx, steps)
@@ -408,7 +461,7 @@ def embed_tokens(cfg, params_pair, batch):
         x = batch["embeds"].to(dtype_of(cfg))
     else:
         emb = _pick(frozen, trainable, "embed", "tok")
-        x = F.embedding(batch["tokens"].long(), emb)
+        x = vocab_parallel_gather(emb, batch["tokens"], cfg.vocab_size)
     if cfg.family == "ssm":
         x = L.apply_norm(_pick(frozen, trainable, "ln0"), x)
     return x
@@ -438,12 +491,13 @@ def forward(cfg, params_pair, batch, sel=None, remat: bool = True):
                 sel_wsel = sel[2].get(seg.name)
         # the frozen prefix keeps no activations unless a gradient must
         # flow through it (a trainable embedding)
+        d_ff = _dense_ff_first(cfg) if seg.name == "first" else None
         with torch.set_grad_enabled(torch.is_grad_enabled()
                                     and x.requires_grad):
             x, a1 = _run_segment(cfg, seg.kind, f_stack, x, positions, None,
-                                 None, remat)
+                                 None, remat, d_ff=d_ff)
         x, a2 = _run_segment(cfg, seg.kind, t_stack, x, positions, sel_idx,
-                             sel_spec, remat, sel_wsel=sel_wsel)
+                             sel_spec, remat, sel_wsel=sel_wsel, d_ff=d_ff)
         for a in (a1, a2):
             if a is not None:
                 aux = aux + a
@@ -466,30 +520,67 @@ def _ce_chunk(h, w_head, y):
     return torch.sum(lse - gold)
 
 
-def chunked_cross_entropy(hidden, w_head, labels, chunk: int = CE_CHUNK):
+def _ce_chunk_vocab_parallel(h, w_head, y, offset: int):
+    """`_ce_chunk` on the rank's vocab shard [d, V / n] (global ids
+    offset .. offset + V / n - 1): the row max, the sum of exponentials and
+    the gold logit (from the rank that owns it; zero elsewhere) are
+    combined over the model group. Inside `torch.utils.checkpoint` the
+    backward's recomputation issues the same collectives again, in the
+    same order on every rank."""
+    logits = torch.matmul(h.float(), w_head.float())
+    with torch.no_grad():
+        m = SH.pmax_mapped_(logits.amax(dim=-1))
+    sumexp = SH.psum_mapped(torch.exp(logits - m[..., None]).sum(dim=-1),
+                            "ce")
+    lse = m + torch.log(sumexp)
+    local = y.long() - offset
+    own = (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(own, local, 0)[..., None])
+    gold = SH.psum_mapped(torch.where(own, gold[..., 0], 0.0), "ce")
+    return torch.sum(lse - gold)
+
+
+def chunked_cross_entropy(hidden, w_head, labels, chunk: int = CE_CHUNK,
+                          vocab_size=None):
     """Per-token CE without keeping [B,S,V] logits for backward: sequence
-    chunks, each recomputed in backward. Returns (sum_loss, token_count)."""
+    chunks, each recomputed in backward. Returns (sum_loss, token_count).
+    A head narrower than `vocab_size` is the rank's vocab shard: the
+    hidden state enters through `copy_to_model` (its gradient summed over
+    the model group) and every chunk is vocab-parallel."""
     b, s, _ = hidden.shape
     c = min(chunk, s)
     assert s % c == 0
+    fn = _ce_chunk
+    if vocab_size is not None and w_head.shape[-1] != vocab_size:
+        SH.require_model_group("the LM head")
+        hidden = SH.copy_to_model(hidden)
+        fn = functools.partial(_ce_chunk_vocab_parallel,
+                               offset=SH.model_index() * w_head.shape[-1])
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(s // c):
         h, y = hidden[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
         if torch.is_grad_enabled():
-            total = total + checkpoint(_ce_chunk, h, w_head, y,
+            total = total + checkpoint(fn, h, w_head, y,
                                        use_reentrant=False)
         else:
-            total = total + _ce_chunk(h, w_head, y)
+            total = total + fn(h, w_head, y)
     return total, b * s
 
 
 def loss_fn(cfg, params_pair, batch, sel=None, remat: bool = True):
     """Mean next-token CE plus the MoE auxiliary losses (zero for the dense
     family, which then leaves the CE bitwise as it is). Returns (loss,
-    metrics) with the reference's metric keys."""
+    metrics) with the reference's metric keys.
+
+    On a mesh with n data shards the batch is this rank's shard and the
+    mean is over the GLOBAL token count (the MoE losses are shares of
+    the global ones too, `moe.apply_moe`): loss and metrics are this
+    shard's shares, and their sums over the data group are the
+    single-device values."""
     hidden, aux = forward(cfg, params_pair, batch, sel=sel, remat=remat)
     w_head = lm_head_weight(cfg, params_pair)
-    total, count = chunked_cross_entropy(hidden, w_head, batch["labels"])
-    ce = total / count
+    total, count = chunked_cross_entropy(hidden, w_head, batch["labels"],
+                                         vocab_size=cfg.vocab_size)
+    ce = total / (count * SH.data_size())
     loss = ce + AUX_WEIGHT * aux[0] + Z_WEIGHT * aux[1]
     return loss, {"ce": ce, "load_balance": aux[0], "router_z": aux[1]}

@@ -13,6 +13,12 @@ Two update entry points share one per-leaf rule:
 
 The arithmetic follows the reference package's `optim/optimizers.py` op
 for op in fp32, with Python floats entering as fp32 (JAX's weak types).
+
+On a mesh a rank updates its own shards; only the global-norm clip needs
+the others: `sharded` = (a tree of bools, True where the leaf is a slice
+of its weight, and the model group) makes the norm the whole model's:
+sharded leaves' squares are summed over the model group, replicated ones
+counted once (the data group has already summed the gradients).
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import math
 import torch
 
 from repro_torch.configs.base import OptimizerConfig
+from repro_torch import sharding as SH
 from repro_torch.core.sparse_update import SelSpec, tree_leaves, tree_map
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ref import block_rule
@@ -53,10 +60,31 @@ def _hyper(oc: OptimizerConfig, step, device) -> torch.Tensor:
     return torch.stack([lr, t]).to(device)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def _split_squares(g, flags, acc: list) -> None:
+    """acc[0] += squares of the sharded leaves, acc[1] of the others."""
+    if isinstance(g, dict):
+        for k, v in g.items():
+            if v is not None:
+                _split_squares(v, flags[k], acc)
+    elif g is not None:
+        i = 0 if flags else 1
+        acc[i] = acc[i] + torch.sum(torch.square(g.float()))
+
+
+def clip_by_global_norm(grads, max_norm: float, sharded=None):
+    """Scale `grads` so their global L2 norm is at most `max_norm` (no-op
+    for max_norm <= 0). sharded: (flags tree, model group) on a mesh."""
     if max_norm <= 0:
         return grads, torch.zeros(())
-    sq = sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads))
+    if sharded is None:
+        sq = sum(torch.sum(torch.square(g.float()))
+                 for g in tree_leaves(grads))
+    else:
+        flags, group = sharded
+        dev = tree_leaves(grads)[0].device
+        acc = [torch.zeros((), device=dev), torch.zeros((), device=dev)]
+        _split_squares(grads, flags, acc)
+        sq = SH.all_reduce_(acc[0], group, "aux") + acc[1]
     norm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: None if g is None else (g * scale).to(g.dtype),
@@ -105,11 +133,13 @@ def _pick(res, i):
     return res[i]
 
 
-def apply_updates(oc: OptimizerConfig, params, grads, state: dict, step):
-    """Dense sweep: returns (new_params, new_state)."""
+def apply_updates(oc: OptimizerConfig, params, grads, state: dict, step,
+                  sharded=None):
+    """Dense sweep: returns (new_params, new_state). sharded: see the
+    module doc (the mesh-wide clip)."""
     hyper = _hyper(oc, step, _first_leaf(params).device)
     lr, t = hyper[0], hyper[1]
-    grads, _ = clip_by_global_norm(grads, oc.grad_clip)
+    grads, _ = clip_by_global_norm(grads, oc.grad_clip, sharded)
 
     def walk(p, g, mu, nu):
         if isinstance(p, dict):
@@ -127,7 +157,7 @@ def apply_updates(oc: OptimizerConfig, params, grads, state: dict, step):
 
 
 def apply_updates_mixed(oc: OptimizerConfig, params, grads, compact_grads,
-                        state: dict, step, sel_idx, spec_tree):
+                        state: dict, step, sel_idx, spec_tree, sharded=None):
     """Compact-gradient update. Selectable leaves (those with a SelSpec in
     `spec_tree`, keyed by segment under params["segments"]) are updated in
     place on their selected blocks by one fused kernel launch each; their
@@ -137,15 +167,19 @@ def apply_updates_mixed(oc: OptimizerConfig, params, grads, compact_grads,
     grads: the dense gradients of the non-selectable leaves (None at the
     selectable ones). compact_grads: {segment: nested {leaf: compact dW}}
     matching `sel_idx` / `spec_tree`. Returns (new_params, new_state); the
-    selectable leaves are the input tensors, updated in place."""
+    selectable leaves are the input tensors, updated in place. sharded:
+    see the module doc (a compact leaf is sharded where its weight is)."""
     hyper = _hyper(oc, step, _first_leaf(params).device)
     lr, t = hyper[0], hyper[1]
     if oc.grad_clip > 0:
         # joint clip: compact leaves hold exactly the nonzero content of
         # their dense counterparts, so the norm is the dense sweep's up to
         # float-accumulation order
+        if sharded is not None:
+            flags, group = sharded
+            sharded = ({"d": flags, "c": flags["segments"]}, group)
         clipped, _ = clip_by_global_norm({"d": grads, "c": compact_grads},
-                                         oc.grad_clip)
+                                         oc.grad_clip, sharded)
         grads, compact_grads = clipped["d"], clipped["c"]
 
     def walk(p, g, cg, spec, idx, mu, nu):

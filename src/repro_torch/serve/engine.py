@@ -77,7 +77,7 @@ Robustness (``runtime/chaos.py`` is the serve-side fault story):
   ``InjectedCrash`` (``kill_after``) simulates the hard kill end to end.
 
 Sharded serving (``rules=``) is refused with the ROADMAP item that brings
-it (queue A item 14).
+it (queue A item 14b).
 
 Embedding-input archs (musicgen, qwen2-vl): a request carries its prompt
 as `embeds` [prompt_len, d_model], and each decode step feeds every slot a
@@ -266,7 +266,7 @@ class ServeEngine:
             raise ValueError("personalization trains on token streams; "
                              "embed-input frontends have none")
         if rules is not None:
-            _refuse("sharded serving (rules)", "ROADMAP queue A item 14")
+            _refuse("sharded serving (rules)", "ROADMAP queue A item 14b")
         # robustness knobs (the module docstring's Robustness section);
         # `chaos` is a runtime.chaos.FaultSchedule or None: every injection
         # point is gated on it, so a chaos-free engine runs the fault-free

@@ -13,22 +13,42 @@ the compact step updates the selected blocks of the trainable weights and
 their optimizer state in place (one fused kernel launch per leaf), like the
 reference's donated state. Build a fresh state, or clone one, to run two
 steps from the same start.
+
+On a mesh (`sharding.use_rules` with a `launch.mesh` mesh around both
+builders and every step) the state is one rank's: its shards of the params
+and optimizer state (`init_params(..., rules=)` or `bridge.params_to_rank`)
+and of the selection (`core.selection.local_selection`); the plan is the
+one the reference builds under the same rules. A step maps the model axis,
+runs the model on the rank's data shard of the batch, and all-reduces over
+the data group: the compact dW (nothing full-size), the gradients of the
+dense-rule leaves (norms, the router), and the loss and metrics; or, on
+the dense-scatter step, the full-shape gradients (their selected blocks
+only under `compact_allreduce`). The kernels then see the rank's local
+widths and local SelSpec. Model-group sums happen inside the model
+(`models.layers`, `models.moe`, the vocab-parallel CE).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 
+from repro_torch import sharding as SH
 from repro_torch.configs.base import (ShapeConfig, SparseUpdateConfig,
                                       TrainConfig)
 from repro_torch.core.schedule import maybe_reselect
 from repro_torch.core.selection import (SelectionPlan, build_plan,
+                                        local_selection, local_spec_tree,
                                         magnitude_selection, random_selection)
-from repro_torch.core.sparse_update import (map_selectable, merge_stack,
+from repro_torch.core.sparse_update import (SelSpec,
+                                            compact_allreduce_enabled,
+                                            compress_grads, map_selectable,
+                                            merge_stack,
                                             selected_grad_targets,
                                             split_stack, tree_leaves,
                                             tree_map)
+from repro_torch.models.registry import abstract_params
 from repro_torch.models import transformer as T
 from repro_torch.optim import apply_updates, apply_updates_mixed, init_opt_state
 
@@ -70,26 +90,47 @@ def merge_params(frozen, trainable):
     return out
 
 
+@contextlib.contextmanager
+def on_mesh():
+    """Yields the current rules' process mesh with its model axis mapped,
+    or None off a mesh."""
+    mesh = SH.process_mesh()
+    if mesh is None:
+        yield None
+        return
+    with SH.mapped_model_axis(SH.current_rules().model_axis):
+        yield mesh
+
+
 def make_train_state(tc: TrainConfig, params=None,
                      selection_init: str = "magnitude",
                      device="cuda") -> tuple[TrainState, SelectionPlan]:
     """Initial state and selection plan. params: a param tree on `device`
-    (random from tc.seed when None)."""
+    (random from tc.seed when None). On a mesh: the rank's state (params
+    the rank's shards; drawn whole and sliced when None) and the global
+    plan."""
     cfg = tc.model
-    if params is None:
-        params = T.init_params(cfg, tc.seed, device)
-    if tc.sparse.enabled:
-        tokens_per_device = tc.shape.global_batch * tc.shape.seq_len
-        plan = build_plan(cfg, tc.sparse, tokens_per_device)
-        if selection_init == "magnitude":
-            sel_idx = magnitude_selection(plan, params)
+    with on_mesh() as mesh:
+        if params is None:
+            params = T.init_params(cfg, tc.seed, device,
+                                   rules=None if mesh is None
+                                   else SH.current_rules())
+        if tc.sparse.enabled:
+            tokens_per_device = tc.shape.global_batch * tc.shape.seq_len
+            plan = build_plan(cfg, tc.sparse, tokens_per_device)
+            if selection_init == "magnitude":
+                sel_idx = magnitude_selection(
+                    plan, params, None if mesh is None else cfg)
+            else:
+                sel_idx = random_selection(plan, tc.seed, 0, device)
+                if mesh is not None:
+                    sel_idx = local_selection(plan, sel_idx,
+                                              SH.model_index())
         else:
-            sel_idx = random_selection(plan, tc.seed, 0, device)
-    else:
-        plan = build_plan(cfg, SparseUpdateConfig(
-            enabled=False, update_ratio=1.0, num_update_layers=10**9,
-            channel_block=tc.sparse.channel_block))
-        sel_idx = None
+            plan = build_plan(cfg, SparseUpdateConfig(
+                enabled=False, update_ratio=1.0, num_update_layers=10**9,
+                channel_block=tc.sparse.channel_block))
+            sel_idx = None
     frozen, trainable = split_params(params, plan)
     state = {
         "step": 0,
@@ -118,12 +159,49 @@ def _grads(loss, trees):
     return [tree_map(pick, tree) for tree in trees]
 
 
+def _reduce_tree(tree, group, kind: str):
+    """All-reduce (sum) every tensor of a nested dict in place."""
+    for leaf in tree_leaves(tree):
+        SH.all_reduce_(leaf, group, kind)
+    return tree
+
+
+def _map_split(tree, spec_top, on_sel, on_other):
+    """on_sel on the leaves with a SelSpec in `spec_top`, on_other on the
+    rest (None leaves stay None)."""
+    def other(node):
+        if isinstance(node, dict):
+            return {k: other(v) for k, v in node.items()}
+        return None if node is None else on_other(node)
+
+    def walk(node, spec):
+        if isinstance(spec, SelSpec):
+            return on_sel(node)
+        if isinstance(node, dict):
+            return {k: (walk(v, spec[k]) if isinstance(spec, dict)
+                        and k in spec else other(v))
+                    for k, v in node.items()}
+        return other(node)
+    return walk(tree, spec_top)
+
+
+def _shard_flags(cfg, plan, trainable):
+    """True where a trainable leaf is a slice of its whole weight."""
+    _, full = split_params(abstract_params(cfg), plan)
+    return tree_map(lambda loc, whole: tuple(loc.shape) != tuple(whole.shape),
+                    trainable, full)
+
+
 def make_train_step(tc: TrainConfig, plan: SelectionPlan,
                     use_selection: bool = True,
-                    compact_grads: Optional[bool] = None):
+                    compact_grads: Optional[bool] = None, on_grads=None):
     """Returns train_step(state, batch) -> (state, metrics).
 
-    batch: {"tokens", "labels"} tensors on the state's device.
+    batch: {"tokens", "labels"} tensors on the state's device (on a mesh:
+    the rank's data shard of the global batch, `launch.specs`).
+    on_grads(dense, compact), when given, sees the step's gradients after
+    every reduction, before the update (compact is None on the
+    dense-scatter and dense steps).
     compact_grads (default: tc.compact_grads) routes every segment weight
     with a SelSpec through the compact-gradient path: the backward emits the
     [K, n_shards, n_sel, block] dW directly (`block_sparse_dw`, one launch
@@ -136,19 +214,37 @@ def make_train_step(tc: TrainConfig, plan: SelectionPlan,
     remat = tc.remat != "none"
     if compact_grads is None:
         compact_grads = tc.compact_grads
+    cache: dict = {}
 
     def train_step(state, batch):
+        with on_mesh() as mesh:
+            return _step(state, batch, mesh)
+
+    def _step(state, batch, mesh):
         step = state["step"]
         trainable = state["params_trainable"]
         frozen = state["params_frozen"]
         device = tree_leaves(trainable)[0].device
         sel_idx = state["sel_idx"]
+        spec = plan.spec
+        if mesh is not None:
+            if "spec" not in cache:
+                cache["spec"] = local_spec_tree(plan.spec)
+                if tc.optimizer.grad_clip > 0:
+                    cache["flags"] = _shard_flags(cfg, plan, trainable)
+            spec = cache["spec"]
         if use_selection and tc.sparse.enabled and sel_idx is not None:
-            sel_idx = maybe_reselect(plan, tc.sparse, sel_idx, step,
-                                     state["rng"], device)
-            sel = (sel_idx, plan.spec)
+            new = maybe_reselect(plan, tc.sparse, sel_idx, step,
+                                 state["rng"], device)
+            if mesh is not None and new is not sel_idx:
+                new = local_selection(plan, new, SH.model_index())
+            sel_idx = new
+            sel = (sel_idx, spec)
         else:
             sel = None
+        data = SH.data_group()
+        sharded = None if mesh is None or tc.optimizer.grad_clip <= 0 \
+            else (cache["flags"], SH.model_group())
 
         # fresh leaves to differentiate; the state's tensors stay plain
         t_tree = tree_map(lambda a: a.detach().requires_grad_(True),
@@ -156,23 +252,33 @@ def make_train_step(tc: TrainConfig, plan: SelectionPlan,
         if compact_grads and sel is not None:
             # selectable weights only feed the forward matmul; their
             # gradient arrives compactly via `wsel`
-            t_tree = map_selectable(t_tree, {"segments": plan.spec},
+            t_tree = map_selectable(t_tree, {"segments": spec},
                                     lambda a: a.detach())
             wsel = selected_grad_targets(trainable.get("segments", {}),
-                                         sel_idx, plan.spec)
+                                         sel_idx, spec)
             loss, metrics = T.loss_fn(cfg, (frozen, t_tree), batch,
-                                      sel=(sel_idx, plan.spec, wsel),
+                                      sel=(sel_idx, spec, wsel),
                                       remat=remat)
             g_dense, g_sel = _grads(loss, [t_tree, wsel])
+            # the compact dW as it is: nothing full-size is reduced
+            _reduce_tree(g_sel, data, "dw")
+            _reduce_tree(g_dense, data, "grad_dense")
+            if on_grads is not None:
+                on_grads(g_dense, g_sel)
             new_params, new_opt = apply_updates_mixed(
                 tc.optimizer, trainable, g_dense, g_sel, state["opt"], step,
-                sel_idx, plan.spec)
+                sel_idx, spec, sharded)
         else:
             loss, metrics = T.loss_fn(cfg, (frozen, t_tree), batch, sel=sel,
                                       remat=remat)
             (grads,) = _grads(loss, [t_tree])
+            if data is not None:
+                grads = _reduce_dense_scatter(grads, sel, data)
+            if on_grads is not None:
+                on_grads(grads, None)
             new_params, new_opt = apply_updates(tc.optimizer, trainable,
-                                                grads, state["opt"], step)
+                                                grads, state["opt"], step,
+                                                sharded)
         new_state = {
             "step": step + 1,
             "params_trainable": new_params,
@@ -183,9 +289,34 @@ def make_train_step(tc: TrainConfig, plan: SelectionPlan,
         }
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
+        if data is not None:
+            # each data shard's loss and metrics are its shares
+            keys = sorted(metrics)
+            total = SH.all_reduce_(torch.stack([metrics[k] for k in keys]),
+                                   data, "metrics")
+            metrics = dict(zip(keys, total.unbind(0)))
         return new_state, metrics
 
     return train_step
+
+
+def _reduce_dense_scatter(grads, sel, data):
+    """The dense-scatter (or dense) step's data-parallel reduction: the
+    selectable leaves' full-shape gradients, or under compact_allreduce
+    only their selected blocks; the other leaves as they are."""
+    if sel is None or "segments" not in grads:
+        return _reduce_tree(grads, data, "grad_full")
+    sel_idx, spec = sel
+    if compact_allreduce_enabled():
+        grads = dict(grads)
+        grads["segments"] = compress_grads(
+            grads["segments"], sel_idx, spec,
+            reduce=lambda t: SH.all_reduce_(t, data, "dw"))
+        on_sel = lambda g: g
+    else:
+        on_sel = lambda g: SH.all_reduce_(g, data, "grad_full")
+    return _map_split(grads, {"segments": spec}, on_sel,
+                      lambda g: SH.all_reduce_(g, data, "grad_dense"))
 
 
 def make_online_wave(cfg, sparse, optimizer, plan: SelectionPlan, *,

@@ -343,5 +343,5 @@ def test_apply_moe_refuses_sharded_expert_weights():
     _, pcfg, jp, x = _moe_setup()
     p = bridge.to_torch(jp)
     p["w_gate"] = p["w_gate"][..., :16]
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(NotImplementedError, match="item 14b"):
         PMOE.apply_moe(p, pcfg, _t(x))
