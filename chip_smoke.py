@@ -161,34 +161,34 @@ Phases (any failure exits non-zero and prints no result):
    checks (launches as its plan derives them, one profiled step with the
    flash path's share, frozen params against a fresh init, compact
    against dense-scatter bitwise): nemotron-4-15b (layernorm, squared
-   ReLU) cut 32 -> 8 layers with AdamW; command-r-35b (layernorm, tied
-   embeddings) cut 40 -> 8 layers, AdamW (the cuts keep the whole run
+   ReLU) cut 32 -> 4 layers with AdamW; command-r-35b (layernorm, tied
+   embeddings) cut 40 -> 4 layers, AdamW (the cuts keep the whole run
    inside its time limit); llama4-scout-17b-a16e
-   (MoE in every layer, 16 experts top-1 + 1 shared) cut 48 -> 8 layers
+   (MoE in every layer, 16 experts top-1 + 1 shared) cut 48 -> 4 layers
    with all 16 experts, SGD lr 0.1, its dropped share and every expert
    leaf's unselected blocks through the first fixed phase against the
-   init, its compact against dense-scatter cut further to 4 layers; the
-   cuts pass to the launcher as `model=`;
+   init; the cuts pass to the launcher as `model=`;
 20. musicgen-medium (embedding inputs from a stub frontend, gelu,
-   layernorm) at train_4k, full depth (48 layers): batch 2 x seq 4096 of
+   layernorm) at train_4k, cut 48 -> AV_LAYERS = 8 layers (for the run's
+   time, since PR 30; full depth before): batch 2 x seq 4096 of
    standard-normal bf16 embeddings and uniform labels, drawn on the card
    from a generator seeded by the step (`embed_batches`) and fed through
    the launcher's `batches=` hook, K = 2, block 128, AdamW, 6 steps:
    launches as the plan derives them, one profiled step with the flash
    path's share, the frozen params against a fresh init, compact against
-   dense-scatter bitwise at full depth;
-21. qwen2-vl-7b (embedding inputs, M-RoPE) the same way, at full depth
-   (28 layers), its [3, B, S] positions a 32 x 32 patch grid (t 0; h, w
+   dense-scatter bitwise at that cut;
+21. qwen2-vl-7b (embedding inputs, M-RoPE) the same way, cut 28 -> 8
+   layers, its [3, B, S] positions a 32 x 32 patch grid (t 0; h, w
    the grid's coordinates) and then text continuing from 32 in all three
    components (`mrope_positions`): the three components differ;
-22. both archs served at full depth through the serve launcher's
+22. both archs served cut to SERVE_LAYERS = 8 through the serve launcher's
    `build_engine` (4 slots, pages of 16, 8 requests of 128 prompt
    embeddings + 32 new tokens, prefix_mode off, greedy, fresh placeholder
    embeddings a decode step): 8/8 completed, no port kernel launched;
    then at full widths cut to 4 layers in f32 every request's tokens
    against the contiguous prefill + decode_step oracle fed the same
    prompt and decode embeddings, every sampled step's top-2 gap probed;
-23. checkpoint and resume: phase 20's argv with --ckpt-dir and
+23. checkpoint and resume: phase 20's argv and cut with --ckpt-dir and
    --ckpt-every 3 (the reference's file format; zlib level 0 where the
    card's host has no `zstandard`), its losses bitwise phase 20's; the
    step-6 file deleted and the same argv again: "resumed from step 3",
@@ -285,6 +285,27 @@ Phases (any failure exits non-zero and prints no result):
    equal updates, the dW bytes r of the full gradient's; (d)
    deepseek-moe-16b cut to 4 layers on (1, 2) (32 experts a rank)
    against the one-process step: losses and the dropped share.
+32. sharded paged serving on a (1, n) process mesh over `model`
+   (`launch.mesh_serve` jobs in phase 31's spawned world, the ranks
+   sharing cuda:0 over gloo: no time is a tensor-parallel speed figure;
+   page pools split over kv heads, weights tensor-, vocab- and
+   d_ff-parallel): (a) f32 llama3-8b at full width cut to 2 layers on
+   (1, 2) and (1, 4), the shared-prefix workload twice on one engine (run
+   2 rehydrates from the spill tier onto the sharded pool): tokens and
+   page accounting equal the one-process engine's on the card, each rank's
+   pool bytes the pool's / n; (b) bf16 llama3-8b at full width cut to
+   SERVE_LAYERS on (1, 2), phase 13's run B (2 users, online waves
+   trained on every rank): tokens against phase 13's, each first difference
+   at a near tie (its top-2 gap under twice the logit difference there),
+   the waves' launches per rank, the collective bytes of a decode step by
+   kind against the count the code predicts; (c) gemma3-4b cut to 6
+   layers (one super-block: ring + paged) and deepseek-moe-16b cut to 2
+   (d_ff-parallel experts and shared experts), f32, (1, 2): tokens equal
+   the one-process engine's; (d) rwkv6-3b and jamba refused on a mesh
+   with ROADMAP item 14c, and the serve launcher's `--mesh-model 2`
+   printing its mesh line; (e) faulted controls: (a) with the two ranks'
+   shards swapped, (b) with every delta kept at zero (lr 0): tokens
+   differ (the zero-delta run's from (b)'s after the first wave).
 
 Phases 24-26 also run the shared-prefix workload of phase 28 on the
 weights they hold, `off` then `radix` (pages of 16; MoE layers at capacity
@@ -389,21 +410,22 @@ JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--steps", "6", "--batch",
               str(JAMBA_J), "--phase-k", "2", "--log-every", "1",
               "--seed", "0"]
 # the reference's other text-only archs at its train_4k shape, batch 1,
-# K = 2: nemotron-4-15b cut 32 -> 8 layers and command-r-35b cut 40 -> 8
-# (the whole run must end well inside its time limit: every layer of a
+# K = 2: nemotron-4-15b cut 32 -> 4 layers and command-r-35b cut 40 -> 4
+# (8 in PRs 28-29; 4 since PR 30, whose phase 32 the run's time limit had
+# to make room for: every layer of a
 # stack is the same code, and the checks read the last K; command-r's
 # uncut 60.6 GB of bf16 params, the tied head's 8.4 GB fp32 copy in the
 # loss and AdamW's state also leave no room for a step's activations);
-# llama4-scout-17b-a16e cut 48 -> 8 layers with all 16 experts (~108 B
+# llama4-scout-17b-a16e cut 48 -> 4 layers with all 16 experts (~108 B
 # params uncut) and SGD, the paper's optimizer (AdamW's fp32 state on one
 # 2.2 B-param layer alone is ~17.6 GB). The cuts pass to the launcher as
 # `model=`; the config files keep the published depths.
 TEXT_ARGV = ["--steps", "6", "--batch", "1", "--seq", "4096"] + MAIN_ARGV[8:]
-NEMOTRON_LAYERS = 8
+NEMOTRON_LAYERS = 4
 NEMOTRON_ARGV = ["--arch", "nemotron-4-15b"] + TEXT_ARGV
-COMMAND_R_LAYERS = 8
+COMMAND_R_LAYERS = 4
 COMMAND_R_ARGV = ["--arch", "command-r-35b"] + TEXT_ARGV
-SCOUT_LAYERS = 8
+SCOUT_LAYERS = 4
 SCOUT_J = 2                # the first fixed phase of the llama4-scout run
 SCOUT_ARGV = ["--arch", "llama4-scout-17b-a16e", "--steps", "6", "--batch",
               "1", "--seq", "4096", "--compact-grads", "--update-layers",
@@ -411,15 +433,26 @@ SCOUT_ARGV = ["--arch", "llama4-scout-17b-a16e", "--steps", "6", "--batch",
               "128", "--optimizer", "sgd", "--lr", "0.1", "--phase-j",
               str(SCOUT_J), "--phase-k", "2", "--log-every", "1", "--seed",
               "0"]
-# the audio and vlm archs at the reference's train_4k shape, full depth,
-# batch 2 x seq 4096 (the LM's train_4k cut), K = 2, AdamW; the launcher
-# takes their embedding inputs through `main(argv, batches=...)`
-# (embed_batches), qwen2-vl's positions a patch grid and then text
-# (mrope_positions)
+# the audio and vlm archs at the reference's train_4k shape cut to
+# AV_LAYERS layers (full depth in PRs 23-29; cut since PR 30 for the run's
+# time limit, as the text archs were in PR 28), batch 2 x seq 4096 (the
+# LM's train_4k cut), K = 2, AdamW; the launcher takes their embedding
+# inputs through `main(argv, batches=...)` (embed_batches), qwen2-vl's
+# positions a patch grid and then text (mrope_positions)
+AV_LAYERS = 8
 AV_ARGV = ["--steps", "6", "--batch", "2", "--seq", "4096"] + MAIN_ARGV[8:]
 MUSICGEN_ARGV = ["--arch", "musicgen-medium"] + AV_ARGV
 QWEN_ARGV = ["--arch", "qwen2-vl-7b"] + AV_ARGV
 MROPE_GRID = 32
+
+
+def av_cut(arch: str):
+    """musicgen-medium or qwen2-vl-7b at published widths cut to AV_LAYERS
+    layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), num_layers=AV_LAYERS)
+
+
 SERVE_RATIO = 0.25         # the serving launcher's per-user update ratio
 # name -> (route, source, the TPU kernel it replaces, the path that launches
 # it). block_sparse_dw also replaces block_sparse_dw_pipelined_kernel
@@ -3357,11 +3390,19 @@ def phase_serve(results: dict):
     gc.collect()
     torch.cuda.empty_cache()
     reqs = serve.build_requests(args_b, cfg)
+    # every sampled row of run B, for phase 32's near ties
+    rows_b, undo = _capture_request_logits(eng_b)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    stats_b = eng_b.run(reqs)
+    try:
+        stats_b = eng_b.run(reqs)
+    finally:
+        undo()
     counts_b = ops.launch_counts()
+    results["serve_b"] = {
+        "tokens": {k: list(r.tokens) for k, r in stats_b.results.items()},
+        "rows": {k: [r.cpu() for r in v] for k, v in rows_b.items()}}
     _serve_summary("serve B", stats_b)
     print(f"[serve B] launches {counts_b}; wave losses "
           f"{[(u, round(l, 4)) for u, l in stats_b.wave_losses]}",
@@ -3729,15 +3770,16 @@ def embed_batches(cfg, batch: int, seq: int, seed: int):
 
 
 def phase_av_arch(results: dict, tag: str, argv, watch: str):
-    """musicgen-medium or qwen2-vl-7b at train_4k, full depth: 6 compact
-    AdamW steps through the launcher fed `embed_batches`, launches as the
-    plan derives them, one profiled step with the flash path's share, the
-    frozen params against a fresh init, then compact against dense-scatter
-    bitwise at full depth. Returns the run's losses."""
+    """musicgen-medium or qwen2-vl-7b at train_4k cut to AV_LAYERS: 6
+    compact AdamW steps through the launcher fed `embed_batches`, launches
+    as the plan derives them, one profiled step with the flash path's
+    share, the frozen params against a fresh init, then compact against
+    dense-scatter bitwise at the cut. Returns the run's losses."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
 
-    cfg = get_config(argv[1])
+    cfg = av_cut(argv[1])
+    full = get_config(argv[1]).num_layers
     n_params = sum(t.numel() for t in _leaves(T.init_params(cfg, 0, "meta")))
     inputs = (f"positions a {MROPE_GRID} x {MROPE_GRID} patch grid (t 0, h, "
               f"w its coordinates) then text from {MROPE_GRID} in all three "
@@ -3747,11 +3789,13 @@ def phase_av_arch(results: dict, tag: str, argv, watch: str):
           f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} {cfg.mlp_kind}, "
           f"{cfg.norm_kind}, vocab {cfg.vocab_size}, no token table: "
           f"embedding inputs, M-RoPE {cfg.mrope}); {cfg.num_layers} layers "
-          f"(no depth cut); {n_params} params, {2 * n_params} bytes in "
+          f"(cut {full} -> {cfg.num_layers}: the run's time limit); "
+          f"{n_params} params, {2 * n_params} bytes in "
           f"{cfg.dtype}; batch 2 x seq 4096 of standard-normal embeddings, "
           f"{inputs} [{card_line()}]", flush=True)
     batches = embed_batches(cfg, 2, 4096, seed=0)
-    tc, out, totals = _train_path(tag, argv, watch, batches=batches)
+    tc, out, totals = _train_path(tag, argv, watch, model=cfg,
+                                  batches=batches)
     _add_launches(results, totals)
     losses = list(out["losses"])
     busy = phase_profile(tc, out, f"one fixed-phase {tag} step",
@@ -3822,7 +3866,7 @@ def _embed_oracle(cfg, params, prompt, fed, max_len: int) -> list:
 
 
 def phase_serve_av():
-    """Both archs served at full depth through the serve launcher's
+    """Both archs served cut to SERVE_LAYERS through the serve launcher's
     `build_engine`: 4 slots, pages of 16, 8 requests of 128 + 32 (prompt
     embeddings from `make_random_requests`, fresh placeholder embeddings a
     decode step), prefix_mode off, greedy; no port kernel launched. Then at
@@ -3840,10 +3884,11 @@ def phase_serve_av():
         tag = f"serve {arch}"
         args = ap.parse_args(["--arch", arch] + SERVE_ARGV[2:]
                              + ["--users", "0"])
-        cfg, eng = serve.build_engine(args)
+        cfg, eng = serve.build_engine(args, serve_cut(arch))
         n_bytes = sum(t.numel() * t.element_size()
                       for t in _leaves(eng.params))
-        print(f"[{tag}] {cfg.num_layers} layers (no depth cut), {cfg.dtype}, "
+        print(f"[{tag}] {cfg.num_layers} layers (cut "
+              f"{get_config(arch).num_layers} -> {SERVE_LAYERS}), {cfg.dtype}, "
               f"params {n_bytes} bytes, 4 slots, page 16, prefix_mode "
               f"{eng.prefix_mode}, greedy, 8 requests x (128 prompt + 32 "
               f"new), placeholder decode embeddings [{card_line()}]",
@@ -4810,11 +4855,10 @@ def phase_checkpoint(musicgen_losses: list):
     import warnings
     from repro_torch import bridge
     from repro_torch.checkpoint import manager as CM
-    from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.runtime import FaultSchedule
 
-    cfg = get_config("musicgen-medium")
+    cfg = av_cut("musicgen-medium")
     ckdir = ROOT / "build" / "checkpoint_phase"
     shutil.rmtree(ckdir, ignore_errors=True)
     argv = MUSICGEN_ARGV + ["--ckpt-dir", str(ckdir), "--ckpt-every", "3"]
@@ -4835,15 +4879,16 @@ def phase_checkpoint(musicgen_losses: list):
         return _leaves(state["params_trainable"]) + _leaves(state["opt"])
 
     print(f"[checkpoint] codec {CM.codec()} (zlib level "
-          f"{CM.ZLIB_LEVEL} when zstandard is missing), {cfg.name} full "
-          f"depth, argv {' '.join(argv[:2])} ... --ckpt-every 3; disk free "
+          f"{CM.ZLIB_LEVEL} when zstandard is missing), {cfg.name} cut to "
+          f"{cfg.num_layers} layers, argv {' '.join(argv[:2])} ... "
+          f"--ckpt-every 3; disk free "
           f"{shutil.disk_usage(ROOT).free} bytes", flush=True)
     for kind in times:
         setattr(CM.CheckpointManager, kind, timed(kind))
     rss = _RssPeak()
     rss.start()
     try:
-        out = train.main(argv, batches=batches)
+        out = train.main(argv, batches=batches, model=cfg)
         files = sorted(os.listdir(ckdir))
         check(files == ["step_000000003.ckpt", "step_000000006.ckpt"],
               f"checkpoint run: files {files}")
@@ -4860,7 +4905,7 @@ def phase_checkpoint(musicgen_losses: list):
 
         tee = _Tee(sys.stdout)
         with contextlib.redirect_stdout(tee):
-            out = train.main(argv, batches=batches)
+            out = train.main(argv, batches=batches, model=cfg)
         check("resumed from step 3" in "".join(tee.seen)
               and out["start"] == 3,
               "the second run did not resume from step 3")
@@ -5141,7 +5186,7 @@ def _mesh_blocks_diff(ref: dict, rank, tc, shape, key: str = "blocks"):
     return big, math.sqrt(diff2 / upd2)
 
 
-def phase_mesh(results: dict, main_losses: list):
+def phase_mesh(results: dict, main_losses: list, serve_jobs=()):
     """Phase 31: the compact train step on a (data, model) process mesh,
     tensor / vocab / expert parallel over `model`, the compact dW
     all-reduced over `data` (`launch.mesh_train` in ranks spawned once,
@@ -5167,13 +5212,15 @@ def phase_mesh(results: dict, main_losses: list):
     at full width cut to 4 layers, mesh (1, 2) (32 of 64 experts a rank),
     3 compact AdamW steps: losses, the dropped share and every rank's
     selected blocks (column sums). Faulted controls are read in every run
-    and printed beside the bounds (see MESH_LOSS_B)."""
+    and printed beside the bounds (see MESH_LOSS_B). `serve_jobs` (phase
+    32's) run after these in the same world (`launch.mesh_serve.run_jobs`);
+    returns {name: the ranks' results} of them."""
     import itertools
     from repro_torch.configs import get_config
     from repro_torch.data import lm_batches
     from repro_torch.kernels import build
     from repro_torch.launch import mesh as MESHES
-    from repro_torch.launch import mesh_train, train
+    from repro_torch.launch import mesh_serve, train
     from repro_torch.launch.trace_analysis import plan_launches
 
     t0 = time.perf_counter()
@@ -5228,11 +5275,15 @@ def phase_mesh(results: dict, main_losses: list):
              returns=("block_sums", "blocks_digest"), **common),
     ]
     t1 = time.perf_counter()
-    ranks = MESHES.spawn(mesh_train.run_jobs, MESH[0] * MESH[1],
-                         args=(jobs,), timeout_s=MESH_TIMEOUT_S)
+    ranks = MESHES.spawn(mesh_serve.run_jobs, MESH[0] * MESH[1],
+                         args=(jobs + list(serve_jobs),),
+                         timeout_s=MESH_TIMEOUT_S)
     t_ranks = time.perf_counter() - t1
     res = {job["name"]: [r[i] for r in ranks if r[i] is not None]
            for i, job in enumerate(jobs)}
+    served = {job["name"]: [r[len(jobs) + i] for r in ranks
+                            if r[len(jobs) + i] is not None]
+              for i, job in enumerate(serve_jobs)}
 
     def rel(losses, want):
         return max(abs(x - y) / abs(y) for x, y in zip(losses, want))
@@ -5373,10 +5424,286 @@ def phase_mesh(results: dict, main_losses: list):
              for name, rs in res.items()}
     steps = {name: round(sum(s["step_ms"] for s in rs[0]["steps"]) / 1e3, 1)
              for name, rs in res.items()}
+    served_s = {name: round(sum(r["wall_s"] for r in rs[0].get("runs", ()))
+                            + rs[0].get("setup_s", 0.0), 1)
+                for name, rs in served.items() if rs}
     print(f"[mesh] launches of (b) over its ranks and 6 steps: {totals}; "
           f"phase 31 took {time.perf_counter() - t0:.1f} s (one-process "
           f"runs {t_ref:.1f} s, ranks {t_ranks:.1f} s: set-up s by job "
-          f"{setup}, steps s by job {steps})", flush=True)
+          f"{setup}, steps s by job {steps}; of the ranks' time, phase "
+          f"32's serve jobs s (set-up + runs, rank 0) {served_s})",
+          flush=True)
+    return served
+
+
+# phase 32: sharded serving, (1, n) meshes of the world's first n ranks,
+# all on cuda:0 over gloo. (a) and (c) are f32 at published widths, cut
+# for the run's time: llama3-8b and deepseek-moe-16b (a dense first layer
+# and one MoE layer) to 2 layers, gemma3-4b to 6 (one super-block of 5
+# local + 1 global layers: a ring and a paged layer). (a) and (c) serve
+# phase 28's shared-prefix workload; (a) twice on one engine (run 2 finds
+# run 1's tree in the spill tier and rehydrates it onto the sharded pool).
+# The one-process engines take the flash-decode softmax too, the sharded
+# engines' default, so the comparison reads the sharding alone. (b) is
+# phase 13's run B on the ranks.
+SMESH_LAYERS = 2
+SMESH_GEMMA_LAYERS = 6
+SMESH_WIDTHS = (2, 4)
+SMESH_PREFIX_ARGV = PREFIX_ARGV + ["--flash-decode"]
+SMESH_SHORT = ["--requests", "4"]     # (c) and (e)'s swap: the first 4
+# (e)'s zero deltas: run B's first 5 requests with lr 0 (4 before any
+# wave, 1 after)
+SMESH_ZERO = ["--personalize-lr", "0", "--requests", "5"]
+SMESH_B_ARGV = SERVE_ARGV + ["--users", "2"]
+SMESH_CLI = ["--arch", "llama3-8b", "--smoke", "--mesh-model", "2",
+             "--requests", "4", "--batch", "2", "--prompt-len", "20",
+             "--gen-len", "4", "--page-size", "8"]
+SMESH_ACCOUNT = ("pages_peak", "cow_splits", "prefix_hit_tokens",
+                 "prefill_chunks")
+
+
+def swap_shards(engine, rules, params):
+    """Phase 32's faulted control: this rank serves the other rank's shards
+    (of a (1, 2) mesh) as if they were its own."""
+    from repro_torch.core.sparse_update import tree_map
+    from repro_torch.launch.specs import shard_local
+    from repro_torch.models import decoding as D
+    m = rules.mesh
+    other = dict(m.coords, model=m.shape["model"] - 1 - m.coords["model"])
+    engine.params = tree_map(
+        lambda a: a.contiguous().clone(),
+        shard_local(params, D.paged_param_specs(engine.cfg, params, rules),
+                    m.shape, other))
+
+
+def _one_process(argv, cfg, repeat: int = 1):
+    """`argv` served `repeat` times by the serve launcher's one-device
+    engine on the card: (stats list, the engine's pool bytes)."""
+    import argparse
+    from repro_torch.launch import serve
+    args = serve.add_serve_args(argparse.ArgumentParser()).parse_args(argv)
+    _, eng = serve.build_engine(args, cfg)
+    runs = [eng.run(serve.build_requests(args, cfg)) for _ in range(repeat)]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs, runs[0].pool_shard_bytes
+
+
+def prepare_serve_mesh(results: dict) -> dict:
+    """Phase 32, before the world is spawned: the one-process runs on the
+    card, the serve jobs for the ranks, and the serve launcher's
+    `--mesh-model 2` started beside them (its own 2 ranks)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    t0 = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *SMESH_CLI],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    f32 = lambda arch, n: dataclasses.replace(get_config(arch), num_layers=n,
+                                              dtype="float32")
+    cfg_a = f32("llama3-8b", SMESH_LAYERS)
+    argv_a = ["--arch", "llama3-8b"] + SMESH_PREFIX_ARGV
+    ref = {"a": _one_process(argv_a, cfg_a, repeat=2)}
+    fam = {"gemma3-4b": f32("gemma3-4b", SMESH_GEMMA_LAYERS),
+           "deepseek-moe-16b": f32("deepseek-moe-16b", SMESH_LAYERS)}
+    for arch, cfg in fam.items():
+        ref[arch] = _one_process(["--arch", arch] + SMESH_PREFIX_ARGV
+                                 + SMESH_SHORT, cfg)
+    cfg_b = serve_cut("llama3-8b")
+    # one job at a time: (b) holds ~19 GB a rank (the whole bf16 params,
+    # its shard and the slots' delta rows), and two lanes of jobs at once
+    # ran the card out of memory beside the parent's
+    at = dict(device=MESH_DEVICE, n=2)
+    jobs = [dict(name="b", cfg=cfg_b, argv=SMESH_B_ARGV,
+                 diverge_from=results["serve_b"]["tokens"],
+                 decode_bytes=True, **at),
+            dict(name="e-zero", cfg=cfg_b, argv=SMESH_B_ARGV + SMESH_ZERO,
+                 **at)]
+    jobs += [dict(name=f"a-{n}", cfg=cfg_a, n=n, argv=argv_a, repeat=2,
+                  device=MESH_DEVICE) for n in SMESH_WIDTHS]
+    jobs.append(dict(name="e-swap", cfg=cfg_a, argv=argv_a + SMESH_SHORT,
+                     hook=swap_shards, **at))
+    for arch, cfg in fam.items():
+        jobs.append(dict(name=arch, cfg=cfg, argv=["--arch", arch]
+                         + SMESH_PREFIX_ARGV + SMESH_SHORT, **at))
+    for arch in ("rwkv6-3b", "jamba-1.5-large-398b"):
+        jobs.append(dict(name=arch, cfg=get_smoke_config(arch),
+                         engine=dict(num_slots=1, max_len=8),
+                         expect_raise=NotImplementedError, **at))
+    print(f"[serve mesh] the parent before the spawn: "
+          f"{torch.cuda.memory_allocated()} B allocated, "
+          f"{torch.cuda.memory_reserved()} B reserved", flush=True)
+    return {"jobs": jobs, "ref": ref, "cli": cli, "fam": fam,
+            "prep_s": time.perf_counter() - t0}
+
+
+def _toks(stats) -> dict:
+    return {k: list(r.tokens) for k, r in stats.results.items()}
+
+
+def _serve_mesh_a(served: dict, ref: dict) -> None:
+    runs_a, pool_a = ref["a"]
+    for n in SMESH_WIDTHS:
+        ranks = served[f"a-{n}"]
+        check(len(ranks) == n, f"serve mesh (a) n={n}: {len(ranks)} ranks")
+        for r in ranks:
+            for i, (got, want) in enumerate(zip(r["runs"], runs_a)):
+                acct = {k: got["account"][k] for k in SMESH_ACCOUNT}
+                wacct = {k: getattr(want, k) for k in SMESH_ACCOUNT}
+                print(f"[serve mesh a] llama3-8b cut to {SMESH_LAYERS} "
+                      f"layers, f32, (1, {n}), rank {r['coords']['model']}, "
+                      f"run {i + 1}: tokens equal the one process's "
+                      f"{got['tokens'] == _toks(want)}; {acct} (one process "
+                      f"{wacct}); rehydrates {got['account']['rehydrates']} "
+                      f"({want.rehydrates}); pool bytes a rank "
+                      f"{got['pool_shard_bytes']} x {n} (one process "
+                      f"{pool_a}); {got['wall_s']:.2f} s", flush=True)
+                check(got["tokens"] == _toks(want) and acct == wacct,
+                      f"serve mesh (a) n={n} rank {r['coords']} run {i + 1}:"
+                      f" tokens or accounting differ")
+                check(got["mesh_shards"] == n
+                      and got["pool_shard_bytes"] * n == pool_a,
+                      f"serve mesh (a) n={n}: pool bytes "
+                      f"{got['pool_shard_bytes']} x {n} != {pool_a}")
+            check(r["runs"][1]["account"]["rehydrates"] > 0,
+                  f"serve mesh (a) n={n}: run 2 rehydrated nothing")
+
+
+def _serve_mesh_b(results: dict, served: dict) -> None:
+    want = results["serve_b"]["tokens"]
+    rows = results["serve_b"]["rows"]
+    ranks = sorted(served["b"], key=lambda r: r["coords"]["model"])
+    check(len(ranks) == 2, "serve mesh (b): a rank is missing")
+    r0 = ranks[0]
+    got = r0["runs"][0]["tokens"]
+    check(all(r["runs"][0]["tokens"] == got for r in ranks),
+          "serve mesh (b): the ranks served different tokens")
+    first = max(float((r0["logits"][rid][0] - rows[rid][0].cpu()).abs()
+                      .max()) for rid in want)
+    ties = 0
+    for rid, toks in want.items():
+        at = next((i for i, (a, b) in enumerate(zip(toks, got[rid]))
+                   if a != b), None)
+        if at is None:
+            continue
+        ties += 1
+        one = rows[rid][at].cpu()
+        top = torch.topk(one, 2).values
+        gap = float(top[0] - top[1])
+        diff = float((r0["logits"][rid][at] - one).abs().max())
+        print(f"[serve mesh b] request {rid} first differs at token {at}: "
+              f"one-process top-2 gap {gap:.5f}, max |logit diff| there "
+              f"{diff:.5f} (bound: the gap under twice it); the rest of "
+              f"the request is not compared", flush=True)
+        check(gap <= 2 * diff, f"serve mesh (b) request {rid}: token {at} "
+              f"differs with a top-2 gap {gap} over twice the logit "
+              f"difference {diff}")
+    cfg = serve_cut("llama3-8b")
+    b, d, v = 4, cfg.d_model, cfg.vocab_size
+    width = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    act = (2 * cfg.num_layers + 1) * b * d * width
+    logits = b * (v // 2) * 4
+    for r in ranks:
+        run = r["runs"][0]
+        print(f"[serve mesh b] llama3-8b cut to {SERVE_LAYERS} layers, "
+              f"bf16, (1, 2), rank {r['coords']['model']}: run B "
+              f"{run['account']}; launches {run['launches']}; a decode "
+              f"step's bytes by kind {r['decode_bytes']} (predicted from "
+              f"the code, not measured: act (2 x {cfg.num_layers} + 1) "
+              f"all-reduces of {b} x {d} {cfg.dtype} = {act} B, logits one "
+              f"all-gather of the rank's {b} x {v // 2} fp32 = {logits} B, "
+              f"{2 * logits} B gathered); the run's bytes {run['bytes']}; "
+              f"{run['wall_s']:.2f} s, {run['decode_steps']} decode steps; "
+              f"max_memory_allocated {r.get('max_memory_allocated')}",
+              flush=True)
+        check(run["account"]["train_waves"] == 8
+              and run["account"]["requests_completed"] == 8,
+              f"serve mesh (b) rank {r['coords']}: {run['account']}")
+        check(r["decode_bytes"].get("act") == act
+              and r["decode_bytes"].get("logits") == logits,
+              f"serve mesh (b): decode bytes {r['decode_bytes']} against "
+              f"act {act}, logits {logits}")
+        waves = {k: n for k, n in run["launches"].items() if n}
+        want_l = {k: 8 * n for k, n in WAVE_LAUNCHES.items()}
+        check(waves == want_l, f"serve mesh (b) rank {r['coords']}: "
+              f"launches {waves}, want {want_l} (every rank trains the "
+              f"waves)")
+        _add_launches(results, run["launches"])
+    print(f"[serve mesh b] tokens equal phase 13's run B for "
+          f"{len(want) - ties} of {len(want)} requests, {ties} near ties; "
+          f"max |logit diff| at the requests' first tokens {first:.5f}",
+          flush=True)
+
+
+def phase_serve_mesh(results: dict, prep: dict, served: dict):
+    """Phase 32's checks on the ranks' results (see the module doc)."""
+    t0 = time.perf_counter()
+    ref = prep["ref"]
+    print(f"[serve mesh] ranks share cuda:0 over gloo (one card: no time "
+          f"here is a speed figure for tensor parallelism); {card_line()}",
+          flush=True)
+    _serve_mesh_a(served, ref)
+    _serve_mesh_b(results, served)
+    # (c)
+    for arch, cfg in prep["fam"].items():
+        (want,), _ = ref[arch]
+        check(len(served[arch]) == 2, f"serve mesh (c) {arch}: a rank is "
+              f"missing")
+        for r in served[arch]:
+            got = r["runs"][0]
+            same = got["tokens"] == _toks(want)
+            print(f"[serve mesh c] {arch} cut to {cfg.num_layers} layers, "
+                  f"f32, (1, 2), rank {r['coords']['model']}: tokens equal "
+                  f"the one process's {same}; {got['account']}; the run's "
+                  f"bytes {got['bytes']}", flush=True)
+            check(same, f"serve mesh (c) {arch} rank {r['coords']}: tokens "
+                  f"differ from the one process's")
+    # (d)
+    for arch in ("rwkv6-3b", "jamba-1.5-large-398b"):
+        for r in served[arch]:
+            check("item 14c" in r.get("raised", ""),
+                  f"serve mesh (d) {arch}: {r.get('raised')}")
+        print(f"[serve mesh d] {arch} on (1, 2): {served[arch][0]['raised']}",
+              flush=True)
+    cli = prep["cli"]
+    try:
+        out, _ = cli.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        cli.kill()
+        out, _ = cli.communicate()
+    line = next((ln for ln in out.splitlines()
+                 if ln.startswith("[serve] mesh:")), None)
+    print(f"[serve mesh d] python -m repro_torch.launch.serve "
+          f"{' '.join(SMESH_CLI)}: rc {cli.returncode}, {line}", flush=True)
+    check(cli.returncode == 0 and line is not None
+          and line.startswith("[serve] mesh: 2 model-axis shards"),
+          f"serve launcher --mesh-model 2: rc {cli.returncode}, output "
+          f"tail {out[-2000:]}")
+    # (e)
+    swap = served["e-swap"][0]["runs"][0]["tokens"]
+    zero = served["e-zero"][0]["runs"][0]["tokens"]
+    want_a = _toks(ref["a"][0][0])
+    want_b = served["b"][0]["runs"][0]["tokens"]
+    same_swap = sum(v == want_a[k] for k, v in swap.items())
+    same_zero = [v == want_b[k] for k, v in sorted(zero.items())]
+    print(f"[serve mesh e] faulted controls: (a) with the ranks' shards "
+          f"swapped serves {same_swap} of {len(swap)} requests' tokens "
+          f"equal to (a)'s (sound: all); (b) on the mesh with every delta "
+          f"zero (lr 0): equal to (b)'s tokens by request {same_zero} "
+          f"(sound: all; the first 4 run before any wave, so they must "
+          f"stay equal)", flush=True)
+    check(same_swap < len(swap), "serve mesh (e): swapped shards served "
+          "the same tokens")
+    check(all(same_zero[:4]) and not all(same_zero[4:]),
+          f"serve mesh (e): zero deltas against (b) {same_zero}")
+    job_s = {name: (round(rs[0].get("setup_s", 0.0), 1), [
+        round(r["wall_s"], 1) for r in rs[0].get("runs", ())])
+        for name, rs in served.items() if rs}
+    print(f"[serve mesh] phase 32: one-process runs and jobs "
+          f"{prep['prep_s']:.1f} s, the ranks' serve jobs (set-up s, runs' "
+          f"s; rank 0) {job_s}, checks {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def kernels_line(results: dict) -> dict:
@@ -5577,9 +5904,14 @@ def main() -> int:
           f" s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    phase_mesh(results, main_losses)
+    prep = prepare_serve_mesh(results)
+    served = phase_mesh(results, main_losses, prep["jobs"])
     print(f"[chip_smoke] phase_mesh done at {time.perf_counter() - t0:.0f}"
           f" s", flush=True)
+    phase_serve_mesh(results, prep, served)
+    del prep, served
+    print(f"[chip_smoke] phase_serve_mesh done at "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t0:.0f} s",
           flush=True)
     # again at the end, beside the numbers: a log cut to its tail keeps it

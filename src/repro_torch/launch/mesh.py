@@ -136,6 +136,21 @@ def make_production_mesh(*, multi_pod: bool = False,
     return ProcessMesh(shape, timeout_s=timeout_s)
 
 
+def make_serve_mesh(n_model: int = 1,
+                    timeout_s: float = DEFAULT_TIMEOUT_S) -> ProcessMesh:
+    """A (1, n_model) serve mesh over the FIRST n_model ranks of the world
+    (serving wants exactly the shards asked for, e.g. 2 on a world of 4;
+    the other ranks build it too and stay out of it). Raises where the
+    world has fewer ranks."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world < n_model:
+        raise ValueError(
+            f"serve mesh wants {n_model} model shards but only {world} "
+            f"rank(s) exist")
+    return ProcessMesh({"data": 1, "model": n_model},
+                       ranks=list(range(n_model)), timeout_s=timeout_s)
+
+
 # ---------------------------------------------------------------------------
 # spawn
 # ---------------------------------------------------------------------------

@@ -30,8 +30,16 @@ replays what was in flight). The `[serve] chaos:` line prints the counts.
 Every registered LM arch serves through `--arch` (dense, sliding-window,
 MoE, mamba / attention hybrid and rwkv layers; the audio and vlm archs
 with placeholder prompt embeddings). The flags are the reference
-launcher's; `--mesh-model > 1` (sharded serving) raises with the ROADMAP
-item that brings it rather than being ignored.
+launcher's.
+
+Sharded serving: `--mesh-model N` spawns N ranks (`launch.mesh.spawn`,
+`launch.mesh_serve.serve_rank`) on a (1, N) mesh over `model`: gloo ranks
+sharing one device (`--backend gloo`, the default: the CPU, or cuda:0), or
+`--backend nccl` with a card each. Every rank draws the seed's params,
+keeps its shards and serves the same requests; rank 0 prints the report
+and a `[serve] mesh:` line. The mamba / rwkv archs are refused on a mesh
+(ROADMAP item 14c), and so are the fault, watchdog, timeout and journal
+flags (item 14d).
 """
 from __future__ import annotations
 
@@ -48,27 +56,13 @@ from repro_torch.serve import (PersonalizationConfig, ServeEngine,
                                make_random_requests,
                                make_shared_prefix_requests)
 
-# flag -> (is it set?, the ROADMAP item that brings it)
-_REFUSED = {
-    "--mesh-model > 1": (lambda a: a.mesh_model > 1,
-                         "ROADMAP queue A item 14b"),
-}
-
-
-def check_args(args) -> None:
-    """Raise on a flag whose feature the port does not have yet."""
-    for flag, (given, item) in _REFUSED.items():
-        if given(args):
-            raise NotImplementedError(
-                f"{flag}: comes with {item} (not ported yet)")
-
-
-def build_engine(args, cfg=None, params=None):
+def build_engine(args, cfg=None, params=None, rules=None, device=None):
     """(cfg, engine) for parsed `args`; `params` (on args.device) are
     random from args.seed unless given, so two engines can share one copy
-    of the weights."""
-    check_args(args)
-    device = torch.device(args.device)
+    of the weights. `rules`: a serve mesh's (`--mesh-model`), the engine
+    then keeps this rank's shards; `device` overrides args.device (a
+    rank's own card)."""
+    device = torch.device(device or args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device; pass --device cpu "
                            "to run on the CPU")
@@ -102,12 +96,12 @@ def build_engine(args, cfg=None, params=None):
         personalization=p13n,
         chaos=chaos, max_retries=args.max_retries,
         shed_watermark=args.shed_watermark, watchdog_s=args.watchdog_s,
-        journal=args.journal, flash_decode=args.flash_decode)
+        journal=args.journal, rules=rules,
+        flash_decode=True if args.flash_decode else None)
     return cfg, engine
 
 
 def build_requests(args, cfg):
-    check_args(args)
     if args.branching_prefix:
         reqs = make_branching_prefix_requests(
             cfg, args.requests, args.prompt_len, args.gen_len,
@@ -206,19 +200,44 @@ def add_serve_args(ap: argparse.ArgumentParser):
                     help="inject a hard crash after N completed requests "
                          "(exercises journal replay and prefix persistence)")
     ap.add_argument("--mesh-model", type=int, default=1,
-                    help="> 1: sharded serving (not ported yet)")
+                    help="> 1: N ranks on a (1, N) mesh over the model axis: "
+                         "page pools shard over kv heads, weights tensor-, "
+                         "vocab- and d_ff-parallel, page tables and slot "
+                         "state whole")
+    ap.add_argument("--backend", choices=("gloo", "nccl"), default="gloo",
+                    help="--mesh-model's process group: gloo (the ranks "
+                         "share one device) or nccl (a card each)")
     ap.add_argument("--flash-decode", action="store_true",
                     help="flash-decoding: the paged layers' softmax page "
-                         "by page")
+                         "by page (default: on with --mesh-model > 1, off "
+                         "otherwise)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the card) or cpu")
     return ap
 
 
 def main(argv=None):
+    import sys
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = add_serve_args(argparse.ArgumentParser()).parse_args(argv)
+    if args.mesh_model > 1:
+        from repro_torch.launch import mesh, mesh_serve
+        if torch.device(args.device).type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("--device cuda: no CUDA device; pass "
+                                   "--device cpu to run on the CPU")
+            from repro_torch.kernels import build
+            build.build_all()        # the ranks load these libraries
+        return mesh.spawn(mesh_serve.serve_rank, args.mesh_model,
+                          args=(argv,), backend=args.backend)[0]
     cfg, engine = build_engine(args)
     stats = engine.run(build_requests(args, cfg), verbose=not args.stream)
+    report(args, stats)
+    return stats
+
+
+def report(args, stats) -> None:
+    """The launcher's summary lines for a run's stats."""
     print(f"[serve] {stats.requests_completed}/{args.requests} requests "
           f"({stats.requests_cancelled} cancelled), "
           f"{stats.tokens_out} tokens in {stats.wall_s:.2f}s "
@@ -231,6 +250,9 @@ def main(argv=None):
           f"(util {stats.page_util:.2f}), prefix mode {stats.prefix_mode}, "
           f"prefix hit rate {stats.prefix_hit_rate:.2f}, "
           f"{stats.cow_splits} COW splits")
+    if stats.mesh_shards > 1:
+        print(f"[serve] mesh: {stats.mesh_shards} model-axis shards, "
+              f"{stats.pool_shard_bytes} pool bytes/shard")
     if stats.prefix_mode == "radix":
         print(f"[serve] radix: {stats.radix_nodes} nodes, "
               f"snapshot hit rate {stats.snapshot_hit_rate:.2f} "
@@ -253,7 +275,6 @@ def main(argv=None):
               f"delta hit rate {stats.delta_hit_rate:.2f}, "
               f"{stats.delta_resident_bytes} delta bytes resident, "
               f"{stats.delta_evictions} evictions")
-    return stats
 
 
 if __name__ == "__main__":

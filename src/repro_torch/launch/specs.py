@@ -13,7 +13,7 @@ per dim, None (replicated) or a tuple of mesh axes the dim is split over.
 `shard_local` cuts a full tree into one rank's slices by them (what placing
 an array under a `NamedSharding` does in the reference) and
 `gather_shards` puts the ranks' slices back together. `cache_shardings`
-comes with sharded serving (ROADMAP item 14b).
+gives a contiguous decode cache's (kv heads over the model axis).
 """
 from __future__ import annotations
 
@@ -281,3 +281,36 @@ def gather_shards(trees: list, coords: list, shardings, mesh_shape: dict):
                       *(range(mesh_shape[a]) for a in axes))]
         return np.concatenate(pieces, axis=dim)
     return build(0, {})
+
+
+# ---------------------------------------------------------------------------
+# cache shardings
+# ---------------------------------------------------------------------------
+
+_CACHE_LOGICAL = {
+    "k": ("layers", "batch", "cache_seq", "kv_heads", None),
+    "v": ("layers", "batch", "cache_seq", "kv_heads", None),
+    "pos": ("layers", "batch"),
+    "h": ("layers", "batch", "d_inner", None),
+    "conv": ("layers", "batch", None, "d_inner"),
+    "s": ("layers", "batch", None, None, None),
+    "last": ("layers", "batch", None),
+}
+
+
+def cache_shardings(cfg, cache_abs, rules: AxisRules):
+    """Sharding tree of a stacked contiguous cache (`cache_abstract`): each
+    leaf by its name's logical axes; a leaf of another rank, or another
+    name, only its layers axis named (replicated)."""
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: (walk(v) if isinstance(v, dict) else _leaf(k, v))
+                    for k, v in node.items()}
+        return node
+
+    def _leaf(name, leaf):
+        logical = _CACHE_LOGICAL.get(name)
+        if logical is None or len(logical) != len(leaf.shape):
+            logical = ("layers",) + (None,) * (len(leaf.shape) - 1)
+        return resolve_pspec(tuple(leaf.shape), logical, rules)
+    return walk(cache_abs)

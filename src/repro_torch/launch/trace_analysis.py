@@ -15,10 +15,16 @@
   number of sites per selectable leaf becomes a constant number of
   launches per leaf and trainable step.
 
+- `replicated_matmul_leaves` audits a sharded serve step: where the
+  reference walks the jaxpr of its `shard_map` for dot_generals on a
+  weight's full shape, the port watches the step's matrix products
+  (`aten.mm` / `bmm` / `addmm` / `matmul`) and records every operand
+  shaped as the full shape of a weight the sharding policy splits. An
+  empty record certifies that every such product ran on the rank's shard.
+
 Not ported: `parse_hlo`, `collective_bytes`, `while_trip_counts` and the
 text form of `kernel_launch_count` read XLA's HLO text, which the port
-does not have; `replicated_matmul_leaves` audits a sharded serve step and
-waits for sharded serving (ROADMAP item 14b).
+does not have.
 """
 from __future__ import annotations
 
@@ -221,3 +227,36 @@ def launch_breakdown(fn: Callable):
     result = fn()
     after = ops.launch_counts()
     return result, {k: after[k] - before[k] for k in after}
+
+
+# ---------------------------------------------------------------------------
+# replication audit of a sharded serve step
+# ---------------------------------------------------------------------------
+
+_PRODUCTS = {"aten::mm", "aten::bmm", "aten::addmm", "aten::matmul",
+             "aten::baddbmm"}
+
+
+class _ProductShapes(TorchDispatchMode):
+    """Records the shapes of the tensor operands of every matrix product."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func._schema.name in _PRODUCTS:
+            self.shapes += [tuple(a.shape) for a in args
+                            if isinstance(a, torch.Tensor)]
+        return func(*args, **(kwargs or {}))
+
+
+def replicated_matmul_leaves(fn: Callable, forbidden_shapes) -> list:
+    """Run `fn()` and return the operand shapes of its matrix products that
+    equal a forbidden (full, unsharded) weight shape
+    (`models.decoding.sharded_param_shapes`): empty means every product on
+    a policy-sharded weight took the rank's shard."""
+    forbidden = {tuple(s) for s in forbidden_shapes}
+    with _ProductShapes() as mode:
+        fn()
+    return [s for s in mode.shapes if s in forbidden]

@@ -7,17 +7,19 @@ draws differ from the reference's `jax.random` ones for the same seed, so
 tests that compare the two packages carry the reference's parameters over
 with `repro_torch.bridge`.
 
-`col_matmul` / `row_matmul` / `vocab_parallel_gather` are the reference's
-parallel primitives. Off a mesh they are their single-device forms
-(`smm(x, w)` plus a per-user compact delta, `delta_matmul_add`; an
-embedding lookup). On a rank of a process mesh (`sharding.model_group()`)
-they take the collective a weight that arrived sharded needs, found by
-its shape: a weight that arrived whole (its dim did not divide the model
-axis) takes none. The collective in front of a column-parallel block
+`col_matmul` / `row_matmul` / `vocab_parallel_gather` /
+`vocab_parallel_logits` are the reference's parallel primitives. Off a
+mesh they are their single-device forms (`smm(x, w)` plus a per-user
+compact delta, `delta_matmul_add`; an embedding lookup; the head's
+product). On a rank of a process mesh (`sharding.model_group()`) they take
+the collective a weight that arrived sharded needs, found by its shape: a
+weight that arrived whole (its dim did not divide the model axis) takes
+none. The collective in front of a column-parallel block
 (`sharding.copy_to_model`, all-reduce backward) is the block's caller's:
-one for all of a block's column-parallel products. Per-user deltas on
-sharded weights (`_delta_local_col`) come with sharded serving (ROADMAP
-item 14b).
+one for all of a block's column-parallel products. A per-user delta stays
+whole on every rank: a column-parallel product adds the selected blocks
+the rank owns (`_delta_local_col`), a row-parallel one its rows of the
+delta's d_in before the all-reduce.
 """
 from __future__ import annotations
 
@@ -93,36 +95,84 @@ def delta_matmul_add(y, x, delta, name: str):
     return yb.reshape(b, s, n).to(y.dtype)
 
 
-def _no_sharded_delta(w, delta, name: str, full: int, dim: int) -> None:
-    if delta is not None and name in delta["val"] and full is not None \
-            and w.shape[dim] != full and SH.model_group() is not None:
-        raise NotImplementedError(
-            f"a per-user delta on the sharded weight {name!r}: sharded "
-            f"serving is ROADMAP item 14b")
+def _delta_one(name: str, val, idx):
+    return {"val": {name: val}, "idx": {name: idx}}
+
+
+def _delta_local_col(y, x, delta, name: str, full_out: int):
+    """A compact delta on a COLUMN-sharded product: the rank adds only the
+    selected blocks it owns (no collective), each the single-device
+    `delta_matmul_add`'s value. Three layouts, the reference's:
+
+    - the selection's shards line up with the model axis (n_shards a
+      multiple of the ranks): the rank's shards of idx / val;
+    - one shard of global block ids: the ids the rank owns, made local;
+      the others are sent to a spare block past the rank's columns and cut
+      off (the port's scatter writes, so masked ids must not collide with
+      a real one, as the reference's zero-add to block 0 may);
+    - a block width that does not divide the rank's columns: the delta
+      into a full-width zero buffer, and the rank's columns of it added
+      (y + (0 + e) == y + e in fp32)."""
+    val, idx = delta["val"][name], delta["idx"][name]
+    n_loc = y.shape[-1]
+    tp = full_out // n_loc
+    shard = SH.model_index()
+    n_shards, n_sel, block = val.shape[-3:]
+    if n_shards % tp == 0:
+        k = n_shards // tp
+        return delta_matmul_add(
+            y, x, _delta_one(name, val[..., shard * k:(shard + 1) * k, :, :],
+                             idx[..., shard * k:(shard + 1) * k, :]), name)
+    if n_shards == 1 and n_loc % block == 0:
+        bps = n_loc // block
+        own = (idx.long() // bps) == shard                  # [B, 1, n_sel]
+        idx_loc = torch.where(own, idx.long() - shard * bps, bps)
+        y_pad = F.pad(y, (0, block))
+        y_pad = delta_matmul_add(y_pad, x, _delta_one(name, val, idx_loc),
+                                 name)
+        return y_pad[..., :n_loc]
+    yf = delta_matmul_add(y.new_zeros(y.shape[:-1] + (full_out,),
+                                      dtype=torch.float32), x, delta, name)
+    corr = yf[..., shard * n_loc:(shard + 1) * n_loc]
+    return (y.float() + corr).to(y.dtype)
 
 
 def col_matmul(x, w, sel, name: str, delta=None, *,
                full_out: Optional[int] = None):
     """Column-parallel linear: the weight split on its OUTPUT axis, so the
     local product needs no collective and the result stays split on its
-    last axis. `smm(x, w)` plus the rider delta of `name`, if any."""
-    _no_sharded_delta(w, delta, name, full_out, -1)
-    return delta_matmul_add(smm(x, w, sel, name), x, delta, name)
+    last axis. `smm(x, w)` plus the rider delta of `name`, if any: on a
+    weight that arrived sharded (`w.shape[-1] != full_out` on a mesh), the
+    blocks of it the rank owns."""
+    y = smm(x, w, sel, name)
+    if delta is None or name not in delta["val"]:
+        return y
+    if SH.model_group() is None or full_out is None \
+            or w.shape[-1] == full_out:
+        return delta_matmul_add(y, x, delta, name)
+    return _delta_local_col(y, x, delta, name, full_out)
 
 
 def row_matmul(x, w, sel, name: str, delta=None, *,
                full_in: Optional[int] = None):
     """Row-parallel linear: the weight split on its INPUT axis (x holds
     the matching slice), and one all-reduce over the model group
-    (`psum_mapped`) reassembles the output. Off a mesh, or for a weight
-    that arrived whole (`w.shape[-2] == full_in`), `smm(x, w)` plus the
-    rider delta."""
-    _no_sharded_delta(w, delta, name, full_in, -2)
-    y = delta_matmul_add(smm(x, w, sel, name), x, delta, name)
-    if full_in is not None and w.shape[-2] != full_in:
+    (`psum_mapped`) reassembles the output. A delta contracts over the
+    split axis, so the rank applies its d_in rows of it before the
+    all-reduce. Off a mesh, or for a weight that arrived whole
+    (`w.shape[-2] == full_in`), `smm(x, w)` plus the rider delta."""
+    y = smm(x, w, sel, name)
+    sharded = full_in is not None and w.shape[-2] != full_in
+    if sharded:
         SH.require_model_group(f"row-parallel weight {name!r}")
-        return SH.psum_mapped(y)
-    return y
+    if delta is not None and name in delta["val"]:
+        if sharded:
+            d_loc = w.shape[-2]
+            lo = SH.model_index() * d_loc
+            delta = _delta_one(name, delta["val"][name][:, lo:lo + d_loc],
+                               delta["idx"][name])
+        y = delta_matmul_add(y, x, delta, name)
+    return SH.psum_mapped(y) if sharded else y
 
 
 def vocab_parallel_gather(emb, ids, vocab_size: int):
@@ -141,3 +191,16 @@ def vocab_parallel_gather(emb, ids, vocab_size: int):
     rows = torch.where(own[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                          device=rows.device))
     return SH.psum_mapped(rows)
+
+
+def vocab_parallel_logits(x, w_head, vocab_size: int):
+    """[..., d] x [d, V] -> [..., V] fp32 logits (upcast first: the
+    reference's preferred_element_type). On a vocab-sharded head the rank
+    takes its [..., V/n] product and one all-gather over the model group
+    puts the columns back in rank order, the values the whole product
+    gives."""
+    logits = torch.matmul(x.float(), w_head.float())
+    if w_head.shape[-1] == vocab_size:
+        return logits
+    SH.require_model_group("the LM head")
+    return SH.all_gather_mapped(logits, logits.dim() - 1, "logits")

@@ -15,8 +15,11 @@ recurrent state). `CACHE_FAMILIES` describes each role's per-row snapshot
 (the unit the radix prefix cache stores at a page boundary) and
 `snapshot_row_bytes` prices one slot's. `read_pool_rows` /
 `write_pool_rows` move a page's token rows out of and back into every
-layer's pool (the device half of the host spill tier). The sharded step
-comes with ROADMAP queue A item 14b and raises until then.
+layer's pool (the device half of the host spill tier).
+
+Sharded serving (`make_sharded_paged_step`): on a rank of a (1, n) process
+mesh over `model`, `paged_step` runs on the rank's shards with its
+collectives written out (see the section's comment below).
 
 The serve engine splits per-layer caches into two trees: `state` (per-slot
 leaves [steps, B, ...]: ring k/v and recurrent state) and `pools` (for
@@ -32,13 +35,14 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as SH
 from repro_torch.core.sparse_update import tree_map
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
 from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv6 as R
 from repro_torch.models import transformer as T
-from repro_torch.models.common import last_valid
+from repro_torch.models.common import last_valid, vocab_parallel_logits
 
 
 def _cache_dtype(cfg) -> torch.dtype:
@@ -63,9 +67,10 @@ def _zeros_like_stacked(one, steps: int, device):
 
 def _logits(cfg, params, x):
     """[..., d] -> [..., V] fp32 (the reference's preferred_element_type:
-    bf16 products are exact in fp32, so upcasting first gives its sums)."""
+    bf16 products are exact in fp32, so upcasting first gives its sums).
+    A vocab-sharded head gives the rank's [..., V/n] and one all-gather."""
     w_head = T.lm_head_weight(cfg, (params, None))
-    return torch.matmul(x.float(), w_head.float())
+    return vocab_parallel_logits(x, w_head, cfg.vocab_size)
 
 
 def _period(cfg) -> int:
@@ -227,35 +232,39 @@ def snapshot_row_bytes(cfg, max_len: int) -> int:
 
 
 def _serve_leaf(cfg, role: str, batch: int, max_len: int, kind: str,
-                sub: int, pool_rows: int, device):
-    """(per-slot state, pool) of one sublayer mixer."""
+                sub: int, pool_rows: int, device, pool_shards: int = 1):
+    """(per-slot state, pool) of one sublayer mixer; a pool holds
+    Hkv / pool_shards heads (the rank's head block on a serve mesh)."""
     dt = _cache_dtype(cfg)
-    zeros = lambda rows: torch.zeros(
-        rows + (cfg.num_kv_heads, cfg.resolved_head_dim), dtype=dt,
-        device=device)
+    zeros = lambda rows, heads=cfg.num_kv_heads: torch.zeros(
+        rows + (heads, cfg.resolved_head_dim), dtype=dt, device=device)
     if role == "ring":
         size = min(T._window_for(cfg, kind, sub), max_len)
         return {"k": zeros((batch, size)), "v": zeros((batch, size))}, {}
     if role == "paged":
-        return {}, {"k": zeros((pool_rows,)), "v": zeros((pool_rows,))}
+        heads = cfg.num_kv_heads // pool_shards
+        return {}, {"k": zeros((pool_rows,), heads),
+                    "v": zeros((pool_rows,), heads)}
     if kind == "rwkv":
         return R.init_rwkv_cache(cfg, batch, dt, device), {}
     return M.init_mamba_cache(cfg, batch, dt, device), {}
 
 
 def init_serve_cache(cfg, batch: int, max_len: int, num_pages: int,
-                     page_size: int, device="cuda"):
+                     page_size: int, device="cuda", pool_shards: int = 1):
     """Returns (state, pools): the per-slot state tree (ring buffers and
     recurrent state, [steps, batch, ...]) and the shared page pools
     [steps, num_pages * page_size, Hkv, D], per segment, with the
-    reference's tree structure (no empty subdicts)."""
+    reference's tree structure (no empty subdicts). `pool_shards`: the
+    pools hold a rank's Hkv / pool_shards heads (`pool_pspec`); the state
+    stays whole."""
     pool_rows = num_pages * page_size
     state, pools = {}, {}
     for seg in T.segment_layout(cfg):
         st_one, pl_one = {}, {}
         for i, (sub, role) in enumerate(_paged_layout(cfg, seg.kind)):
             st, pl = _serve_leaf(cfg, role, batch, max_len, seg.kind, i,
-                                 pool_rows, "meta")
+                                 pool_rows, "meta", pool_shards)
             if sub is None:
                 st_one, pl_one = st, pl
             else:
@@ -295,9 +304,228 @@ def write_pool_rows(pools, rows, dst_row: int):
     return tree_map(wr, pools, rows)
 
 
-def make_sharded_paged_step(*args, **kwargs):
-    raise NotImplementedError("sharded serving: ROADMAP queue A item 14b "
-                              "(not ported yet)")
+# ---------------------------------------------------------------------------
+# sharded serving: paged_step on the ranks of a (1, n) mesh over `model`
+#
+# Page pools shard over KV heads ("paged_pool" -> model); page tables,
+# batch rows and per-slot ring state stay whole on every rank. A weight
+# shards over the model axis where its sharded dim divides n: attention by
+# head block (wq / wk / wv by output heads, wo by input rows, one
+# all-reduce after wo), the MLP and the MoE experts by d_ff (one
+# all-reduce after w_down, after the MoE's combine), the embedding and the
+# LM head by vocab (the rank's rows and one all-reduce; the rank's [B, V/n]
+# logits and one all-gather). Norms and routers stay whole. Model code
+# finds a shard by its shape against the config's full dim, so a weight
+# that did not divide arrives whole and takes no collective.
+#
+# GQA stays aligned: rank i holds query heads [i Hq/n, (i+1) Hq/n) and kv
+# heads [i Hkv/n, (i+1) Hkv/n). A ring layer slices its whole ring to the
+# rank's kv heads, attends, writes, and all-gathers the heads back, so the
+# state leaves the step whole. Per-user deltas stay whole: a column-
+# parallel site applies the selected blocks the rank owns, a row-parallel
+# one its d_in rows before the all-reduce (`models.common`).
+#
+# The mamba / rwkv mixers (head-sharded time mix, d_inner-sharded scan) are
+# ROADMAP queue A item 14c: their archs are refused on a mesh.
+# ---------------------------------------------------------------------------
+
+def _mesh_size(rules) -> int:
+    axis = rules.model_axis
+    return rules.mesh.shape[axis] if (rules.mesh is not None and axis) \
+        else 1
+
+
+def validate_pool_sharding(cfg, rules) -> int:
+    """The number of model-axis shards the page pools split into; raises
+    where the head counts cannot split that many ways (pools cut through a
+    head would fall out of step with their whole page tables)."""
+    if rules is None or rules.model_axis is None:
+        return 1
+    with SH.use_rules(rules):
+        n = SH.model_axis_size()     # raises if the rules carry no mesh
+    if n == 1 or not has_paged_layers(cfg):
+        return n
+    if cfg.num_kv_heads % n != 0:
+        raise ValueError(
+            f"cannot shard page pools {n}-way over the model axis: "
+            f"num_kv_heads={cfg.num_kv_heads} is not divisible by the "
+            f"model-axis size {n} (pool leaves are [rows, Hkv, head_dim])")
+    if cfg.num_heads % n != 0:
+        raise ValueError(
+            f"cannot shard paged attention {n}-way over the model axis: "
+            f"num_heads={cfg.num_heads} is not divisible by the "
+            f"model-axis size {n}")
+    return n
+
+
+def refuse_state_mixers(cfg, n: int) -> None:
+    """Raise for an arch with mamba or rwkv mixers on a mesh of n > 1."""
+    if n > 1 and any(role == "state" for seg in T.segment_layout(cfg)
+                     for _, role in _paged_layout(cfg, seg.kind)):
+        raise NotImplementedError(
+            f"{cfg.name} on a {n}-way serve mesh: the mamba / rwkv mixers "
+            f"on a mesh are ROADMAP queue A item 14c (not ported yet)")
+
+
+def pool_pspec(rules) -> tuple:
+    """Sharding of every page-pool leaf [steps, rows, Hkv, head_dim]: the
+    "paged_pool" rule on the kv-head dim, replicated where that axis has
+    one rank (the reference's normalized form)."""
+    ax = rules.rules.get("paged_pool")
+    if ax is not None and rules.mesh is not None \
+            and rules.mesh.shape.get(ax, 1) == 1:
+        ax = None
+    return (None, None, None if ax is None else (ax,), None)
+
+
+def _tree_specs(tree):
+    """A replicated sharding (None per dim) for every leaf of `tree`."""
+    if isinstance(tree, dict):
+        return {k: _tree_specs(v) for k, v in tree.items()}
+    return None if tree is None else (None,) * len(tree.shape)
+
+
+def paged_param_specs(cfg, params, rules):
+    """Sharding tree of the serve params (per dim: None or a tuple of mesh
+    axes, as `launch.specs.tree_shardings`): a weight splits over the
+    model axis where its sharded dim divides the mesh (attention by head
+    block, MLP / MoE / rwkv channel mix by d_ff, mamba by d_inner, rwkv
+    time mix by head block, embedding and LM head by vocab); norms,
+    routers and any group failing its check stay whole. Segment leaves
+    carry the leading steps dim."""
+    axis = rules.model_axis
+    n = _mesh_size(rules)
+    specs = _tree_specs(params)
+    a = (axis,)
+
+    def set_group(ts, name, spec):
+        if spec is None or name not in ts:
+            return
+        for k, v in spec.items():
+            if k in ts[name]:
+                ts[name][k] = v
+
+    heads_ok = cfg.num_heads % n == 0 and cfg.num_kv_heads % n == 0
+    attn_spec = {"wq": (None, None, a), "wk": (None, None, a),
+                 "wv": (None, None, a), "wo": (None, a, None)}
+
+    def mlp_spec(p_mlp):
+        if p_mlp["w_up"].shape[-1] % n:
+            return None
+        return {"w_gate": (None, None, a), "w_up": (None, None, a),
+                "w_down": (None, a, None)}
+
+    mamba_ok = cfg.ssm is not None and M.d_inner(cfg) % n == 0 \
+        and cfg.d_model % n == 0
+    mamba_spec = {"in_proj": (None, a, None), "conv_w": (None, None, a),
+                  "conv_b": (None, a), "x_proj": (None, a, None),
+                  "dt_proj": (None, None, a), "dt_bias": (None, a),
+                  "A_log": (None, a, None), "D": (None, a),
+                  "out_proj": (None, a, None)}
+    rwkv_ok = cfg.rwkv is not None and R.num_heads(cfg) % n == 0
+    time_spec = {"wr": (None, None, a), "wk": (None, None, a),
+                 "wv": (None, None, a), "wg": (None, None, a),
+                 "wo": (None, a, None), "w0": (None, a),
+                 "wB": (None, None, a), "u": (None, a, None)}
+    chan_spec = {"wk": (None, None, a), "wv": (None, a, None)} \
+        if cfg.d_ff % n == 0 else None
+
+    for seg in T.segment_layout(cfg):
+        seg_p = params["segments"][seg.name]
+        seg_s = specs["segments"][seg.name]
+        for sub, role in _paged_layout(cfg, seg.kind):
+            tp = seg_p if sub is None else seg_p[sub]
+            ts = seg_s if sub is None else seg_s[sub]
+            if "attn" in tp and (role == "paged" or heads_ok):
+                set_group(ts, "attn", attn_spec)
+            if "mamba" in tp and mamba_ok:
+                set_group(ts, "mamba", mamba_spec)
+            if "time" in tp and rwkv_ok:
+                set_group(ts, "time", time_spec)
+            if "chan" in tp:
+                set_group(ts, "chan", chan_spec)
+            if "mlp" in tp:
+                set_group(ts, "mlp", mlp_spec(tp["mlp"]))
+            if "moe" in tp:
+                if cfg.d_ff % n == 0:
+                    set_group(ts, "moe", {"w_gate": (None, None, None, a),
+                                          "w_up": (None, None, None, a),
+                                          "w_down": (None, None, a, None)})
+                if "shared" in tp["moe"]:
+                    set_group(ts["moe"], "shared",
+                              mlp_spec(tp["moe"]["shared"]))
+    if cfg.vocab_size % n == 0:
+        if "embed" in specs:
+            specs["embed"]["tok"] = (a, None)
+        if "lm_head" in specs:
+            specs["lm_head"]["w"] = (None, a)
+    return specs
+
+
+def _leaf_paths(tree, specs, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaf_paths(v, specs[k], path + (k,))
+    elif tree is not None:
+        yield path, tree, specs
+
+
+def sharded_param_shapes(cfg, params, rules):
+    """(forbidden, replicated) per-product weight shapes for the
+    replication audit (`launch.trace_analysis.replicated_matmul_leaves`).
+    `forbidden`: the FULL shape of every spec-sharded leaf, whose product
+    on a rank means the leaf arrived whole. Segment leaves drop their
+    steps dim (a layer's product takes one step's slice). Taken out into
+    the `replicated` allowlist: full shapes that also belong to a whole
+    leaf, and full shapes equal to some leaf's shard (a legitimate local
+    product)."""
+    specs = paged_param_specs(cfg, params, rules)
+    n = _mesh_size(rules)
+    forbidden, replicated = set(), set()
+    for path, leaf, spec in _leaf_paths(params, specs):
+        shape = tuple(leaf.shape)
+        local = tuple(d // n if spec[i] is not None else d
+                      for i, d in enumerate(shape))
+        if path[0] == "segments":
+            shape, local = shape[1:], local[1:]
+        if len(shape) < 2:
+            continue
+        if any(ax is not None for ax in spec):
+            forbidden.add(shape)
+            replicated.add(local)
+        else:
+            replicated.add(shape)
+    return forbidden - replicated, replicated
+
+
+def shard_serve_params(cfg, params, rules):
+    """This rank's shards of whole serve params under `paged_param_specs`,
+    each a contiguous tensor of its own (the whole params can be freed)."""
+    from repro_torch.launch.specs import shard_local
+    mesh = rules.mesh
+    local = shard_local(params, paged_param_specs(cfg, params, rules),
+                        mesh.shape, mesh.coords)
+    return tree_map(lambda a: a.contiguous().clone(), local)
+
+
+def make_sharded_paged_step(cfg, rules, *, page_size: int,
+                            flash_decode: bool = True):
+    """`paged_step` on this rank's shards, with the signature of the
+    one-device step (`(params, batch, state, pools, page_table, deltas)`):
+    params are the rank's (`shard_serve_params`), pools its kv-head block
+    (`init_serve_cache(..., pool_shards=n)`), everything else whole. Runs
+    under `rules` (a `launch.mesh` process mesh's) and the mapped model
+    axis, with no autograd."""
+    refuse_state_mixers(cfg, validate_pool_sharding(cfg, rules))
+    axis = rules.model_axis
+
+    def step(p, batch, state, pools, pt, deltas=None):
+        with SH.use_rules(rules), SH.mapped_model_axis(axis), \
+                torch.no_grad():
+            return paged_step(cfg, p, batch, state, pools, pt,
+                              page_size=page_size, deltas=deltas,
+                              flash_decode=flash_decode)
+    return step
 
 
 def _delta_sub(delta, *path):
@@ -318,12 +546,13 @@ def _delta_sub(delta, *path):
 
 def _paged_block(cfg, kind: str, p, x, start, active, length, st_c, pl_c,
                  page_table, page_size: int, delta=None,
-                 flash_decode: bool = False):
+                 flash_decode: bool = False, d_ff=None):
     """One layer of `paged_step`; mirrors `_decode_block` for s >= 1.
     `delta` carries this layer's per-row compact weight deltas; covered
     attention / MLP projections apply them as a gather-add at matmul time
-    (MoE experts and mamba / rwkv mixers carry none). Returns (x, state
-    out, pool out)."""
+    (MoE experts and mamba / rwkv mixers carry none). `d_ff`: the MLP's
+    full hidden width where it is not the config's (deepseek's dense first
+    layer). Returns (x, state out, pool out)."""
     def attn(sub_p, h, role, window, st, pl, d=None):
         if role == "ring":
             return L.chunk_ring_attention(sub_p, cfg, h, start, active, st,
@@ -345,7 +574,8 @@ def _paged_block(cfg, kind: str, p, x, start, active, length, st_c, pl_c,
         if kind == "moe":
             y, _ = MOE.apply_moe(p["moe"], cfg, h)
         else:
-            y = L.apply_mlp(p["mlp"], cfg, h, delta=_delta_sub(delta, "mlp"))
+            y = L.apply_mlp(p["mlp"], cfg, h, delta=_delta_sub(delta, "mlp"),
+                            d_ff=d_ff)
         x = x + y
         return (x, c_out, {}) if role == "ring" else (x, {}, c_out)
     if kind == "gemma_super":
@@ -430,6 +660,7 @@ def paged_step(cfg, params, batch, state, pools, page_table, *,
     for seg in T.segment_layout(cfg):
         stack = params["segments"][seg.name]
         d_seg = None if deltas is None else deltas.get(seg.name)
+        d_ff = T._dense_ff_first(cfg) if seg.name == "first" else None
         st_outs, pl_outs = [], []
         # a segment of paged layers only keeps no state: {} stands for it
         st_seg = state.get(seg.name, {})
@@ -439,7 +670,7 @@ def paged_step(cfg, params, batch, state, pools, page_table, *,
                 cfg, seg.kind, _layer(stack, i), x, start, active, length,
                 st_l, _layer(pools[seg.name], i), page_table, page_size,
                 delta=None if d_seg is None else _layer(d_seg, i),
-                flash_decode=flash_decode)
+                flash_decode=flash_decode, d_ff=d_ff)
             st_outs.append(merge(st_out, st_l))
             pl_outs.append(pl_out)
         new_state[seg.name] = _stack(st_outs)

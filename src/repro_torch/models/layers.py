@@ -149,11 +149,17 @@ def init_attention(gen, cfg, dtype, device="cuda"):
 
 
 def _qkv(p, cfg, x, positions, sel=None, delta=None):
+    """q, k, v [B, S, H, D] with RoPE; the head counts come from the
+    projections' widths (a rank's head block on a mesh), and `full_out`
+    lets a rider delta land on the rank that owns its blocks."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = col_matmul(x, p["wq"], sel, "wq", delta).reshape(b, s, -1, hd)
-    k = col_matmul(x, p["wk"], sel, "wk", delta).reshape(b, s, -1, hd)
-    v = col_matmul(x, p["wv"], sel, "wv", delta).reshape(b, s, -1, hd)
+    proj = lambda name, heads: col_matmul(
+        x, p[name], sel, name, delta, full_out=heads * hd).reshape(
+            b, s, -1, hd)
+    q = proj("wq", cfg.num_heads)
+    k = proj("wk", cfg.num_kv_heads)
+    v = proj("wv", cfg.num_kv_heads)
     rope = apply_mrope if cfg.mrope else apply_rope
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
@@ -556,9 +562,19 @@ def chunk_ring_attention(p, cfg, x, start, active, cache, *, window: int,
     dev = x.device
     if length is None:
         length = torch.full((b,), s, dtype=torch.int32, device=dev)
-    ring_k, ring_v = cache["k"], cache["v"]
-    w_cap = ring_k.shape[1]
     q, k, v = _qkv(p, cfg, x, _serve_positions(cfg, start, s), delta=delta)
+    # on a serve mesh the ring arrives whole (per-slot state, not a pool):
+    # the rank reads and writes its kv-head block, and the heads are
+    # all-gathered back below, so the state leaves the step whole
+    ring_k, ring_v = cache["k"], cache["v"]
+    hkv_loc = k.shape[2]
+    local_heads = hkv_loc != ring_k.shape[2]
+    if local_heads:
+        SH.require_model_group("a ring layer's kv heads")
+        lo = SH.model_index() * hkv_loc
+        ring_k = ring_k[:, :, lo:lo + hkv_loc]
+        ring_v = ring_v[:, :, lo:lo + hkv_loc]
+    w_cap = ring_k.shape[1]
 
     st = start.long()
     j = torch.arange(s, device=dev)
@@ -593,7 +609,12 @@ def chunk_ring_attention(p, cfg, x, start, active, cache, *, window: int,
                             ring_k),
            "v": torch.where(writes, torch.gather(v, 1, src).to(ring_v.dtype),
                             ring_v)}
-    return row_matmul(out, p["wo"], None, "wo", delta), new
+    if local_heads:
+        new = {key: SH.all_gather_mapped(t, 2, "state")
+               for key, t in new.items()}
+    y = row_matmul(out, p["wo"], None, "wo", delta,
+                   full_in=cfg.num_heads * cfg.resolved_head_dim)
+    return y, new
 
 
 def chunk_paged_attention(p, cfg, x, start, active, pool, page_table, *,
@@ -673,7 +694,9 @@ def chunk_paged_attention(p, cfg, x, start, active, pool, page_table, *,
         buf.index_copy_(0, dest, rows.reshape((b * s,) + tuple(rows.shape[2:]))
                         .to(old.dtype))
         new_pool[key] = buf[:r_rows]
-    y = row_matmul(out, p["wo"], None, "wo", delta)
+    # a rank's wo rows are its heads': one all-reduce after the product
+    y = row_matmul(out, p["wo"], None, "wo", delta,
+                   full_in=cfg.num_heads * cfg.resolved_head_dim)
     return y, new_pool
 
 

@@ -16,8 +16,14 @@ over the model group; the router and the auxiliary losses see the
 replicated routing and are whole on every rank. Under data parallelism
 the load-balance loss reads the expert counts of the global batch (an
 all-reduce over the data group), and both auxiliary losses are this
-shard's shares of the global ones. The d_ff-parallel serve form is
-ROADMAP item 14b and is refused.
+shard's shares of the global ones.
+
+The d_ff-parallel serve form (a rank of a serve mesh whose expert stacks
+arrived with their hidden dim split, `decoding.paged_param_specs`): every
+expert is resident, the router and the dispatch run whole on every rank,
+each rank's combine holds the partial w_down products of its d_ff slice,
+and one all-reduce over the model group sums them (the reference's form
+inside its serve `shard_map`). Serving only: no gradient is defined.
 
 Determinism. No two values are ever added into one place in an order the
 card chooses (`index_add_`, `index_put_(accumulate=True)` and an index's
@@ -207,11 +213,15 @@ def apply_moe(p, cfg, x, sel=None):
     t = x_flat.shape[0]
     e, k = moe.num_experts, moe.top_k
     e_loc = p["w_gate"].shape[0]
-    if tuple(p["w_gate"].shape[1:]) != (d, cfg.d_ff):
-        raise NotImplementedError(
-            f"expert weights {tuple(p['w_gate'].shape)} have their hidden "
-            f"dim sharded (the config's are {(e, d, cfg.d_ff)}): the "
-            f"d_ff-parallel serve form is ROADMAP item 14b")
+    ff_split = p["w_gate"].shape[-1] != cfg.d_ff
+    if ff_split:
+        SH.require_model_group("the experts' hidden dim")
+        if e_loc != e or p["w_gate"].shape[-1] * SH.model_axis_size() \
+                != cfg.d_ff:
+            raise ValueError(
+                f"expert weights {tuple(p['w_gate'].shape)}: the d_ff-"
+                f"parallel form keeps all {e} experts and splits d_ff "
+                f"{cfg.d_ff} over {SH.model_axis_size()} ranks")
     if e_loc != e:
         SH.require_model_group("the expert stacks")
         if e_loc * SH.model_axis_size() != e:
@@ -244,6 +254,8 @@ def apply_moe(p, cfg, x, sel=None):
     else:
         y_flat, kept = _dispatch_combine(cfg, x_flat, ids, weights, wp, sel,
                                          capacity)
+        if ff_split:
+            y_flat = SH.psum_mapped(y_flat)
     sink = getattr(_ROUTING, "sink", None)
     if sink is not None:
         sink.append(((~kept).sum(), kept.numel()))

@@ -47,8 +47,8 @@ Every cache family serves: window-free attention through the page pools,
 sliding-window layers through per-slot ring buffers, mamba and rwkv layers
 through per-slot recurrent state (`models.decoding`). An arch whose mixers
 keep only state (rwkv) allocates no pages at all. `flash_decode=True` takes
-the paged layers' softmax page by page (the flash-decoding split); it is
-off by default, as the reference's single-device engine has it.
+the paged layers' softmax page by page (the flash-decoding split); as in
+the reference it is off by default on one device and on with `rules`.
 
 Robustness (``runtime/chaos.py`` is the serve-side fault story):
 
@@ -76,8 +76,28 @@ Robustness (``runtime/chaos.py`` is the serve-side fault story):
   the crash unwind) turns their prefill into prefix and snapshot hits.
   ``InjectedCrash`` (``kill_after``) simulates the hard kill end to end.
 
-Sharded serving (``rules=``) is refused with the ROADMAP item that brings
-it (queue A item 14b).
+Sharded serving (``rules=``, a ``launch.mesh`` process mesh's rules with a
+model axis): every rank of the mesh runs this engine on the same requests.
+The host logic (scheduler, radix tree, page tables, sampling) is the same
+on every rank, and the logits every step samples from are all-gathered,
+the same bytes on every rank, so every rank takes the same decisions.
+The step runs on the rank's shards (`models.decoding.
+make_sharded_paged_step`): the page pools hold the rank's kv-head block,
+the page tables, batch rows and per-slot state stay whole. Each step's
+inputs (slots, positions, page-table rows) are checked across the ranks
+by a crc32 digest: a rank that has fallen out of step raises rather than
+hangs. Every pool helper works on the rank's head block; the spill tier
+holds full-head rows (the page reader all-gathers the heads, the writer
+takes back the rank's slice), so a tier persisted at one mesh width
+restores at another. Every rank trains each online wave on the whole
+params it was given (`_host_params`), the one-device wave on the same
+inputs, so deltas and tokens are the same at every mesh width, and no
+delta crosses the mesh (a broadcast from rank 0 would move one user's
+delta values every wave: 436 MB at llama3-8b's widths). What reads
+wall time (fault injection and its retry backoff, the watchdog, request
+timeouts) would let the ranks' decisions part, and the journal would be
+written by every rank: those options are refused on a mesh (ROADMAP
+queue A item 14d). The mamba / rwkv mixers on a mesh are item 14c.
 
 Embedding-input archs (musicgen, qwen2-vl): a request carries its prompt
 as `embeds` [prompt_len, d_model], and each decode step feeds every slot a
@@ -92,6 +112,7 @@ embeddings of the placeholder frontend come from it too).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -101,7 +122,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import sharding as SH
 from repro_torch.checkpoint.manager import (CheckpointCorruptError,
                                             restore_spill_tier,
                                             save_spill_tier)
@@ -193,6 +216,9 @@ class ServeStats:
     stream_errors: int = 0          # stream-callback exceptions absorbed
     journal_replays: int = 0        # re-admissions recovered from the journal
     stragglers: int = 0             # engine iterations flagged as stragglers
+    # sharded serving (the one-device engine: 1 and the pool's bytes)
+    mesh_shards: int = 1            # model-axis shards the pools split into
+    pool_shard_bytes: int = 0       # page-pool bytes this rank holds
     # phase-split throughput: wall time inside the step (synchronized) and
     # tokens processed, prefill vs decode
     prefill_s: float = 0.0
@@ -265,8 +291,25 @@ class ServeEngine:
         if personalization is not None and cfg.embed_inputs:
             raise ValueError("personalization trains on token streams; "
                              "embed-input frontends have none")
+        # sharded serving: the rules are checked before any device work
+        self.rules = rules
+        self.mesh_shards = 1
         if rules is not None:
-            _refuse("sharded serving (rules)", "ROADMAP queue A item 14b")
+            if getattr(rules, "mesh", None) is None \
+                    or getattr(rules, "model_axis", None) is None:
+                raise ValueError(
+                    "sharded serving needs AxisRules built from a mesh with "
+                    f"a model axis (got mesh={getattr(rules, 'mesh', None)!r}"
+                    f", model_axis={getattr(rules, 'model_axis', None)!r})")
+            self.mesh_shards = D.validate_pool_sharding(cfg, rules)
+            D.refuse_state_mixers(cfg, self.mesh_shards)
+            if self.mesh_shards > 1:
+                for name, given in (("chaos", chaos is not None),
+                                    ("watchdog_s", watchdog_s is not None),
+                                    ("journal", journal is not None)):
+                    if given:
+                        _refuse(f"{name} on a serve mesh",
+                                "ROADMAP queue A item 14d")
         # robustness knobs (the module docstring's Robustness section);
         # `chaos` is a runtime.chaos.FaultSchedule or None: every injection
         # point is gated on it, so a chaos-free engine runs the fault-free
@@ -284,6 +327,12 @@ class ServeEngine:
         self.cfg = cfg
         self.params = params
         self.device = tree_leaves(params)[0].device
+        # the model group and this rank's place in it (None / 0 off a mesh)
+        self._mgroup = None
+        self._mrank = 0
+        if self.mesh_shards > 1:
+            self._mgroup = rules.mesh.group(rules.model_axis)
+            self._mrank = rules.mesh.index(rules.model_axis)
         if watchdog_s is not None and self.device.type == "cuda":
             # nvcc builds a kernel at its first use (~8 s a source): build
             # them now, or a fresh process's first steps would look hung
@@ -292,8 +341,9 @@ class ServeEngine:
         self.num_slots = num_slots
         self.max_len = max_len
         self.page_size = page_size
-        # the reference's default: on only when sharded (refused above)
-        self.flash_decode = bool(flash_decode)
+        # the reference's default: on when sharded, off on one device
+        self.flash_decode = bool(flash_decode) if flash_decode is not None \
+            else rules is not None
         self.max_pages = -(-max_len // page_size)
         self.has_pages = D.has_paged_layers(cfg)
         self._need_state = D.has_state_layers(cfg)
@@ -329,9 +379,17 @@ class ServeEngine:
         self._decode_length = torch.ones((num_slots,), dtype=torch.int32,
                                          device=self.device)
         ps, fd = page_size, self.flash_decode
-        self._step = lambda p, batch, state, pools, pt, deltas: D.paged_step(
-            cfg, p, batch, state, pools, pt, page_size=ps, deltas=deltas,
-            flash_decode=fd)
+        if self._mgroup is not None:
+            # waves train on the whole params (`_host_params`); the step
+            # takes this rank's shards
+            self.params = D.shard_serve_params(cfg, params, rules)
+            self._step = D.make_sharded_paged_step(
+                cfg, rules, page_size=ps, flash_decode=fd)
+        else:
+            self._step = lambda p, batch, state, pools, pt, deltas: \
+                D.paged_step(cfg, p, batch, state, pools, pt, page_size=ps,
+                             deltas=deltas, flash_decode=fd)
+        self._host_params = params
         self._p13n = personalization
         self._dbatch = None
         if personalization is not None:
@@ -350,7 +408,7 @@ class ServeEngine:
 
         p = self._p13n
         plan = build_plan(self.cfg, p.sparse, 0)
-        frozen, trainable = split_params(self.params, plan)
+        frozen, trainable = split_params(self._host_params, plan)
         spec = decode_delta_spec(plan, trainable["segments"])
         if not spec:
             raise ValueError(
@@ -361,7 +419,7 @@ class ServeEngine:
         self._plan = dataclasses.replace(plan, spec=spec)
         self._frozen, self._trainable = frozen, trainable
         self._seg_steps = {
-            seg: tree_leaves(self.params["segments"][seg])[0].shape[0]
+            seg: tree_leaves(self._host_params["segments"][seg])[0].shape[0]
             for seg in spec}
         self._wave = make_online_wave(self.cfg, p.sparse, p.optimizer,
                                       self._plan,
@@ -453,6 +511,32 @@ class ServeEngine:
                     other.request.user != req.user:
                 continue
             self._insert_delta_row(entry, other.index)
+
+    def _check_step(self, *parts) -> None:
+        """On a mesh: every rank's step inputs must be rank 0's. A crc32 of
+        `parts` (host arrays) is all-gathered over the model group; a rank
+        that differs fails the step on every rank, rather than leaving its
+        peers waiting in a collective."""
+        if self._mgroup is None:
+            return
+        crc = 0
+        for a in parts:
+            crc = zlib.crc32(np.ascontiguousarray(a).tobytes(), crc)
+        mine = torch.tensor([crc], dtype=torch.int64, device=self.device)
+        got = [torch.empty_like(mine) for _ in range(self.mesh_shards)]
+        SH.count_collective("digest", mine)
+        dist.all_gather(got, mine, group=self._mgroup)
+        seen = [int(g) for g in got]
+        if len(set(seen)) > 1:
+            raise RuntimeError(f"serve mesh out of step: the ranks' step "
+                               f"input digests are {seen}")
+
+    @contextlib.contextmanager
+    def _on_mesh(self):
+        """The context a pool helper's collective runs in."""
+        with SH.use_rules(self.rules), \
+                SH.mapped_model_axis(self.rules.model_axis), torch.no_grad():
+            yield
 
     # -- input plumbing ----------------------------------------------------
 
@@ -563,17 +647,27 @@ class ServeEngine:
 
     def _page_reader(self, pid: int):
         """Device -> host: one page's token rows from EVERY layer's pool
-        (the radix cache's spill callback)."""
+        (the radix cache's spill callback), all heads: on a mesh the ranks'
+        head blocks are all-gathered."""
         ps = self.page_size
-        return _to_host(D.read_pool_rows(self._pools, pid * ps, ps))
+        rows = D.read_pool_rows(self._pools, pid * ps, ps)
+        if self._mgroup is not None:
+            with self._on_mesh():
+                rows = tree_map(
+                    lambda a: SH.all_gather_mapped(a, 2, "spill"), rows)
+        return _to_host(rows)
 
     def _page_writer(self, pid: int, blob) -> None:
         """Host -> device: write a spilled page's rows back into EVERY
-        layer's pool (the radix cache's rehydrate callback). The blob is
-        grafted onto the live pool structure first: a disk round trip
-        drops empty subtrees."""
-        D.write_pool_rows(self._pools, _graft_like(self._pools, blob),
-                          pid * self.page_size)
+        layer's pool (the radix cache's rehydrate callback); on a mesh the
+        rank's head block of them. The blob is grafted onto the live pool
+        structure first: a disk round trip drops empty subtrees."""
+        blob = _graft_like(self._pools, blob)
+        if self._mgroup is not None:
+            h = self.cfg.num_kv_heads // self.mesh_shards
+            lo = self._mrank * h
+            blob = tree_map(lambda a: a[:, :, lo:lo + h], blob)
+        D.write_pool_rows(self._pools, blob, pid * self.page_size)
 
     def _release_slot(self, slot: Slot):
         for pid in slot.page_ids:
@@ -619,9 +713,13 @@ class ServeEngine:
         if self.prefix_mode != "radix" or self._cache is None:
             return
         self._cache.spill_all()
-        if self._persist_path is not None:
+        if self._persist_path is not None and self._mrank == 0:
+            # the tier holds full-head rows, the same on every rank: rank 0
+            # writes it, and no rank moves on before the file is whole
             save_spill_tier(self._persist_path, self._spill,
                             meta=self._persist_meta())
+        if self._persist_path is not None and self._mgroup is not None:
+            dist.barrier(group=self._mgroup)
 
     # -- robustness --------------------------------------------------------
 
@@ -698,6 +796,9 @@ class ServeEngine:
             assert self._pages_needed(r) <= self.num_pages, (
                 f"request {r.rid} needs {self._pages_needed(r)} pages; "
                 f"pool has {self.num_pages}")
+            if r.timeout_s is not None and self._mgroup is not None:
+                _refuse("request timeouts on a serve mesh",
+                        "ROADMAP queue A item 14d")
         sched = Scheduler(self.num_slots, eos_id=self.eos_id)
         # rids journaled by a previous (crashed) engine and admitted again
         # in this run count as journal replays
@@ -721,7 +822,10 @@ class ServeEngine:
 
         state, self._pools = D.init_serve_cache(
             self.cfg, self.num_slots, self.max_len, max(1, self.num_pages),
-            self.page_size, device=self.device)
+            self.page_size, device=self.device,
+            pool_shards=self.mesh_shards if self.has_pages else 1)
+        pool_bytes = sum(a.numel() * a.element_size()
+                         for a in tree_leaves(self._pools))
         self._pt = np.full((self.num_slots, self.max_pages), -1, np.int32)
         self._pool = PagePool(max(1, self.num_pages), self.page_size,
                               chaos=chaos)
@@ -920,6 +1024,8 @@ class ServeEngine:
                     pt_row = self._tensor(self._pt[slot.index:slot.index + 1])
                     d_row = None if self._dbatch is None else \
                         D.cache_extract_row(self._dbatch, slot.index)
+                    self._check_step(np.asarray([slot.index, slot.pos, size]),
+                                     self._pt[slot.index])
                     ts = time.perf_counter()
                     logits, st_row, self._pools = self._step(
                         self.params, self._chunk_batch(req, slot.pos, size),
@@ -1004,6 +1110,9 @@ class ServeEngine:
             pos_row = [min(s.pos, self.max_len - 1) for s in sched.slots]
             active_row = [s.state is SlotState.ACTIVE and s.index in run_idx
                           for s in sched.slots]
+            self._check_step(np.asarray(tokens_row, np.int64),
+                             np.asarray(pos_row), np.asarray(active_row),
+                             self._pt)
             ts = time.perf_counter()
             logits, state, self._pools = self._step(
                 self.params,
@@ -1082,6 +1191,8 @@ class ServeEngine:
             stream_errors=self._stream_errors,
             journal_replays=journal_replays,
             stragglers=len(mon.flagged),
+            mesh_shards=self.mesh_shards,
+            pool_shard_bytes=pool_bytes,
             prefill_s=self._prefill_s,
             decode_s=self._decode_s,
             prefill_tokens=self._prefill_tokens,

@@ -70,6 +70,10 @@ _STATE = _State()
 #   metrics   loss and metrics over the data group
 #   aux       MoE expert counts over the data group, norms for selection
 #             and clipping
+#   logits    a serve step's vocab-parallel logits (each rank's [B, V/n])
+#   state     a serve step's ring layers' kv heads, gathered back whole
+#   spill     a spilled page's kv heads, gathered for the host tier
+#   digest    the serve engine's per-step check of the ranks' inputs
 COLLECTIVE_BYTES: dict[str, int] = {}
 
 
@@ -250,7 +254,8 @@ def data_size() -> int:
 # collectives
 # ---------------------------------------------------------------------------
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def count_collective(kind: str, t: torch.Tensor) -> None:
+    """Add `t`'s bytes to `COLLECTIVE_BYTES[kind]`."""
     COLLECTIVE_BYTES[kind] = COLLECTIVE_BYTES.get(kind, 0) + \
         t.numel() * t.element_size()
 
@@ -260,7 +265,7 @@ def all_reduce_(t: torch.Tensor, group, kind: str,
     """In-place all-reduce of `t` over `group` (a no-op for None), counted
     under `kind`. No autograd: for gradients, metrics and statistics."""
     if group is not None:
-        _count(kind, t)
+        count_collective(kind, t)
         if t.is_contiguous():
             dist.all_reduce(t, op=op, group=group)
         else:
@@ -306,7 +311,7 @@ class _GatherFromGroup(torch.autograd.Function):
         ctx.index = dist.get_rank(group)
         parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
                  for _ in range(n)]
-        _count(kind, x)
+        count_collective(kind, x)
         dist.all_gather(parts, x.contiguous(), group=group)
         return torch.cat(parts, dim=axis)
 

@@ -15,6 +15,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from repro_torch.testing import limit_threads  # noqa: E402
+
+limit_threads()
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -365,8 +368,10 @@ def test_unported_families_and_helpers_raise():
     """The MoE and sliding-window families lay out now (their parity is
     tests/test_torch_serve_families.py): full deepseek-moe-16b's pools on
     the meta device, a windowed llama3 smoke config's per-slot rings of
-    min(window, max_len) slots and no pools. The sharded step still raises
-    with its ROADMAP item (14); the spill helpers serve
+    min(window, max_len) slots and no pools. A serve mesh's rank holds its
+    kv-head block of every pool and the ring state whole, and the sharded
+    step refuses heads its mesh cannot split (its runs are
+    tests/test_torch_serve_sharded.py); the spill helpers serve
     (tests/test_torch_prefix_cache.py)."""
     moe = get_config("deepseek-moe-16b")
     state, pools = PD.init_serve_cache(moe, 1, 16, 1, 16, device="meta")
@@ -384,5 +389,13 @@ def test_unported_families_and_helpers_raise():
     assert sorted(state["blocks"]) == [f"sub{i}" for i in range(5)]
     assert tuple(state["blocks"]["sub0"]["v"].shape) == (1,) + row
     assert sorted(pools["blocks"]) == ["sub5"] and pools["tail"] == {}
-    with pytest.raises(NotImplementedError, match="item 14"):
-        PD.make_sharded_paged_step()
+    state2, pools2 = PD.init_serve_cache(ring, 2, 16, 1, 4, device="meta",
+                                         pool_shards=2)
+    assert tuple(pools2["blocks"]["sub5"]["k"].shape) == (
+        1, 4, ring.num_kv_heads // 2, ring.resolved_head_dim)
+    assert tuple(state2["tail"]["k"].shape) == (2,) + row
+    fake = __import__("types").SimpleNamespace(
+        shape={"data": 1, "model": 3}, axis_names=("data", "model"))
+    from repro_torch.sharding import default_rules
+    with pytest.raises(ValueError, match="num_kv_heads"):
+        PD.make_sharded_paged_step(ring, default_rules(fake), page_size=4)

@@ -10,6 +10,9 @@ from pathlib import Path
 import pytest
 
 pytest.importorskip("torch")
+from repro_torch.testing import limit_threads  # noqa: E402
+
+limit_threads()
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"

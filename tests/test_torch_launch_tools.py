@@ -10,6 +10,9 @@ import json
 import pytest
 
 torch = pytest.importorskip("torch")
+from repro_torch.testing import limit_threads  # noqa: E402
+
+limit_threads()
 jax = pytest.importorskip("jax")
 
 from torch.utils.flop_counter import FlopCounterMode  # noqa: E402

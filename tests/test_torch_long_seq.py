@@ -21,6 +21,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from repro_torch.testing import limit_threads  # noqa: E402
+
+limit_threads()
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 

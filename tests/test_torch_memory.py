@@ -11,6 +11,9 @@ import warnings
 import pytest
 
 torch = pytest.importorskip("torch")
+from repro_torch.testing import limit_threads  # noqa: E402
+
+limit_threads()
 jax = pytest.importorskip("jax")
 
 import repro.models.registry as jregistry  # noqa: E402

@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from repro_torch.testing import limit_threads  # noqa: E402
+
+limit_threads()
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
@@ -340,8 +343,23 @@ def test_moe_init_keeps_the_router_fp32():
 
 
 def test_apply_moe_refuses_sharded_expert_weights():
+    """Experts whose hidden dim arrived split are refused off a mesh (their
+    all-reduce would be skipped). On a 2-rank serve mesh they take the
+    d_ff-parallel form (`launch.mesh_serve`'s "moe" job: every expert
+    resident, each rank half of d_ff, one all-reduce after the combine),
+    which equals the whole-expert form within f32 roundoff (1e-5 of the
+    largest output: the w_down sums split in two)."""
+    from repro_torch.launch import mesh, mesh_serve
     _, pcfg, jp, x = _moe_setup()
     p = bridge.to_torch(jp)
     p["w_gate"] = p["w_gate"][..., :16]
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    with pytest.raises(ValueError, match="no process mesh"):
         PMOE.apply_moe(p, pcfg, _t(x))
+    job = dict(name="moe", kind="moe", cfg=pcfg, n=2, params=jp, x=x)
+    ranks = mesh.spawn(mesh_serve.run_jobs, 2, args=([job],), timeout_s=120)
+    want, _ = PMOE.apply_moe(bridge.to_torch(jp), pcfg, _t(x))
+    want = want.numpy()
+    for (r,) in ranks:
+        assert r["d_ff_local"] * 2 == pcfg.d_ff
+        np.testing.assert_allclose(r["y"].numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(want).max()))

@@ -19,6 +19,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from repro_torch.testing import limit_threads  # noqa: E402
+
+limit_threads()
 jax = pytest.importorskip("jax")
 
 from repro import configs as JCF  # noqa: E402
@@ -392,19 +395,27 @@ def cli_plain():
     ["--shed-watermark", "0.1"], ["--mesh-model", "2"],
 ], ids=lambda f: f[0].lstrip("-") + (f"={f[1]}" if len(f) > 1 else ""))
 def test_cli_refuses_unported_flags(flag, cli_plain, tmp_path, monkeypatch,
-                                    capsys):
-    """Only `--mesh-model > 1` (sharded serving, item 14) is refused. Each
-    robustness flag reaches the engine and serves the flag-free run's
-    tokens: faults retried, a journal written (its file in the working
-    directory), the watchdog and the watermark on, and `--kill-after 1`
-    crashing after the first completion with that request journaled
-    done."""
+                                    capfd):
+    """No flag is refused any more. Each robustness flag reaches the engine
+    and serves the flag-free run's tokens: faults retried, a journal
+    written (its file in the working directory), the watchdog and the
+    watermark on, and `--kill-after 1` crashing after the first completion
+    with that request journaled done. `--mesh-model 2` spawns 2 ranks
+    (gloo, on the CPU) that serve the flag-free run's tokens and counts
+    (the ranks' flash-decode softmax against the one process's monolithic
+    one: the smoke model's top-2 gaps are far above their roundoff), and
+    rank 0 prints the reference's mesh line."""
     monkeypatch.chdir(tmp_path)
     argv = _argv("--requests", "4", "--batch", "2", *flag)
     if flag[0] == "--mesh-model":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue A item 14"):
-            launch_serve.main(argv)
+        stats = launch_serve.main(argv)
+        assert stats.mesh_shards == 2 and stats.requests_completed == 4
+        assert {k: r.tokens for k, r in stats.results.items()} == \
+            {k: r.tokens for k, r in cli_plain.results.items()}
+        assert stats.pool_shard_bytes > 0
+        out = capfd.readouterr().out
+        assert f"[serve] mesh: 2 model-axis shards, " \
+            f"{stats.pool_shard_bytes} pool bytes/shard" in out
         return
     want = {k: r.tokens for k, r in cli_plain.results.items()}
     if flag[0] == "--kill-after":
@@ -417,7 +428,7 @@ def test_cli_refuses_unported_flags(flag, cli_plain, tmp_path, monkeypatch,
     stats = launch_serve.main(argv + ["--max-retries", "20"])
     assert stats.requests_completed == 4 and stats.quarantined == 0
     assert {k: r.tokens for k, r in stats.results.items()} == want
-    out = capsys.readouterr().out
+    out = capfd.readouterr().out
     if flag[0] == "--fault-rate":
         assert stats.faults_injected > 0 and stats.retries > 0
         assert f"[serve] chaos: {stats.faults_injected} faults injected" \
@@ -454,10 +465,13 @@ def test_cli_defaults_to_the_card():
 
 
 def test_engine_refuses_unported_options(model, tmp_path):
-    """`rules=` (sharded serving) is refused with its item; the robustness
-    options construct and serve."""
+    """`rules=` that carry no mesh raise the reference's ValueError before
+    any device work (sharded serving itself: tests/
+    test_torch_serve_sharded.py); the robustness options construct and
+    serve."""
     _, cfg, _, params = model
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 14"):
+    with pytest.raises(ValueError, match="needs AxisRules built from a "
+                                         "mesh with a model axis"):
         ServeEngine(cfg, params, num_slots=1, max_len=8, rules=object())
     for kw in ({"chaos": FaultSchedule(0)},
                {"journal": str(tmp_path / "j")}, {"watchdog_s": 1.0},

@@ -28,6 +28,9 @@ from repro_torch.core.selection import build_plan
 from repro_torch.launch import specs as S
 from repro_torch.models.specs import param_logical_specs
 from repro_torch.models.registry import abstract_params
+from repro_torch.testing import limit_threads
+
+limit_threads()
 
 MESHES = [(1, 2), (2, 2), (1, 4)]
 

@@ -5,6 +5,9 @@ test_torch_train.py and runs beside it."""
 import pytest
 
 torch = pytest.importorskip("torch")
+from repro_torch.testing import limit_threads  # noqa: E402
+
+limit_threads()
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
