@@ -301,11 +301,29 @@ Phases (any failure exits non-zero and prints no result):
    kind against the count the code predicts; (c) gemma3-4b cut to 6
    layers (one super-block: ring + paged) and deepseek-moe-16b cut to 2
    (d_ff-parallel experts and shared experts), f32, (1, 2): tokens equal
-   the one-process engine's; (d) rwkv6-3b and jamba refused on a mesh
-   with ROADMAP item 14c, and the serve launcher's `--mesh-model 2`
+   the one-process engine's; (d) the serve launcher's `--mesh-model 2`
    printing its mesh line; (e) faulted controls: (a) with the two ranks'
    shards swapped, (b) with every delta kept at zero (lr 0): tokens
    differ (the zero-delta run's from (b)'s after the first wave).
+33. the recurrent families on a process mesh (jobs in phase 31's world,
+   ranks sharing cuda:0 over gloo; the one-process runs first, freed
+   before the ranks start), f32 at published widths: rwkv6-3b cut to 4
+   layers (the time mix whole on every rank, the channel mix
+   d_ff-parallel; serving: the time mix by head block) and jamba cut to
+   one super-block of 2 layers and 2 experts (mamba d_inner-parallel).
+   (a) 2 compact SGD steps on (1, 2) at 2 x 256 (rwkv K = 2, jamba K =
+   1) against the same steps on one process: losses, every rank's
+   magnitude selection its shard of the one process's, the selected
+   blocks (jamba's as column sums), unselected and frozen blocks bitwise,
+   per rank the launches of the dW, the optimizer and the WKV forward and
+   backward equal to the one process's, the bytes a step by kind equal to
+   `rmesh_train_bytes`; (b) phase 32a's shared-prefix workload cut to 4
+   requests, twice on one engine on (1, 2): tokens, pages, prefill
+   chunks, snapshot hits and rehydrates equal the one-process engine's,
+   rwkv's wkv6 state-form launches exactly 4 x (prefill chunks + decode
+   steps) a rank, a decode step's bytes by kind equal to
+   `rmesh_decode_bytes`; (c) the serve launcher's `--mesh-model 2` on
+   rwkv6-3b (its published config) printing its mesh line.
 
 Phases 24-26 also run the shared-prefix workload of phase 28 on the
 weights they hold, `off` then `radix` (pages of 16; MoE layers at capacity
@@ -5084,10 +5102,12 @@ def _single_rank(tc, shape, batches) -> dict:
     "control_dropped" (the start params' dropped share on the last batch
     with the capacity a rank would size for its local experts as if they
     were all), "blocks" and "start" (the selected blocks at the end, and
-    the start params' at the same places, on the card)}."""
+    the start params' at the same places, on the card), "launches" (the
+    kernels' per step)}."""
     from types import SimpleNamespace
     from repro_torch import sharding as SH
     from repro_torch.core.sparse_update import gather_selected_tree, tree_map
+    from repro_torch.kernels import ops
     from repro_torch.launch.specs import rules_for
     from repro_torch.models import moe as MOE
     from repro_torch.models import transformer as T
@@ -5119,9 +5139,12 @@ def _single_rank(tc, shape, batches) -> dict:
             out["control_dropped"] = sum(int(d) for d, _ in routing) / \
                 sum(n for _, n in routing)
     step = make_train_step(tc, plan)
+    out["launches"] = []
     for b in batches:
+        ops.reset_launch_counts()
         with MOE.record_routing() as routing:
             state, m = step(state, on_card(b))
+        out["launches"].append(ops.launch_counts())
         out["losses"].append(float(m["loss"]))
         if routing:
             out["dropped"].append(sum(int(d) for d, _ in routing)
@@ -5494,7 +5517,7 @@ def prepare_serve_mesh(results: dict) -> dict:
     """Phase 32, before the world is spawned: the one-process runs on the
     card, the serve jobs for the ranks, and the serve launcher's
     `--mesh-model 2` started beside them (its own 2 ranks)."""
-    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs import get_config
     t0 = time.perf_counter()
     cli = subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.serve", *SMESH_CLI],
@@ -5527,10 +5550,6 @@ def prepare_serve_mesh(results: dict) -> dict:
     for arch, cfg in fam.items():
         jobs.append(dict(name=arch, cfg=cfg, argv=["--arch", arch]
                          + SMESH_PREFIX_ARGV + SMESH_SHORT, **at))
-    for arch in ("rwkv6-3b", "jamba-1.5-large-398b"):
-        jobs.append(dict(name=arch, cfg=get_smoke_config(arch),
-                         engine=dict(num_slots=1, max_len=8),
-                         expect_raise=NotImplementedError, **at))
     print(f"[serve mesh] the parent before the spawn: "
           f"{torch.cuda.memory_allocated()} B allocated, "
           f"{torch.cuda.memory_reserved()} B reserved", flush=True)
@@ -5660,12 +5679,6 @@ def phase_serve_mesh(results: dict, prep: dict, served: dict):
             check(same, f"serve mesh (c) {arch} rank {r['coords']}: tokens "
                   f"differ from the one process's")
     # (d)
-    for arch in ("rwkv6-3b", "jamba-1.5-large-398b"):
-        for r in served[arch]:
-            check("item 14c" in r.get("raised", ""),
-                  f"serve mesh (d) {arch}: {r.get('raised')}")
-        print(f"[serve mesh d] {arch} on (1, 2): {served[arch][0]['raised']}",
-              flush=True)
     cli = prep["cli"]
     try:
         out, _ = cli.communicate(timeout=120)
@@ -5706,6 +5719,321 @@ def phase_serve_mesh(results: dict, prep: dict, served: dict):
           flush=True)
 
 
+# phase 33: the recurrent families on a process mesh, in phase 31's world
+# (every rank on cuda:0 over gloo: no time here is a tensor-parallel speed
+# figure). f32 at published widths: rwkv6-3b cut to 4 layers (40 heads,
+# d_ff 8960), and jamba cut to one super-block of 2 layers (a mamba layer
+# with its dense FFN, an attention layer with 2 experts: d_model 8192,
+# d_inner 16384). (a) trains each on (1, 2), (b) serves each on (1, 2),
+# (c) runs the serve launcher's `--mesh-model 2` on rwkv6-3b at its
+# published config (bf16, 32 layers): the smoke config's heads of 16 are
+# not the WKV kernel's 64, so it cannot serve on the card at all.
+RMESH = (1, 2)
+RMESH_RWKV_LAYERS = 4
+RMESH_RWKV_K = 2
+RMESH_BATCH = (2, 256)        # global batch x seq of (a)
+RMESH_STEPS = 2
+RMESH_LR = 0.1                # SGD, the paper's optimizer
+RMESH_ARGV = SMESH_PREFIX_ARGV + SMESH_SHORT
+RMESH_CLI = ["--arch", "rwkv6-3b", "--mesh-model", "2", "--requests", "4",
+             "--batch", "2", "--prompt-len", "20", "--gen-len", "4",
+             "--page-size", "8"]
+RMESH_ACCOUNT = SMESH_ACCOUNT + ("snapshot_hits", "rehydrates")
+RMESH_KERNELS = ("block_sparse_dw", "batched_dw", "fused_block_opt", "wkv6",
+                 "wkv6_bwd")
+
+
+def recurrent_cuts() -> dict:
+    """Phase 33's two configs, f32 at published widths."""
+    from repro_torch.configs import get_config
+    return {"rwkv6-3b": dataclasses.replace(
+                get_config("rwkv6-3b"), num_layers=RMESH_RWKV_LAYERS,
+                dtype="float32"),
+            "jamba": dataclasses.replace(jamba_cut(experts=2, period=2),
+                                         dtype="float32")}
+
+
+def _fwd_bwd(cfg, kind: str, bs: int, n: int, w: int, plan_sub=None):
+    """One sub-layer's collectives in a (1, n) train step: ([payload bytes
+    of each forward one, in order], bytes its backward adds, dw_model
+    bytes), as the model code issues them (models/mamba, rwkv6, layers,
+    moe; `sharding.count_collective` counts a gather's local part)."""
+    row = bs * cfg.d_model * w
+    if kind == "mamba":
+        di = cfg.ssm.expand * cfg.d_model
+        dbl = bs * (math.ceil(cfg.d_model / 16) + 2 * cfg.ssm.d_state) * w
+        # in_proj's gather, x_proj's sum, out_proj's sum; backward: the
+        # input's copy_to_model, the gather's and the sum's all-reduces
+        return [bs * 2 * di // n * w, dbl, row], row + bs * 2 * di * w + dbl, 0
+    if kind == "attn":
+        # wo's sum; the input's copy_to_model, and the whole wk / wv's
+        # compact dW summed over the ranks (`dw_model`)
+        dw = sum(cfg.d_model * s.n_sel * s.block * w
+                 for name, s in plan_sub.items() if name in ("wk", "wv"))
+        return [row], row, dw
+    if kind == "moe":
+        # the combine's sum; the input's and the routing weights' (fp32)
+        # copy_to_model
+        return [row], row + bs * cfg.moe.top_k * 4, 0
+    return [row], row, 0             # an MLP or rwkv's channel mix
+
+
+def rmesh_train_bytes(cfg, plan, batch: int, seq: int, n: int) -> dict:
+    """The bytes one compact step of phase 33a moves by kind on a (1, n)
+    mesh, predicted from the code (the CPU mesh tests' smoke runs read the
+    same formula). A trainable layer is recomputed under checkpoint, so
+    its forward collectives run twice, up to the last tensor the backward
+    needs (non-reentrant checkpoint stops there): rwkv's channel mix saves
+    its all-reduced kv for the gate's product, a jamba super-block's last
+    FFN sum feeds only the residual add and runs once. The token table's
+    all-reduce and the CE's copy_to_model backward add a [B, S, d] each;
+    the CE's max, sum and gold logit ([B, S] fp32) run twice, less the
+    gold's recompute."""
+    w = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    bs = batch * seq
+    row = bs * cfg.d_model * w
+    out = {"act": 2 * row, "ce": 5 * bs * 4, "dw_model": 0}
+    k = plan.seg_trainable["blocks"]
+    if cfg.family == "ssm":
+        out["act"] += (cfg.num_layers - k) * row + 3 * k * row
+    else:
+        subs = []
+        for i in range(cfg.attn_every):
+            sub = f"sub{i}"
+            subs.append(("attn", plan.spec["blocks"][sub]["attn"])
+                        if i == cfg.attn_every // 2 else ("mamba", None))
+            subs.append(("moe" if i % 2 else "mlp", None))
+        fwd, bwd, dw = [], 0, 0
+        for kind, spec in subs:
+            f, b, d = _fwd_bwd(cfg, kind, bs, n, w, spec)
+            fwd, bwd, dw = fwd + f, bwd + b, dw + d
+        steps = cfg.num_layers // cfg.attn_every
+        out["act"] += (steps - k) * sum(fwd) + k * (
+            2 * sum(fwd) - fwd[-1] + bwd)
+        out["dw_model"] = k * dw
+    return {kind: v for kind, v in out.items() if v}
+
+
+def rmesh_decode_bytes(cfg, slots: int, n: int) -> dict:
+    """The bytes one decode step of phase 33b moves by kind on a (1, n)
+    mesh over `slots` slots, predicted from the code: the token table's
+    all-reduce; rwkv a layer: y's head block gathered (fp32), wo's and the
+    channel mix's sums, the state's head block gathered (`state`); mamba:
+    in_proj's full [B, 2 d_inner] sum, x_proj's and out_proj's, h (fp32)
+    and the conv tail's channel blocks gathered (`state`); an attention
+    layer, an MLP and a d_ff-parallel MoE one sum each; the logits' [B,
+    V/n] fp32 gathered."""
+    w = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    d = cfg.d_model
+    row = slots * d * w
+    act, state = row, 0
+    if cfg.family == "ssm":
+        h, hd = d // cfg.rwkv.head_dim, cfg.rwkv.head_dim
+        act += cfg.num_layers * (slots * d // n * 4 + 2 * row)
+        state += cfg.num_layers * slots * h // n * hd * hd * 4
+    else:
+        di, ns = cfg.ssm.expand * d, cfg.ssm.d_state
+        dbl = slots * (math.ceil(d / 16) + 2 * ns) * w
+        for i in range(cfg.num_layers):
+            if i % cfg.attn_every == cfg.attn_every // 2:
+                act += row
+            else:
+                act += slots * 2 * di * w + dbl + row
+                state += slots * di // n * ns * 4 + \
+                    slots * (cfg.ssm.d_conv - 1) * di // n * w
+            act += row                                   # the FFN
+    return {"act": act, "state": state,
+            "logits": slots * cfg.vocab_size // n * 4}
+
+
+def prepare_recurrent_mesh(results: dict) -> dict:
+    """Phase 33, before the world is spawned: the one-process train and
+    serve runs on the card (freed before the ranks start), the ranks' jobs,
+    and the serve launcher's rwkv `--mesh-model 2` started beside them."""
+    import itertools
+    from repro_torch.data import lm_batches
+    t0 = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", *RMESH_CLI],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(SRC)},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    at = dict(device=MESH_DEVICE)
+    jobs, ref = [], {}
+    for name, cfg in recurrent_cuts().items():
+        k = RMESH_RWKV_K if cfg.family == "ssm" else 1
+        tc = _mesh_tc(cfg, *RMESH_BATCH, RMESH_STEPS, "sgd", RMESH_LR, k)
+        batches = list(itertools.islice(lm_batches(
+            *RMESH_BATCH, cfg.vocab_size, seed=0), RMESH_STEPS))
+        ref[name] = {"tc": tc, "train": _single_rank(tc, RMESH, batches)}
+        # jamba's selected blocks come back as column sums: the whole
+        # blocks of a rank are ~1 GB
+        blocks = "blocks" if cfg.family == "ssm" else "block_sums"
+        ref[name]["blocks_key"] = blocks
+        jobs.append(dict(name=f"rtrain-{name}", cfg=cfg, mesh=RMESH, tc=tc,
+                         steps=RMESH_STEPS, params=None, sel_idx=None,
+                         batches=batches, rules="train",
+                         returns=("sel_idx", blocks, "unselected", "frozen"),
+                         **at))
+        arch = "rwkv6-3b" if cfg.family == "ssm" else "jamba-1.5-large-398b"
+        argv = ["--arch", arch] + RMESH_ARGV
+        ref[name]["serve"], _ = _one_process(argv, cfg, repeat=2)
+        jobs.append(dict(name=f"rserve-{name}", cfg=cfg, n=RMESH[1],
+                         argv=argv, repeat=2, decode_bytes=True, **at))
+    print(f"[recurrent mesh] the parent before the spawn: "
+          f"{torch.cuda.memory_allocated()} B allocated", flush=True)
+    return {"jobs": jobs, "ref": ref, "cli": cli,
+            "prep_s": time.perf_counter() - t0}
+
+
+def _same_tree(a, b) -> bool:
+    """Two trees of arrays (or None) equal leaf for leaf."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return isinstance(a, dict) and isinstance(b, dict) \
+            and set(a) == set(b) and all(_same_tree(a[k], b[k]) for k in a)
+    if a is None or b is None:
+        return a is None and b is None
+    return bool(torch.equal(torch.as_tensor(a), torch.as_tensor(b)))
+
+
+def _rmesh_train(name: str, ref: dict, ranks: list, results: dict) -> None:
+    """Phase 33a's checks of one config's ranks against its one-process
+    run."""
+    from repro_torch.core.selection import local_selection
+    tc, one = ref["tc"], ref["train"]
+    cfg, plan = tc.model, one["plan"]
+    check(len(ranks) == RMESH[1], f"recurrent mesh (a) {name}: "
+          f"{len(ranks)} ranks")
+    want_bytes = rmesh_train_bytes(cfg, plan, *RMESH_BATCH, RMESH[1])
+    bound = MESH_BLOCKS_F32 * (tc.sparse.channel_block
+                               if ref["blocks_key"] == "block_sums" else 1)
+    totals = {}
+    for r in ranks:
+        m = r["coords"]["model"]
+        losses = [s["loss"] for s in r["steps"]]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(losses, one["losses"]))
+        want_sel = local_selection(plan, one["sel"], m)
+        same_sel = set(r["sel_idx"]) == set(want_sel) and all(
+            _same_tree(r["sel_idx"][seg], want_sel[seg]) for seg in want_sel)
+        big, urel = _mesh_blocks_diff(one, r, tc, RMESH, ref["blocks_key"])
+        launches = [{k: s["launches"][k] for k in RMESH_KERNELS}
+                    for s in r["steps"]]
+        want_l = [{k: c[k] for k in RMESH_KERNELS} for c in one["launches"]]
+        print(f"[recurrent mesh a] {name} ({cfg.num_layers} layers, f32, "
+              f"K = {plan.seg_trainable['blocks']}), mesh {RMESH}, rank {m}"
+              f": losses {losses} (one process {one['losses']}; largest "
+              f"relative difference {rel:.3e}, bound {MESH_LOSS_F32}); "
+              f"selection its shard of the one process's {same_sel}; "
+              f"selected blocks' largest |difference| ({ref['blocks_key']})"
+              f" {big:.3e} (bound {bound:.1e}), relative to the update "
+              f"{urel:.3e}; unselected unchanged {r['unselected_unchanged']}"
+              f", frozen unchanged {r['frozen_unchanged']}; launches a step "
+              f"{launches} (one process {want_l}); bytes a step "
+              f"{[s['bytes'] for s in r['steps']]} (predicted {want_bytes})"
+              f"; step_ms {[round(s['step_ms'], 1) for s in r['steps']]}; "
+              f"set-up {r['setup_s']:.1f} s", flush=True)
+        check(rel <= MESH_LOSS_F32, f"recurrent mesh (a) {name} rank {m}: "
+              f"losses {losses} against {one['losses']}")
+        check(same_sel, f"recurrent mesh (a) {name} rank {m}: the selection "
+              f"is not the one process's shard")
+        check(big <= bound, f"recurrent mesh (a) {name} rank {m}: selected "
+              f"blocks differ by {big}")
+        check(r["unselected_unchanged"] and r["frozen_unchanged"],
+              f"recurrent mesh (a) {name} rank {m}: an unselected or frozen "
+              f"block changed")
+        check(launches == want_l and all(
+            sum(c.values()) > 0 for c in launches),
+              f"recurrent mesh (a) {name} rank {m}: launches {launches}, "
+              f"one process {want_l}")
+        check(all(s["bytes"] == want_bytes for s in r["steps"]),
+              f"recurrent mesh (a) {name} rank {m}: bytes "
+              f"{[s['bytes'] for s in r['steps']]}, predicted {want_bytes}")
+        for s in r["steps"]:
+            for k, c in s["launches"].items():
+                totals[k] = totals.get(k, 0) + c
+    _add_launches(results, totals)
+
+
+def _rmesh_serve(name: str, ref: dict, ranks: list, results: dict) -> None:
+    """Phase 33b's checks of one config's serving ranks against its
+    one-process engine."""
+    cfg = ref["tc"].model
+    runs = ref["serve"]
+    check(len(ranks) == RMESH[1], f"recurrent mesh (b) {name}: "
+          f"{len(ranks)} ranks")
+    want_bytes = rmesh_decode_bytes(cfg, 4, RMESH[1])
+    for r in ranks:
+        m = r["coords"]["model"]
+        for i, (got, want) in enumerate(zip(r["runs"], runs)):
+            acct = {k: got["account"][k] for k in RMESH_ACCOUNT}
+            wacct = {k: getattr(want, k) for k in RMESH_ACCOUNT}
+            same = got["tokens"] == _toks(want)
+            steps = got["account"]["prefill_chunks"] + got["decode_steps"]
+            wkv = got["launches"]["wkv6"]
+            print(f"[recurrent mesh b] {name} ({cfg.num_layers} layers, f32"
+                  f"), (1, {RMESH[1]}), rank {m}, run {i + 1}: tokens equal "
+                  f"the one process's {same}; {acct} (one process {wacct})"
+                  f"; wkv6 launches {wkv} ({cfg.num_layers} layers x "
+                  f"({got['account']['prefill_chunks']} prefill chunks + "
+                  f"{got['decode_steps']} decode steps) for rwkv); "
+                  f"launches {got['launches']}; the run's bytes "
+                  f"{got['bytes']}; {got['wall_s']:.2f} s", flush=True)
+            check(same and acct == wacct, f"recurrent mesh (b) {name} rank "
+                  f"{m} run {i + 1}: tokens or accounting differ")
+            if cfg.family == "ssm":
+                check(wkv == cfg.num_layers * steps
+                      and sum(got["launches"].values()) == wkv,
+                      f"recurrent mesh (b) {name} rank {m}: launches "
+                      f"{got['launches']}, want wkv6 {cfg.num_layers} x "
+                      f"{steps}")
+            _add_launches(results, got["launches"])
+        got = {k: r["decode_bytes"].get(k) for k in want_bytes}
+        print(f"[recurrent mesh b] {name} rank {m}: a decode step's bytes "
+              f"by kind over 4 slots {r['decode_bytes']} (predicted "
+              f"{want_bytes}); max_memory_allocated "
+              f"{r.get('max_memory_allocated')}", flush=True)
+        check(got == want_bytes, f"recurrent mesh (b) {name}: decode "
+              f"bytes {r['decode_bytes']}, predicted {want_bytes}")
+        check(runs[1].snapshot_hits > 0, f"recurrent mesh (b) {name}: no "
+              f"snapshot hit")
+
+
+def phase_recurrent_mesh(results: dict, prep: dict, served: dict):
+    """Phase 33's checks on the ranks' results (see the comment above
+    RMESH)."""
+    t0 = time.perf_counter()
+    print(f"[recurrent mesh] ranks share cuda:0 over gloo (one card: no "
+          f"time here is a speed figure for tensor parallelism); "
+          f"{card_line()}", flush=True)
+    for name, ref in prep["ref"].items():
+        _rmesh_train(name, ref, served[f"rtrain-{name}"], results)
+        _rmesh_serve(name, ref, served[f"rserve-{name}"], results)
+    # (c)
+    cli = prep["cli"]
+    try:
+        out, _ = cli.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        cli.kill()
+        out, _ = cli.communicate()
+    line = next((ln for ln in out.splitlines()
+                 if ln.startswith("[serve] mesh:")), None)
+    print(f"[recurrent mesh c] python -m repro_torch.launch.serve "
+          f"{' '.join(RMESH_CLI)}: rc {cli.returncode}, {line}", flush=True)
+    check(cli.returncode == 0 and line is not None
+          and line.startswith("[serve] mesh: 2 model-axis shards"),
+          f"serve launcher rwkv --mesh-model 2: rc {cli.returncode}, output "
+          f"tail {out[-2000:]}")
+    job_s = {name: (round(rs[0].get("setup_s", 0.0), 1),
+                    round(sum(s["step_ms"] for s in rs[0].get("steps", ()))
+                          / 1e3 + sum(r["wall_s"] for r in
+                                      rs[0].get("runs", ())), 1))
+             for name, rs in served.items()
+             if name.startswith(("rtrain-", "rserve-")) and rs}
+    print(f"[recurrent mesh] phase 33: one-process runs and jobs "
+          f"{prep['prep_s']:.1f} s, the ranks' jobs (set-up s, steps' or "
+          f"runs' s; rank 0) {job_s}, checks {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+
+
 def kernels_line(results: dict) -> dict:
     """The kernels' JSON line. Times: block_sparse_dw summed over the 7 leaf
     shapes of one trainable LM layer, fused_block_opt over the 7 leaves of
@@ -5728,7 +6056,9 @@ def kernels_line(results: dict) -> dict:
     nemotron, command-r, llama4-scout, musicgen-medium and qwen2-vl-7b
     runs' (6 steps each; the scout's batched_dw too), and the mesh run's
     over its 4 ranks (phase 31b, 6 steps; block_sparse_dw,
-    fused_block_opt)."""
+    fused_block_opt), and phase 33's over its 2 ranks (the rwkv and jamba
+    cuts' 2 steps each: block_sparse_dw, batched_dw, fused_block_opt,
+    wkv6, wkv6_bwd; rwkv's two serving runs: wkv6)."""
     dtypes = {"block_sparse_dw": "bfloat16", "batched_dw": "bfloat16"}
     rows = []
     for name, (route, source, replaces, _) in SOURCES.items():
@@ -5905,12 +6235,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     prep = prepare_serve_mesh(results)
-    served = phase_mesh(results, main_losses, prep["jobs"])
+    rprep = prepare_recurrent_mesh(results)
+    served = phase_mesh(results, main_losses, prep["jobs"] + rprep["jobs"])
     print(f"[chip_smoke] phase_mesh done at {time.perf_counter() - t0:.0f}"
           f" s", flush=True)
     phase_serve_mesh(results, prep, served)
-    del prep, served
     print(f"[chip_smoke] phase_serve_mesh done at "
+          f"{time.perf_counter() - t0:.0f} s", flush=True)
+    phase_recurrent_mesh(results, rprep, served)
+    del prep, rprep, served
+    print(f"[chip_smoke] phase_recurrent_mesh done at "
           f"{time.perf_counter() - t0:.0f} s", flush=True)
     print(f"[chip_smoke] all phases passed in {time.perf_counter() - t0:.0f} s",
           flush=True)

@@ -33,7 +33,6 @@ A job is a dict:
               compared bitwise without moving them), "unselected" (check
               their other blocks unchanged: for a run whose selection
               stays fixed)
-    expect_raise  a NotImplementedError is the job's result: its message
     kind      "train" (the default), or "collectives": `collective_probe`
               on the job's mesh (only `mesh` is read)
 
@@ -101,31 +100,44 @@ def run_job(job: dict):
             out.update(collective_probe())
         return out
     with SH.use_rules(job_rules(job, mesh)) as rules:
-        try:
-            _train(job, rules, mesh, device, out)
-        except NotImplementedError as e:
-            if not job.get("expect_raise"):
-                raise
-            out["raised"] = str(e)
+        _train(job, rules, mesh, device, out)
     return out
 
 
 def collective_probe() -> dict:
     """The model-group collectives and their backward passes on small
     tensors, x = (model index + 1) * [1, 2, 3] on every rank: forward
-    values and the gradients of sum(out * w) for fixed weights w."""
+    values and the gradients of sum(out * w) for fixed weights w ("bytes":
+    the first three's). The local-use forms are read as ranks that use
+    their result differently: rank m's loss is (m + 1) * sum(out * w), so
+    the gradient each rank must get is the sum of the ranks' partial ones,
+    n (n + 1) / 2 * w, where the plain forms give (m + 1) * w
+    ("bytes_local": theirs)."""
     m = SH.model_index()
     w = torch.tensor([1.0, 10.0, 100.0])
     out = {}
+
+    def x0():
+        return ((m + 1) * torch.tensor([1.0, 2.0, 3.0])).requires_grad_(True)
     SH.reset_collective_bytes()
     for name, fn in (("copy", SH.copy_to_model), ("psum", SH.psum_mapped),
                      ("gather", lambda t: SH.all_gather_mapped(t, 0))):
-        x = ((m + 1) * torch.tensor([1.0, 2.0, 3.0])).requires_grad_(True)
+        x = x0()
         y = fn(x)
         ww = w.repeat(y.numel() // w.numel())
         (g,) = torch.autograd.grad((y * ww).sum(), [x])
         out[name] = (y.detach().tolist(), g.tolist())
     out["bytes"] = SH.collective_bytes()
+    SH.reset_collective_bytes()
+    for name, fn in (("gather_local",
+                      lambda t: SH.all_gather_local_use(t, 0)),
+                     ("psum_local", SH.psum_local_use)):
+        x = x0()
+        y = fn(x)
+        ww = w.repeat(y.numel() // w.numel())
+        (g,) = torch.autograd.grad((y * ww).sum() * (m + 1), [x])
+        out[name] = (y.detach().tolist(), g.tolist())
+    out["bytes_local"] = SH.collective_bytes()
     return out
 
 

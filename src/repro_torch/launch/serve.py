@@ -37,9 +37,9 @@ Sharded serving: `--mesh-model N` spawns N ranks (`launch.mesh.spawn`,
 sharing one device (`--backend gloo`, the default: the CPU, or cuda:0), or
 `--backend nccl` with a card each. Every rank draws the seed's params,
 keeps its shards and serves the same requests; rank 0 prints the report
-and a `[serve] mesh:` line. The mamba / rwkv archs are refused on a mesh
-(ROADMAP item 14c), and so are the fault, watchdog, timeout and journal
-flags (item 14d).
+and a `[serve] mesh:` line. Every arch serves so (rwkv's time mix by
+head block, mamba by d_inner: `models.decoding`); the fault, watchdog,
+timeout and journal flags are refused on a mesh (ROADMAP item 14d).
 """
 from __future__ import annotations
 

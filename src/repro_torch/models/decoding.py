@@ -325,8 +325,12 @@ def write_pool_rows(pools, rows, dst_row: int):
 # parallel site applies the selected blocks the rank owns, a row-parallel
 # one its d_in rows before the all-reduce (`models.common`).
 #
-# The mamba / rwkv mixers (head-sharded time mix, d_inner-sharded scan) are
-# ROADMAP queue A item 14c: their archs are refused on a mesh.
+# The recurrent mixers, as the reference's: rwkv's time mix by head block
+# (the cached state sliced to the rank's heads, y all-gathered for ln_x,
+# wo row-parallel; `models.rwkv6`), its channel mix by d_ff, and mamba by
+# d_inner (in_proj row-parallel on d_model, the scan on the rank's
+# channels; `models.mamba`). Their per-slot state stays whole: each layer
+# all-gathers its new state back (kind `state`), as the ring layers do.
 # ---------------------------------------------------------------------------
 
 def _mesh_size(rules) -> int:
@@ -356,15 +360,6 @@ def validate_pool_sharding(cfg, rules) -> int:
             f"num_heads={cfg.num_heads} is not divisible by the "
             f"model-axis size {n}")
     return n
-
-
-def refuse_state_mixers(cfg, n: int) -> None:
-    """Raise for an arch with mamba or rwkv mixers on a mesh of n > 1."""
-    if n > 1 and any(role == "state" for seg in T.segment_layout(cfg)
-                     for _, role in _paged_layout(cfg, seg.kind)):
-        raise NotImplementedError(
-            f"{cfg.name} on a {n}-way serve mesh: the mamba / rwkv mixers "
-            f"on a mesh are ROADMAP queue A item 14c (not ported yet)")
 
 
 def pool_pspec(rules) -> tuple:
@@ -516,7 +511,7 @@ def make_sharded_paged_step(cfg, rules, *, page_size: int,
     (`init_serve_cache(..., pool_shards=n)`), everything else whole. Runs
     under `rules` (a `launch.mesh` process mesh's) and the mapped model
     axis, with no autograd."""
-    refuse_state_mixers(cfg, validate_pool_sharding(cfg, rules))
+    validate_pool_sharding(cfg, rules)
     axis = rules.model_axis
 
     def step(p, batch, state, pools, pt, deltas=None):

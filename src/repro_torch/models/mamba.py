@@ -33,7 +33,25 @@ chunk convolves [conv tail ++ chunk], scans from h, and keeps the last
 d_conv - 1 valid inputs as the new tail. With per-row valid lengths
 (`length`, padded prefill chunks) dt is forced to 0 on the padded steps, an
 identity transition, so the cache comes back as after the valid prefix.
-On a mesh it raises: the channel-sharded form is ROADMAP item 14c.
+
+On a rank of a process mesh (`sharding`) d_inner is sharded over the model
+axis: the conv, `dt_proj` (column), `A_log`, `D`, `dt_bias` and the scan
+run on the rank's channel block, `x_proj` is row-parallel (one all-reduce
+of the small [dt | B | C]) and so is `out_proj` (one all-reduce into
+d_model). `in_proj` packs the x and z halves on one output axis, and its
+two mesh forms are the reference's:
+- training (`models.specs`): column-split contiguously over [x | z] (the
+  selection plan's shards are those columns). The input enters through
+  `copy_to_model`, each rank's [B, S, 2 d_inner / n] is all-gathered and
+  the rank reads its d_inner block of x and of z, so the gather's and the
+  `x_proj` sum's gradients are partial on every rank and are summed over
+  the model group (`all_gather_local_use`, `psum_local_use`);
+- serving (`decoding.paged_param_specs`, forward only): row-parallel on
+  d_model, one all-reduce of the full [B, S, 2 d_inner]; the cached h and
+  conv tail are sliced to the rank's channels and all-gathered back whole
+  (kind `state`).
+Where the widths do not divide, the weights arrive whole and the path is
+the one-device one.
 """
 from __future__ import annotations
 
@@ -48,9 +66,6 @@ from repro_torch.core.sparse_update import smm
 from repro_torch.models.common import dense_init
 
 CHUNK = 64
-
-_MESH = ("mamba on a mesh (the channel-sharded scan): ROADMAP queue A item "
-         "14c (not ported yet)")
 
 
 def dt_rank(cfg) -> int:
@@ -180,19 +195,49 @@ def _selective_scan_meta(a, dt, xc, b_ssm, c, h0, q: int):
     return y.reshape(b, s, d), h_last
 
 
+def _mesh_in_proj(p, cfg, x, sel, cache):
+    """`in_proj` on a rank whose d_inner is a shard -> (x_in, z, cache),
+    each the rank's channel block (see the module doc)."""
+    di = d_inner(cfg)
+    di_loc = p["out_proj"].shape[-2]
+    SH.require_model_group("mamba's d_inner block")
+    shard = SH.model_index()
+    if p["in_proj"].shape[-1] != 2 * di:
+        # training: the rank's columns of [x | z], gathered; each rank
+        # reads its own blocks of both halves
+        xz = smm(SH.copy_to_model(x), p["in_proj"], sel, "in_proj")
+        xz = SH.all_gather_local_use(xz, xz.dim() - 1)
+    else:
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "mamba's row-parallel in_proj is a serving form (no "
+                "backward): training splits its columns (models.specs)")
+        d_loc = p["in_proj"].shape[-2]
+        xz = SH.psum_mapped(smm(x[..., shard * d_loc:(shard + 1) * d_loc],
+                                p["in_proj"], sel, "in_proj"))
+    lo = shard * di_loc
+    x_in, z = xz[..., lo:lo + di_loc], xz[..., di + lo:di + lo + di_loc]
+    if cache is not None:
+        cache = {"h": cache["h"][:, lo:lo + di_loc],
+                 "conv": cache["conv"][..., lo:lo + di_loc]}
+    return x_in, z, cache
+
+
 def apply_mamba(p, cfg, x, sel=None, cache=None, length=None):
     """x: [B, S, d] -> (out [B, S, d], new cache or None), from a zero
     state or, serving, from `cache`; length [B] (chunk form, None = all s):
-    valid tokens per row."""
+    valid tokens per row. An `out_proj` of fewer than d_inner rows is the
+    rank's channel block of a mesh."""
     b, s, _ = x.shape
-    di = d_inner(cfg)
     ns = cfg.ssm.d_state
     dr = dt_rank(cfg)
-    if p["out_proj"].shape[-2] != di or SH.process_mesh() is not None:
-        raise NotImplementedError(_MESH)
-
-    xz = smm(x, p["in_proj"], sel, "in_proj")
-    x_in, z = torch.chunk(xz, 2, dim=-1)
+    local = p["out_proj"].shape[-2] != d_inner(cfg)
+    if local:
+        x_in, z, cache = _mesh_in_proj(p, cfg, x, sel, cache)
+    else:
+        xz = smm(x, p["in_proj"], sel, "in_proj")
+        x_in, z = torch.chunk(xz, 2, dim=-1)
+    di = x_in.shape[-1]
     new_conv = None
     if cache is None:
         x_c = F.silu(_causal_depthwise_conv(x_in, p["conv_w"], p["conv_b"]))
@@ -220,6 +265,8 @@ def apply_mamba(p, cfg, x, sel=None, cache=None, length=None):
                 hist, 1, tail[:, :, None].expand(b, n_hist, hist.shape[2]))
 
     dbl = smm(x_c, p["x_proj"], sel, "x_proj")
+    if local:
+        dbl = SH.psum_local_use(dbl)
     dt, b_ssm, c_ssm = torch.split(dbl, [dr, ns, ns], dim=-1)
     dt = softplus(torch.matmul(dt.float(), p["dt_proj"].float())
                   + p["dt_bias"])                         # [B,S,D] fp32
@@ -243,8 +290,15 @@ def apply_mamba(p, cfg, x, sel=None, cache=None, length=None):
     y = y + p["D"] * xc32
     y = y.to(x.dtype) * F.silu(z)
     out = smm(y, p["out_proj"], sel, "out_proj")
+    if local:
+        out = SH.psum_mapped(out)
     if cache is None:
         return out, None
+    if local:
+        # the state leaves the step whole: the channel blocks in rank order
+        h_last = SH.all_gather_mapped(h_last, 1, "state")
+        new_conv = SH.all_gather_mapped(new_conv, new_conv.dim() - 1,
+                                        "state")
     return out, {"h": h_last, "conv": new_conv}
 
 

@@ -23,8 +23,24 @@ last valid position, so the cache comes back as after the valid prefix.
 
 As in the reference, the five token-shift interpolations use per-channel
 learned mu (RWKV-5 style lerp); the decay keeps its full data-dependent
-low-rank path. On a mesh it raises: the head-sharded form is ROADMAP
-item 14c.
+low-rank path.
+
+On a rank of a process mesh (`sharding`), as the reference shards it:
+- training (`models.specs`): the time-mix matrices arrive whole, so the
+  time mix runs replicated, the WKV kernel over every head on every rank,
+  with no collective. The channel mix runs tensor-parallel on d_ff: `wk`
+  column-parallel (only its input `xk` enters through `copy_to_model`:
+  the whole `wr` path's input gradient is the same on every rank), `wv`
+  row-parallel with one all-reduce, `wr` whole.
+- serving (`decoding.paged_param_specs`, forward only): the time mix is
+  head-sharded where the head count divides the mesh. r, k, v and g are
+  the rank's head block (with w0, wB and u sliced alike), the cached state
+  is sliced to those heads and the WKV state form runs on H/n heads; y is
+  all-gathered for `ln_x` over the full d, `wo` takes the rank's g slice
+  row-parallel with one all-reduce, and the new state is all-gathered back
+  whole (kind `state`), so snapshots and the spill tier see one layout.
+  Where the heads do not divide, the matrices arrive whole and the path is
+  the one-device one.
 """
 from __future__ import annotations
 
@@ -38,9 +54,6 @@ from repro_torch.models.common import dense_init, last_valid, row_matmul
 from repro_torch.models.layers import apply_norm, init_norm
 
 DECAY_LORA = 64
-
-_MESH = ("rwkv on a mesh (the head-sharded time mix): ROADMAP queue A item "
-         "14c (not ported yet)")
 
 
 def num_heads(cfg) -> int:
@@ -112,11 +125,19 @@ def wkv(r, k, v, w, u, s0=None):
 def apply_time_mix(p, cfg, x, sel=None, cache=None, length=None):
     """x: [B, S, d] -> (out [B, S, d], new cache or None). cache (serving):
     {"s": [B, H, D, D] fp32, "last": [B, d]}; length [B] (None = all s):
-    valid tokens per row."""
+    valid tokens per row. Matrices narrower than d are the rank's head
+    block (serving on a mesh; forward only)."""
     b, s, d = x.shape
     hd = cfg.rwkv.head_dim
-    if p["wr"].shape[-1] != d or SH.process_mesh() is not None:
-        raise NotImplementedError(_MESH)
+    d_loc = p["wr"].shape[-1]
+    local = d_loc != d
+    if local:
+        SH.require_model_group("the time mix's head block")
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                "the head-sharded time mix is a serving form (no backward):"
+                " training keeps the time mix whole (models.specs)")
+        shard = SH.model_index()
 
     xp = _shift(x, None if cache is None else cache["last"])
     mu = p["mu"].to(x.dtype)
@@ -127,7 +148,8 @@ def apply_time_mix(p, cfg, x, sel=None, cache=None, length=None):
     v = smm(xv, p["wv"], sel, "wv").reshape(b, s, -1, hd)
     g = smm(xg, p["wg"], sel, "wg")
 
-    # the decay lora in fp32, as the reference
+    # the decay lora in fp32, as the reference (wA whole, w0 / wB the
+    # rank's head block)
     wlog = p["w0"] + torch.matmul(torch.tanh(torch.matmul(xw.float(),
                                                           p["wA"])), p["wB"])
     w = torch.exp(-torch.exp(wlog)).reshape(b, s, -1, hd)    # in (0, 1)
@@ -142,11 +164,21 @@ def apply_time_mix(p, cfg, x, sel=None, cache=None, length=None):
     if cache is None:
         y = wkv(r.float(), k32, v.float(), w, p["u"])
     else:
-        y, s_new = wkv(r.float(), k32, v.float(), w, p["u"], cache["s"])
-    # ln_x normalizes over the full d
+        s0 = cache["s"]
+        if local:
+            h_loc = r.shape[2]
+            s0 = s0[:, shard * h_loc:(shard + 1) * h_loc]
+        y, s_new = wkv(r.float(), k32, v.float(), w, p["u"], s0)
+    if local:
+        # ln_x normalizes over the full d: the head blocks in rank order
+        y = SH.all_gather_mapped(y, 2)
+        if cache is not None:
+            s_new = SH.all_gather_mapped(s_new, 1, "state")
     y = apply_norm(p["ln_x"], y.reshape(b, s, d).to(x.dtype))
-    y = y * F.silu(g)
-    out = smm(y, p["wo"], sel, "wo")
+    if local:
+        # the gate on the rank's g slice, wo row-parallel: one all-reduce
+        y = y[..., shard * d_loc:(shard + 1) * d_loc]
+    out = row_matmul(y * F.silu(g), p["wo"], sel, "wo", full_in=d)
     if cache is None:
         return out, None
     return out, {"s": s_new, "last": last_valid(x, length)}
@@ -154,14 +186,19 @@ def apply_time_mix(p, cfg, x, sel=None, cache=None, length=None):
 
 def apply_channel_mix(p, cfg, x, sel=None, cache=None, length=None):
     """x: [B, S, d] -> (out [B, S, d], new cache or None). cache (serving):
-    {"last": [B, d]}, taken back at each row's last valid position."""
+    {"last": [B, d]}, taken back at each row's last valid position. `wk`
+    narrower than d_ff is the rank's d_ff shard: `wk` column-, `wv`
+    row-parallel, `wr` whole."""
     xp = _shift(x, None if cache is None else cache["last"])
     mu = p["mu"].to(x.dtype)
     xk = x + (xp - x) * mu[0]
     xr = x + (xp - x) * mu[1]
+    if p["wk"].shape[-1] != cfg.d_ff:
+        SH.require_model_group("the channel mix's wk")
+        xk = SH.copy_to_model(xk)
     k = torch.relu(smm(xk, p["wk"], sel, "wk"))
     k = k * k
-    kv = row_matmul(k, p["wv"], sel, "wv")
+    kv = row_matmul(k, p["wv"], sel, "wv", full_in=cfg.d_ff)
     out = torch.sigmoid(smm(xr, p["wr"], sel, "wr")) * kv
     if cache is None:
         return out, None

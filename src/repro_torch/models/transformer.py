@@ -25,8 +25,10 @@ non-reentrant) when `remat` is on, as the reference's `jax.checkpoint`.
 On a rank of a process mesh (`sharding.use_rules` with a `launch.mesh`
 mesh, `mapped_model_axis`), the params are the rank's shards
 (`init_params(..., rules=)`, or `launch.specs.shard_local`): attention,
-the MLPs and the experts run tensor- / expert-parallel (layers, moe), the
-token table and the LM head vocab-parallel (`vocab_parallel_gather`,
+the MLPs and the experts run tensor- / expert-parallel (layers, moe),
+rwkv's channel mix on d_ff and mamba on d_inner (rwkv's time mix stays
+whole: rwkv6, mamba), the token table and the LM head vocab-parallel
+(`vocab_parallel_gather`,
 `_ce_chunk_vocab_parallel`), and the batch is the rank's data shard. The
 loss then divides by the GLOBAL token count, so the data ranks' losses and
 gradients sum to the single-device ones (the train step all-reduces them).

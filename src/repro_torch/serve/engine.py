@@ -97,7 +97,7 @@ delta values every wave: 436 MB at llama3-8b's widths). What reads
 wall time (fault injection and its retry backoff, the watchdog, request
 timeouts) would let the ranks' decisions part, and the journal would be
 written by every rank: those options are refused on a mesh (ROADMAP
-queue A item 14d). The mamba / rwkv mixers on a mesh are item 14c.
+queue A item 14d).
 
 Embedding-input archs (musicgen, qwen2-vl): a request carries its prompt
 as `embeds` [prompt_len, d_model], and each decode step feeds every slot a
@@ -302,7 +302,6 @@ class ServeEngine:
                     f"a model axis (got mesh={getattr(rules, 'mesh', None)!r}"
                     f", model_axis={getattr(rules, 'model_axis', None)!r})")
             self.mesh_shards = D.validate_pool_sharding(cfg, rules)
-            D.refuse_state_mixers(cfg, self.mesh_shards)
             if self.mesh_shards > 1:
                 for name, given in (("chaos", chaos is not None),
                                     ("watchdog_s", watchdog_s is not None),

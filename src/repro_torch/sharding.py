@@ -33,7 +33,14 @@ groups, each with its stated backward (Megatron's f and g):
   row-parallel product (or any rank-local partial sum): every rank then
   holds the same sum, and each rank's partial takes the sum's gradient.
 - `all_gather_mapped`: tiled all-gather forward, the rank's slice of the
-  gradient backward.
+  gradient backward. Right where every rank uses the gathered tensor
+  alike (the vocab-parallel logits).
+- `all_gather_local_use` / `psum_local_use`: the same forwards, for a
+  tensor each rank then reads its own part of (mamba's column-split
+  `in_proj` output, its row-parallel `x_proj` sum feeding the rank's
+  channels): every rank's gradient is partial, so the backward sums it
+  over the model group first (then the gather takes the rank's slice).
+  Each is `copy_to_model` composed over the plain collective.
 
 Every all-reduce adds its payload bytes to `COLLECTIVE_BYTES` under a kind
 (`collective_bytes()`), so a run can print what each step moved.
@@ -343,6 +350,22 @@ def all_gather_mapped(x, axis: int, kind: str = "act"):
     group = model_group()
     return x if group is None else _GatherFromGroup.apply(x, group, axis,
                                                           kind)
+
+
+def all_gather_local_use(x, axis: int, kind: str = "act"):
+    """`all_gather_mapped` for a gathered tensor that each rank reads a
+    different part of: the backward all-reduces the gradient over the
+    mapped model group, then takes the rank's slice (a reduce-scatter).
+    The identity off a mesh."""
+    return copy_to_model(all_gather_mapped(x, axis, kind), kind)
+
+
+def psum_local_use(x, kind: str = "act"):
+    """`psum_mapped` for a sum that each rank reads a different part of:
+    the backward all-reduces the gradient over the mapped model group, so
+    every rank's partial takes the whole sum's gradient. The identity off
+    a mesh."""
+    return copy_to_model(psum_mapped(x, kind), kind)
 
 
 def pmax_mapped_(x, kind: str = "ce"):

@@ -203,7 +203,8 @@ def test_serving_forms_refuse():
     a chunk of 16 from a nonzero state with per-row valid lengths (one row
     padded: its dt forced to 0, its conv tail gathered at its valid end),
     then a one-token step from that cache; outputs and both cache leaves
-    (h fp32, conv). The channel-sharded form still refuses (item 14)."""
+    (h fp32, conv). A channel block (an out_proj of fewer rows) off a
+    process mesh refuses: its collectives would be skipped."""
     cfg, pcfg, p = _params(seed=2)
     tp = {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
     di, k1 = JM.d_inner(cfg), cfg.ssm.d_conv - 1
@@ -231,5 +232,5 @@ def test_serving_forms_refuse():
         np.testing.assert_allclose(pc[key].numpy(), np.asarray(jc[key]),
                                    err_msg=key, **FWD)
     narrow = dict(tp, out_proj=tp["out_proj"][:16])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="arrived sharded"):
         PM.apply_mamba(narrow, pcfg, torch.zeros((1, 4, pcfg.d_model)))

@@ -118,8 +118,9 @@ def test_serving_forms_refuse_with_their_roadmap_item():
     """The serving forms against the reference's: each mix from a nonzero
     cache over a chunk of 16 with per-row valid lengths (one row padded:
     k = 0 and w = 1 on its padded steps, `last` at its valid end), then a
-    one-token step from that cache; outputs and every cache leaf. The
-    head-sharded time mix still refuses (item 14)."""
+    one-token step from that cache; outputs and every cache leaf. A head
+    block (narrower matrices) off a process mesh refuses: its collectives
+    would be skipped."""
     cfg, pcfg = jget(ARCH), get_smoke_config(ARCH)
     rng = np.random.default_rng(6)
     h, hd, d = JR.num_heads(cfg), cfg.rwkv.head_dim, cfg.d_model
@@ -154,7 +155,7 @@ def test_serving_forms_refuse_with_their_roadmap_item():
     layer = jax.tree.map(lambda t: t[0], PT.init_params(pcfg, 0, "cpu")[
         "segments"]["blocks"], is_leaf=lambda t: isinstance(t, torch.Tensor))
     narrow = dict(layer["time"], wr=layer["time"]["wr"][:, :16])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="arrived sharded"):
         PR.apply_time_mix(narrow, pcfg, torch.zeros(1, 4, pcfg.d_model))
 
 

@@ -6,16 +6,21 @@ One world of 4 gloo ranks is spawned for the module and runs every mesh
 case (`mesh_serve.run_jobs`; an n = 2 case uses the first 2 ranks); this
 process computes the reference meanwhile, once per workload, from the same
 params (the port's draw, as numpy). The cases, as the reference's own
-sharded test has them: llama3-8b (Hq 8, Hkv 4), gemma3-4b (ring + paged)
-and deepseek-moe-16b (d_ff-parallel experts with shared experts) smoke
+sharded test has them: llama3-8b (Hq 8, Hkv 4), gemma3-4b (ring + paged),
+rwkv6-3b (the time mix by head block, the channel mix by d_ff, the
+recurrent state sliced and gathered back), jamba (Hq 8, Hkv 4: mamba by
+d_inner beside a paged attention layer and d_ff-parallel experts) and
+deepseek-moe-16b (d_ff-parallel experts with shared experts) smoke
 configs at n = 2 and 4, each serving the shared-prefix workload twice on
-one engine (run 2 rehydrates its prefix pages from the spill tier onto the
-sharded pool), and the personalized mix (a repeat user whose train wave
+one engine (run 2 rehydrates its prefix pages or state snapshots from the
+spill tier), and the personalized mix (a repeat user whose train wave
 lands mid-run; the reference's per-user selection carried over). Tokens
-and page accounting are compared exactly, in f32; every sampled step's
-top-2 logit gap is probed and a gap under 1e-4 fails loudly. Also: the
-spec trees against the reference's under fake meshes, the rejection paths,
-the replication audit, the mamba / rwkv refusal (ROADMAP item 14c), a
+and page accounting are compared exactly, in f32 (the one-device serving
+tests' bound, `test_torch_serve_families`: greedy tokens equal); every
+sampled step's top-2 logit gap is probed and a gap under 1e-4 fails
+loudly. Also: the spec trees against the reference's under fake meshes,
+the rejection paths, the replication audit, rwkv with a head count the
+mesh does not divide (its time mix whole, its channel mix sharded), a
 spill tier persisted at one mesh width and restored at another, and a rank
 whose decisions part from the others' failing the run."""
 import concurrent.futures
@@ -64,18 +69,27 @@ PROMPT = 11      # 2 full pages + a 3-row partial: chunks cross boundaries
 GEN = 4
 MAXLEN = 16
 ENGINE = dict(num_slots=2, max_len=MAXLEN, page_size=PAGE, num_pages=16)
-ARCHS = ("llama3-8b", "gemma3-4b", "deepseek-moe-16b")
+ARCHS = ("llama3-8b", "gemma3-4b", "rwkv6-3b", "jamba-1.5-large-398b",
+         "deepseek-moe-16b")
 WIDTHS = (2, 4)
 GAP = 1e-4
 USER = 7
 
 
-def _cfgs(arch):
-    """(reference, port) smoke configs with 8 query and 4 kv heads, so a
-    4-way mesh splits them (the reference test's setting)."""
+def _cfgs(arch, **kw):
+    """(reference, port) smoke configs; an attention arch with 8 query and
+    4 kv heads, so a 4-way mesh splits them (the reference test's
+    setting). `kw` replaces more fields."""
     j, p = jget_smoke(arch), get_smoke_config(arch)
-    kw = dict(num_heads=8, num_kv_heads=4)
+    if p.num_heads:
+        kw = dict(num_heads=8, num_kv_heads=4, **kw)
     return dataclasses.replace(j, **kw), dataclasses.replace(p, **kw)
+
+
+# rwkv6 with 3 heads of 16: a 2-way mesh cannot split its time mix, so its
+# matrices stay whole (the one-device path) while the channel mix (d_ff
+# 128) and the vocabulary split
+ODD_RWKV = dict(d_model=48)
 
 
 def _params(pcfg):
@@ -161,10 +175,12 @@ class _World:
         self.jobs.append(dict(name="audit", kind="audit", cfg=acfg, n=2,
                               params=_params(acfg),
                               engine=dict(ENGINE, num_slots=2)))
-        for arch in ("rwkv6-3b", "jamba-1.5-large-398b"):
-            self.jobs.append(dict(name=arch, cfg=get_smoke_config(arch), n=2,
-                                  engine=ENGINE,
-                                  expect_raise=NotImplementedError))
+        self.cfgs["odd-rwkv"] = _cfgs("rwkv6-3b", **ODD_RWKV)
+        self.params["odd-rwkv"] = _params(self.cfgs["odd-rwkv"][1])
+        self.jobs.append(dict(name="odd-rwkv", cfg=self.cfgs["odd-rwkv"][1],
+                              n=2, params=self.params["odd-rwkv"],
+                              engine=ENGINE, gaps=True,
+                              runs=[_runs(self.cfgs["odd-rwkv"][1], 3, 3)]))
         # a spill tier persisted by 2 ranks, restored by one process, which
         # persists it again for 4 ranks
         persist = dict(ENGINE, prefix_persist=str(tmp / "tier"))
@@ -195,6 +211,9 @@ class _World:
             self.ref[arch + "/in_use"] = eng._pool.in_use
         jcfg = self.cfgs["llama3-8b"][0]
         self.ref["p13n"] = self._jp13n.run(_jruns(jcfg, 4, 5, True))
+        jcfg = self.cfgs["odd-rwkv"][0]
+        eng = JServeEngine(jcfg, _jparams(self.params["odd-rwkv"]), **ENGINE)
+        self.ref["odd-rwkv"] = eng.run(_jruns(jcfg, 3, 3))
 
     def results(self, name):
         i = next(i for i, j in enumerate(self.jobs) if j["name"] == name)
@@ -220,29 +239,33 @@ def world(tmp_path_factory):
 def test_sharded_engine_matches_reference(world, arch, n):
     """Both runs of the shared-prefix workload: every rank's tokens and
     page accounting equal the reference's single-device engine's, run 2
-    rehydrates onto the sharded pool, the radix tree keeps the reference's
-    resident pages, and each rank's pool holds 1/n of the pool's bytes."""
+    rehydrates onto the sharded pool (rwkv: its state snapshots), the
+    radix tree keeps the reference's resident pages, and each rank's pool
+    holds 1/n of the pool's bytes (rwkv has no pool)."""
     ranks = world.results(f"{arch}-{n}")
     assert len(ranks) == n
+    pcfg = world.cfgs[arch][1]
     pool_bytes = sum(
         a.numel() * a.element_size()
-        for seg in D.init_serve_cache(world.cfgs[arch][1], 2, MAXLEN, 16,
+        for seg in D.init_serve_cache(pcfg, 2, MAXLEN, 16,
                                       PAGE, device="meta")[1].values()
         for a in _leaves(seg))
+    assert (pool_bytes > 0) == D.has_paged_layers(pcfg)
     for r in ranks:
         assert r["min_gap"] > GAP, f"near tie: top-2 gap {r['min_gap']}"
         for got, want in zip(r["runs"], world.ref[arch]):
             assert got["tokens"] == _tokens(want)
             assert got["account"] == _account(want)
             assert got["mesh_shards"] == n
-            assert got["pool_shard_bytes"] * n == pool_bytes > 0
+            assert got["pool_shard_bytes"] * n == pool_bytes
         assert r["runs"][1]["account"]["rehydrates"] > 0
         assert r["runs"][-1]["in_use"] == world.ref[arch + "/in_use"]
     if arch == "llama3-8b":
         assert world.ref[arch][0].cow_splits > 0
-    if arch == "gemma3-4b":
+    if D.has_state_layers(pcfg):
         assert world.ref[arch][0].snapshot_hits > 0
-        # the ring layers' heads are gathered back whole every step
+        # the ring layers' heads and the recurrent layers' state are
+        # gathered back whole every step
         assert ranks[0]["runs"][0]["bytes"]["state"] > 0
 
 
@@ -281,13 +304,25 @@ def test_replication_audit(world):
         assert r["ref_hits"], "the audit missed a one-process step's products"
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
-def test_state_mixers_refused_on_a_mesh(world, arch):
-    ranks = world.results(arch)
+def test_rwkv_with_indivisible_heads_serves_its_time_mix_whole(world):
+    """rwkv6 with 3 heads on a 2-way mesh: the time-mix matrices stay
+    whole (the one-device path, no state gathered), the channel mix and
+    the vocabulary split; tokens and accounting equal the reference's
+    single-device engine's."""
+    jcfg, pcfg = world.cfgs["odd-rwkv"]
+    specs = D.paged_param_specs(pcfg, abstract_params(pcfg), _fake_rules(2))
+    layer = specs["segments"]["blocks"]
+    assert all(a is None for spec in _leaves(layer["time"]) for a in spec)
+    assert layer["chan"]["wk"] == (None, None, ("model",))
+    ranks = world.results("odd-rwkv")
     assert len(ranks) == 2
+    want = world.ref["odd-rwkv"]
     for r in ranks:
-        assert "NotImplementedError" in r["raised"]
-        assert "item 14c" in r["raised"]
+        assert r["min_gap"] > GAP, f"near tie: top-2 gap {r['min_gap']}"
+        got = r["runs"][0]
+        assert got["tokens"] == _tokens(want)
+        assert got["account"] == _account(want)
+        assert "state" not in got["bytes"] and got["bytes"]["act"] > 0
 
 
 def test_spill_tier_restores_across_mesh_widths(world):
@@ -403,9 +438,10 @@ def test_pool_sharding_rejects_indivisible_heads():
     assert D.validate_pool_sharding(cfg, _fake_rules(2)) == 2
     assert D.validate_pool_sharding(get_smoke_config("rwkv6-3b"),
                                     _fake_rules(3)) == 3
-    with pytest.raises(NotImplementedError, match="item 14c"):
-        D.make_sharded_paged_step(get_smoke_config("rwkv6-3b"),
-                                  _fake_rules(2), page_size=PAGE)
+    # the recurrent archs build their sharded step (no refusal left)
+    for arch in ("rwkv6-3b", "jamba-1.5-large-398b"):
+        assert callable(D.make_sharded_paged_step(
+            get_smoke_config(arch), _fake_rules(2), page_size=PAGE))
 
 
 def test_rules_without_a_mesh_are_rejected():
